@@ -1,0 +1,51 @@
+"""The PyTorch port imports neither jax nor the JAX package: a run_scene
+style bind and step on the CPU, in a fresh interpreter, leaves both out of
+sys.modules (tisph_tpu/__init__.py imports jax and every solver, so
+importing any tisph_tpu module would pull jax in)."""
+
+import json
+import os
+import subprocess
+import sys
+
+import torch
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_CODE = r"""
+import json, sys
+import tisph_tpu_torch as tt
+from tisph_tpu_torch import bench, run_scene
+import chip_smoke
+
+rc = run_scene.main([sys.argv[1], "--steps", "2", "--substeps", "2", "--resort", "2",
+                     "--metrics-every", "1", "--device", "cpu"])
+assert rc == 0, rc
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "tisph_tpu"))
+print(json.dumps(bad))
+"""
+
+
+def test_port_imports_no_jax(tmp_path):
+    scene = {
+        "configuration": {
+            "dim": 2, "domainStart": [0.0, 0.0], "domainEnd": [1.0, 1.0],
+            "particleRadius": 0.04, "density0": 1000,
+            "gravitation": [0.0, -9.81], "c_s": 50.0,
+        },
+        "boundaryBlocks": [{"start": [0.6, 0.1], "end": [0.8, 0.3]}],
+        "fluidBlocks": [{"start": [0.15, 0.15], "end": [0.55, 0.55],
+                         "velocity": [0.2, -1.0]}],
+    }
+    path = tmp_path / "scene.json"
+    path.write_text(json.dumps(scene))
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+    proc = subprocess.run(
+        [sys.executable, "-c", _CODE, str(path)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []

@@ -1,0 +1,184 @@
+"""Port sweep parity: the plain density, force and bvol sweeps
+(ops.neighbors) against tisph_tpu's seg TPU kernel in interpret mode
+(density_sweep_seg, force_sweep_seg, bvol_sweep_seg) on the same sorted
+state, in 2D and 3D, with and without boundary particles.
+
+Tolerances, the JAX suite's for the same sums taken in another order:
+density and bvol rtol 2e-5 (tests/test_seg.py:117), force scaled by its
+largest component atol 5e-6 (tests/test_pallas.py:117).  The CUDA kernel
+runs on a card only (the `cuda` test)."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+import tisph_tpu as tt
+from tisph_tpu.models.state import state_to_host as jax_to_host
+from tisph_tpu.ops import forces as jF
+from tisph_tpu.ops import grid as jgrid
+from tisph_tpu.ops.neighbors import SweepConfig
+from tisph_tpu.ops.pallas import sweeps as ps
+
+import tisph_tpu_torch as pt
+from tisph_tpu_torch.ops import forces as F
+from tisph_tpu_torch.ops import grid, neighbors
+from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
+
+torch.set_num_threads(2)
+
+RTOL, FORCE_ATOL = 2e-5, 5e-6
+
+
+def _raw(dim, boundary):
+    raw = {
+        "configuration": {
+            "dim": dim, "domainStart": [0.0] * dim, "domainEnd": [1.0] * dim,
+            "particleRadius": 0.04, "density0": 1000,
+            "gravitation": [0.0, -9.81, 0.0][:dim], "c_s": 50.0,
+        },
+        "fluidBlocks": [{"start": [0.15] * dim, "end": [0.55] * dim,
+                         "velocity": [0.2, -1.0, 0.5][:dim], "density": 1000.0}],
+    }
+    if boundary:
+        raw["boundaryBlocks"] = [{"start": [0.5, 0.1, 0.3][:dim],
+                                  "end": [0.75, 0.35, 0.6][:dim]}]
+    return raw
+
+
+def _setup(dim, boundary):
+    """JAX seg inputs and the same sorted state in the port."""
+    raw = _raw(dim, boundary)
+    scene = tt.scene_from_dict(raw)
+    solver = tt.WCSPH(scene, sweep_cfg=SweepConfig(
+        impl="pallas", block_size=128, window_cap=512, tile=128, interpret=True,
+        layout="seg", pad_capacity=8192, fast_math=False))
+    state = solver.bind(tt.build_state(scene))
+    spec_j, params_j, cfg = solver.spec, solver.params, solver.sweep_cfg
+    st_j, ids_j, _ = jgrid.sort_state_by_cell(state, spec_j)
+    plan = jgrid.seg_plan(ids_j, spec_j, cfg.block_size, cfg.pad_capacity // cfg.block_size)
+    meta, _ = ps.seg_block_meta(plan, ids_j, spec_j, cfg.block_size, cfg.window_cap)
+    pack = ps.pack_state(st_j.x, st_j.v, st_j.density, st_j.pressure, st_j.mass,
+                         st_j.volume, st_j.material, ids_j, params_j)
+    jax_args = (meta, spec_j, params_j, cfg.block_size, cfg.window_cap)
+    kw = dict(tile=cfg.tile, interpret=True)
+
+    port = pt.state_from_host(jax_to_host(st_j), "cpu")
+    spec = grid.make_grid_spec(dim, scene.domain_start, scene.domain_end, scene.support_length)
+    params = pt.SolverParams.from_scene(pt.scene_from_dict(raw))
+    st, ids, perm = grid.sort_state_by_cell(port, spec)
+    assert torch.equal(perm, torch.arange(port.capacity))  # already sorted
+    bounds = grid.csr_bounds(ids, spec)
+    return dict(raw=raw, pack=pack, jax_args=jax_args, kw=kw, st_j=st_j, plan=plan,
+                params_j=params_j, st=st, ids=ids, bounds=bounds, spec=spec, params=params)
+
+
+def _effm(st, params):
+    flm = st.fluid_mask.to(torch.float32) * st.mass
+    return flm, flm + st.boundary_mask.to(torch.float32) * (params.density0 * st.volume)
+
+
+CASES = [(2, False), (2, True), (3, False), (3, True)]
+IDS = ["2d", "2d_boundary", "3d", "3d_boundary"]
+
+
+def check_plain_sweeps_match_seg_kernel(dim, boundary):
+    """The parity check; its 3D cases run from test_torch_sweeps_3d.py so
+    that each file's interpret-mode kernels stay within one worker's share."""
+    s = _setup(dim, boundary)
+    st, ids, bounds, spec, params = s["st"], s["ids"], s["bounds"], s["spec"], s["params"]
+    n = st.num_active
+    fluid = st.fluid_mask.numpy()[:n]
+    valid = np.asarray(s["plan"].back_valid)[:n]
+    assert valid[st.active_mask.numpy()[:n]].all()
+    flm, effm = _effm(st, params)
+
+    # density
+    rho_j = ps.density_sweep_seg(s["pack"], *s["jax_args"], **s["kw"])
+    rho = neighbors.density_sweep(neighbors.pack4(st.x, effm), ids, bounds, st.material,
+                                  spec, params)
+    np.testing.assert_allclose(rho.numpy()[:n][fluid], np.asarray(rho_j)[:n][fluid],
+                               rtol=RTOL)
+
+    # force, both sides fed the JAX density through the EOS
+    rho_f = jnp.where(s["st_j"].fluid_mask, rho_j, s["st_j"].density)
+    rho_f, p_j = jF.compute_pressures(rho_f, s["params_j"])
+    dv_j = np.asarray(ps.force_sweep_seg(ps.repack_eos(s["pack"], rho_f, p_j),
+                                         *s["jax_args"], **s["kw"]))[:n]
+    cap = st.capacity
+    rho_t, p_t = torch.tensor(np.asarray(rho_f)[:cap]), torch.tensor(np.asarray(p_j)[:cap])
+    aux = neighbors.pack_aux(p_t / torch.clamp(rho_t * rho_t, min=1e-12), flm, st.mass)
+    dv = neighbors.force_sweep(neighbors.pack4(st.x, effm), neighbors.pack4(st.v, rho_t),
+                               aux, ids, bounds, st.material, spec, params).numpy()[:n]
+    scale = np.abs(dv_j[fluid]).max()
+    np.testing.assert_allclose(dv[fluid] / scale, dv_j[fluid] / scale, atol=FORCE_ATOL)
+
+    # bvol (boundary rows), and every mode is 0 outside its row family
+    bd = st.boundary_mask.numpy()[:n]
+    delta = neighbors.bvol_sweep(neighbors.pack4(st.x, st.boundary_mask.to(torch.float32)),
+                                 ids, bounds, st.material, spec, params).numpy()[:n]
+    if boundary:
+        delta_j = np.asarray(ps.bvol_sweep_seg(s["pack"], *s["jax_args"], **s["kw"]))[:n]
+        np.testing.assert_allclose(delta[bd], delta_j[bd], rtol=RTOL)
+    assert bd.any() == boundary
+    assert (delta[~bd] == 0).all() and (rho.numpy()[:n][~fluid] == 0).all()
+    assert (dv[~fluid] == 0).all()
+
+
+@pytest.mark.parametrize("dim,boundary", CASES[:2], ids=IDS[:2])
+def test_plain_sweeps_match_seg_kernel(dim, boundary):
+    check_plain_sweeps_match_seg_kernel(dim, boundary)
+
+
+def test_sweep_wrappers_take_plain_versions_on_cpu():
+    s = _setup(2, True)
+    st, ids, bounds, spec, params = s["st"], s["ids"], s["bounds"], s["spec"], s["params"]
+    flm, effm = _effm(st, params)
+    pos = neighbors.pack4(st.x, effm)
+    vel = neighbors.pack4(st.v, st.density)
+    aux = neighbors.pack_aux(F.compute_pressures(st.density, params)[1] / 1e6, flm, st.mass)
+    before = [f.launches for f in (cuda_sweeps.density_sweep, cuda_sweeps.force_sweep,
+                                   cuda_sweeps.bvol_sweep)]
+    assert torch.equal(cuda_sweeps.density_sweep(pos, ids, bounds, st.material, spec, params),
+                       neighbors.density_sweep(pos, ids, bounds, st.material, spec, params))
+    assert torch.equal(
+        cuda_sweeps.force_sweep(pos, vel, aux, ids, bounds, st.material, spec, params),
+        neighbors.force_sweep(pos, vel, aux, ids, bounds, st.material, spec, params))
+    assert torch.equal(cuda_sweeps.bvol_sweep(pos, ids, bounds, st.material, spec, params),
+                       neighbors.bvol_sweep(pos, ids, bounds, st.material, spec, params))
+    assert before == [f.launches for f in (cuda_sweeps.density_sweep, cuda_sweeps.force_sweep,
+                                           cuda_sweeps.bvol_sweep)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,boundary", CASES, ids=IDS)
+def test_kernel_matches_plain_on_cuda(dim, boundary):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sweep kernel has no CPU mode")
+    raw = _raw(dim, boundary)
+    scene = pt.scene_from_dict(raw)
+    solver = pt.WCSPH(scene, device="cuda")
+    state = solver.bind(pt.build_state(scene, device="cuda"))
+    st, ids, _ = grid.sort_state_by_cell(state, solver.spec)
+    bounds = grid.csr_bounds(ids, solver.spec)
+    spec, params = solver.spec, solver.params
+    flm, effm = _effm(st, params)
+    pos = neighbors.pack4(st.x, effm)
+    rho = neighbors.density_sweep(pos, ids, bounds, st.material, spec, params)
+    rho, p = F.compute_pressures(torch.where(st.fluid_mask, rho, st.density), params)
+    vel = neighbors.pack4(st.v, rho)
+    aux = neighbors.pack_aux(p / torch.clamp(rho * rho, min=1e-12), flm, st.mass)
+    pos_b = neighbors.pack4(st.x, st.boundary_mask.to(torch.float32))
+    fl, bd = st.fluid_mask, st.boundary_mask
+    for fast, force_atol in ((False, FORCE_ATOL), (True, 2 * FORCE_ATOL)):
+        got = cuda_sweeps.density_sweep(pos, ids, bounds, st.material, spec, params, fast)
+        want = neighbors.density_sweep(pos, ids, bounds, st.material, spec, params)
+        torch.testing.assert_close(got[fl], want[fl], rtol=RTOL, atol=0)
+        got = cuda_sweeps.bvol_sweep(pos_b, ids, bounds, st.material, spec, params, fast)
+        want = neighbors.bvol_sweep(pos_b, ids, bounds, st.material, spec, params)
+        torch.testing.assert_close(got[bd], want[bd], rtol=RTOL, atol=0)
+        got = cuda_sweeps.force_sweep(pos, vel, aux, ids, bounds, st.material, spec, params,
+                                      fast)
+        want = neighbors.force_sweep(pos, vel, aux, ids, bounds, st.material, spec, params)
+        scale = want[fl].abs().max()
+        torch.testing.assert_close(got[fl] / scale, want[fl] / scale, rtol=0, atol=force_atol)

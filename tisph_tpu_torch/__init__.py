@@ -1,0 +1,32 @@
+"""tisph_tpu_torch: the WCSPH solver of ``tisph_tpu`` in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+It imports torch and numpy and never jax or ``tisph_tpu``; the JAX
+package is the reference it is tested against.  Module tree (each module
+mirrors the ``tisph_tpu`` module of the same path):
+
+- ``config``             scene schema, SolverParams
+- ``geometry``           lattice sampler, ``build_state`` (scene -> state)
+- ``models``             SimState, SolverBase, WCSPH
+- ``ops``                kernels, EOS, grid, per-particle phases, plain sweeps
+- ``ops.cuda``           kernel wrappers and the nvcc build
+- ``csrc``               the CUDA sources
+- ``run_scene``, ``bench``  entry points (``python -m tisph_tpu_torch.<name>``)
+"""
+
+from tisph_tpu_torch.config import SceneConfig, SolverParams, load_scene, scene_from_dict
+from tisph_tpu_torch.geometry.builder import build_state
+from tisph_tpu_torch.models.state import SimState, state_from_host, state_to_host
+from tisph_tpu_torch.models.wcsph import WCSPH
+
+__all__ = [
+    "SceneConfig",
+    "SolverParams",
+    "load_scene",
+    "scene_from_dict",
+    "build_state",
+    "SimState",
+    "state_from_host",
+    "state_to_host",
+    "WCSPH",
+]

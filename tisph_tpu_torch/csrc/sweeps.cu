@@ -1,0 +1,222 @@
+// WCSPH neighbour sweeps (density, force, bvol) for Hopper (sm_90a).
+//
+// Replaces tisph_tpu/ops/pallas/sweeps.py::_seg_sweep_kernel, the TPU's
+// seg-layout sweep, in its density, force and bvol modes; the pair math is
+// that kernel's _tile_math (sweeps.py:181-305) and is mirrored by the plain
+// versions in tisph_tpu_torch/ops/neighbors.py.
+//
+// Design: one thread per row i of the cell-sorted state, as the reference
+// Taichi code walks for_all_neighbors.  The thread decodes i's sort-time
+// cell from its sort-time id, and for each of the 3^(dim-1) stencil rows
+// inside the grid reads the contiguous candidate range
+// [bounds[c_lo], bounds[c_hi + 1]) and sums over it in f32 registers.
+// Rows outside the mode's consumer family (fluid for density and force,
+// boundary for bvol) write 0 and exit at once.  No shared-memory tiling,
+// TMA or tensor cores: the sweep is bound by the j loads (about 27 * 64 =
+// 1,728 candidates per interior i at radius spacing, about 270 of them
+// inside h), which mostly hit L2; neighbouring threads sit in the same or
+// adjacent cells and walk nearly the same runs, so their loads partly
+// coalesce into broadcasts.  Pairs with q >= 1 are skipped before the
+// force mode's j loads of velocity and pressure: the branch-free spline is
+// exactly 0 there, so the skip changes no sum.
+//
+// Numerics kept from the TPU kernel:
+// - self pair: density and bvol fold W(0) in through j == i; in force dx
+//   is bitwise 0 (x_i and x_j come from the same buffer) and the rsqrt
+//   clamp max(r2, 1e-12) keeps coef finite, so it adds exactly 0;
+// - the spline normalisation k_sig (k_sig / h for force) is one multiply
+//   per i after the sum, and the cohesion coefficient carries the extra h;
+// - gravity is added once per i after the sum;
+// - FAST = fast_math: an approximate reciprocal (__fdividef) on the two
+//   viscosity-only divides; otherwise exact IEEE divides.
+
+#include <cuda_runtime.h>
+
+namespace {
+
+enum Mode { kDensity = 0, kForce = 1, kBvol = 2 };
+
+struct GridArgs {
+  int res0;   // cells along axis 0
+  int res1;   // cells along axis 1 (3D only)
+  int res_z;  // cells along the fastest axis
+  int s0;     // id stride of axis 0
+  int s1;     // id stride of axis 1 (3D only)
+};
+
+struct PhysArgs {
+  float inv_h;     // 1 / h
+  float fin;       // k_sig (density, bvol) or k_sig / h (force)
+  float eps_visc;  // 0.01 h^2
+  float visc_num;  // 2 nu h c_s
+  float nub_num;   // sigma_b h c_s
+  float coh_num;   // h * surface_tension
+  float g[3];      // gravity
+};
+
+template <bool FAST>
+__device__ __forceinline__ float fdiv(float a, float b) {
+  return FAST ? a * __fdividef(1.0f, b) : a / b;
+}
+
+template <int MODE, int DIM, bool FAST>
+__global__ void __launch_bounds__(128)
+sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
+             const float4* __restrict__ aux, const int* __restrict__ ids,
+             const int* __restrict__ bounds, const int* __restrict__ material,
+             float* __restrict__ out, int n, GridArgs g, PhysArgs p) {
+  constexpr int kOut = (MODE == kForce) ? DIM : 1;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int mat = material[i];
+  const bool consumer = (MODE == kBvol) ? (mat == 0) : (mat == 1);
+  if (!consumer) {
+#pragma unroll
+    for (int a = 0; a < kOut; ++a) out[i * kOut + a] = 0.0f;
+    return;
+  }
+
+  // sort-time cell of i, decoded from its id
+  const int id = ids[i];
+  const int cx = id / g.s0;
+  int cy = 0, cz;
+  if (DIM == 3) {
+    const int rem = id - cx * g.s0;
+    cy = rem / g.s1;
+    cz = rem - cy * g.s1;
+  } else {
+    cz = id - cx * g.s0;
+  }
+  const int zlo = max(cz - 1, 0);
+  const int zhi = min(cz + 1, g.res_z - 1);
+
+  const float4 pi = pos[i];
+  float4 vi = make_float4(0.f, 0.f, 0.f, 0.f);
+  float p_rho2_i = 0.f, coh_i = 0.f, nub_i = 0.f;
+  if (MODE == kForce) {
+    vi = vel[i];
+    const float4 ai = aux[i];
+    p_rho2_i = ai.x;
+    coh_i = -(p.coh_num * (1.0f / fmaxf(ai.z, 1e-30f)));
+    nub_i = p.nub_num / (2.0f * vi.w);
+  }
+  float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f;
+
+  constexpr int kOy = (DIM == 3) ? 1 : 0;
+  for (int ox = -1; ox <= 1; ++ox) {
+    const int nx = cx + ox;
+    if (nx < 0 || nx >= g.res0) continue;
+    for (int oy = -kOy; oy <= kOy; ++oy) {
+      const int ny = cy + oy;
+      if (DIM == 3 && (ny < 0 || ny >= g.res1)) continue;
+      const int base = nx * g.s0 + ny * g.s1;  // ny == 0 in 2D
+      const int j1 = bounds[base + zhi + 1];
+      for (int j = bounds[base + zlo]; j < j1; ++j) {
+        const float4 pj = pos[j];
+        const float dx = pi.x - pj.x;
+        const float dy = pi.y - pj.y;
+        const float dz = pi.z - pj.z;
+        float r2 = dx * dx + dy * dy;
+        if (DIM == 3) r2 += dz * dz;
+        const float rs = rsqrtf(fmaxf(r2, 1e-12f));
+        const float q = (r2 * rs) * p.inv_h;
+        if (q >= 1.0f) continue;  // every term is exactly 0 here
+        const float p1 = fmaxf(1.0f - q, 0.0f);
+        const float p2 = fmaxf(0.5f - q, 0.0f);
+        const float p1sq = p1 * p1;
+        const float p2sq = p2 * p2;
+        const float w = 2.0f * p1 * p1sq - 8.0f * p2 * p2sq;
+        if (MODE != kForce) {
+          acc0 += pj.w * w;
+          continue;
+        }
+        const float gmag = (24.0f * p2sq - 6.0f * p1sq) * rs;
+        const float4 vj = vel[j];
+        const float4 aj = aux[j];
+        const float flm = aj.y;
+        const float bdv = pj.w - flm;
+        float dot = (vi.x - vj.x) * dx + (vi.y - vj.y) * dy;
+        if (DIM == 3) dot += (vi.z - vj.z) * dz;
+        const float dot_neg = fdiv<FAST>(fminf(dot, 0.0f), r2 + p.eps_visc);
+        const float nu_f = p.visc_num * fdiv<FAST>(1.0f, vi.w + vj.w);
+        const float visc = dot_neg * (flm * nu_f + bdv * nub_i);
+        const float press = pj.w * p_rho2_i + flm * aj.x;
+        const float coef = (visc - press) * gmag + (coh_i * flm) * w;
+        acc0 += coef * dx;
+        acc1 += coef * dy;
+        if (DIM == 3) acc2 += coef * dz;
+      }
+    }
+  }
+
+  if (MODE == kForce) {
+    out[i * DIM + 0] = acc0 * p.fin + p.g[0];
+    out[i * DIM + 1] = acc1 * p.fin + p.g[1];
+    if (DIM == 3) out[i * DIM + 2] = acc2 * p.fin + p.g[2];
+  } else {
+    out[i] = acc0 * p.fin;
+  }
+}
+
+template <int MODE, int DIM, bool FAST>
+void launch(const void* pos, const void* vel, const void* aux, const void* ids,
+            const void* bounds, const void* material, void* out, int n,
+            const GridArgs& g, const PhysArgs& p, cudaStream_t stream) {
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  sweep_kernel<MODE, DIM, FAST><<<blocks, threads, 0, stream>>>(
+      static_cast<const float4*>(pos), static_cast<const float4*>(vel),
+      static_cast<const float4*>(aux), static_cast<const int*>(ids),
+      static_cast<const int*>(bounds), static_cast<const int*>(material),
+      static_cast<float*>(out), n, g, p);
+}
+
+template <int MODE, int DIM>
+void launch_fast(int fast, const void* pos, const void* vel, const void* aux,
+                 const void* ids, const void* bounds, const void* material,
+                 void* out, int n, const GridArgs& g, const PhysArgs& p,
+                 cudaStream_t stream) {
+  if (fast) {
+    launch<MODE, DIM, true>(pos, vel, aux, ids, bounds, material, out, n, g, p, stream);
+  } else {
+    launch<MODE, DIM, false>(pos, vel, aux, ids, bounds, material, out, n, g, p, stream);
+  }
+}
+
+}  // namespace
+
+// mode: 0 density, 1 force, 2 bvol; dim: 2 or 3.  vel and aux are read by
+// the force mode only.  Returns cudaGetLastError() after the launch, or
+// cudaErrorInvalidValue for an unknown mode or dim.
+extern "C" int tisph_sweep(int mode, int dim, int fast_math, const void* pos,
+                           const void* vel, const void* aux, const void* ids,
+                           const void* bounds, const void* material, void* out,
+                           int n, int res0, int res1, int res_z, int s0, int s1,
+                           float inv_h, float fin, float eps_visc,
+                           float visc_num, float nub_num, float coh_num,
+                           float gx, float gy, float gz, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  const GridArgs g{res0, res1, res_z, s0, s1};
+  const PhysArgs p{inv_h, fin, eps_visc, visc_num, nub_num, coh_num, {gx, gy, gz}};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dim == 3 && mode == kDensity) {
+    launch<kDensity, 3, false>(pos, vel, aux, ids, bounds, material, out, n, g, p, st);
+  } else if (dim == 3 && mode == kBvol) {
+    launch<kBvol, 3, false>(pos, vel, aux, ids, bounds, material, out, n, g, p, st);
+  } else if (dim == 3 && mode == kForce) {
+    launch_fast<kForce, 3>(fast_math, pos, vel, aux, ids, bounds, material, out, n, g, p, st);
+  } else if (dim == 2 && mode == kDensity) {
+    launch<kDensity, 2, false>(pos, vel, aux, ids, bounds, material, out, n, g, p, st);
+  } else if (dim == 2 && mode == kBvol) {
+    launch<kBvol, 2, false>(pos, vel, aux, ids, bounds, material, out, n, g, p, st);
+  } else if (dim == 2 && mode == kForce) {
+    launch_fast<kForce, 2>(fast_math, pos, vel, aux, ids, bounds, material, out, n, g, p, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* tisph_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

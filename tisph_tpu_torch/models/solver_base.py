@@ -1,0 +1,142 @@
+"""Solver base: bind, step, the R-group rollout schedule and metrics.
+
+Counterpart of ``tisph_tpu.models.solver_base.SolverBase`` for one device.
+PyTorch runs eagerly, so a rollout is a Python loop over R-groups: the
+neighbour structure (cell sort and CSR bounds) is rebuilt once per group
+of ``resort_every`` substeps and reused by the substeps in between, and
+the last group takes the remainder (``solver_base.py:261-326``).  With
+R = 1 every substep rebuilds, the reference's cadence.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from tisph_tpu_torch.config import SceneConfig, SolverParams
+from tisph_tpu_torch.models.state import SimState
+from tisph_tpu_torch.ops import grid as gridops
+from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
+from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
+from tisph_tpu_torch.ops.neighbors import pack4
+
+
+class SolverBase:
+    """Static configuration (SolverParams, GridSpec, device, R) plus the
+    step; all simulation state lives in :class:`SimState`."""
+
+    def __init__(
+        self,
+        scene: SceneConfig,
+        compat: str = "reference",
+        device: str | torch.device = "cuda",
+        resort_every: int = 1,
+        fast_math: bool = True,
+    ):
+        """``resort_every``: substeps per neighbour-structure rebuild (R).
+        ``fast_math``: approximate reciprocals on the force sweep's two
+        viscosity-only divides in the CUDA kernel (no effect on the CPU)."""
+        if resort_every < 1:
+            raise ValueError(f"resort_every must be >= 1, got {resort_every}")
+        self.scene = scene
+        self.params = SolverParams.from_scene(scene, compat)
+        self.device = torch.device(device)
+        self.resort_every = int(resort_every)
+        self.fast_math = bool(fast_math)
+        self.spec = gridops.make_grid_spec(
+            dim=scene.dim,
+            domain_start=scene.domain_start,
+            domain_end=scene.domain_end,
+            support_length=scene.support_length,
+        )
+        self._bound = False
+
+    def _check_device(self, state: SimState) -> None:
+        dev = state.device
+        if dev.type != self.device.type or (
+            self.device.index is not None and dev.index != self.device.index
+        ):
+            raise ValueError(f"state is on {dev}, solver on {self.device}")
+
+    def bind(self, state: SimState) -> SimState:
+        """Check the state's device and compute the static Akinci boundary
+        volumes (boundary particles never move in this slice)."""
+        self._check_device(state)
+        state = self._precompute_boundary_volumes(state)
+        self._bound = True
+        return state
+
+    def _precompute_boundary_volumes(self, state: SimState) -> SimState:
+        """V_b = 1 / (k_sig sum_{j boundary} w) on boundary rows
+        (sph_basev2.py:190-201), by the sweep kernel's ``bvol`` mode;
+        returned in the caller's (unsorted) order."""
+        if not bool(state.boundary_mask.any()):
+            return state
+        spec, params = self.spec, self.params
+        st, ids, perm = gridops.sort_state_by_cell(state, spec)
+        bounds = cuda_bounds.csr_bounds_sorted(ids, spec)
+        bd = st.boundary_mask
+        pos = pack4(st.x, bd.to(torch.float32))
+        delta = cuda_sweeps.bvol_sweep(pos, ids, bounds, st.material, spec, params,
+                                       self.fast_math)
+        vol = torch.where(bd, 1.0 / torch.clamp(delta, min=1e-10), st.volume)
+        volume = torch.empty_like(vol)
+        volume[perm] = vol  # scatter back to the caller's order
+        return dataclasses.replace(state, volume=volume)
+
+    # -- provided by concrete solvers ------------------------------------
+    def _build(self, state: SimState):
+        raise NotImplementedError
+
+    def _apply(self, state: SimState, cache) -> SimState:
+        raise NotImplementedError
+
+    # -- public API ------------------------------------------------------
+    def step(self, state: SimState) -> SimState:
+        """One substep with a fresh neighbour structure."""
+        return self._groups(state, 1, 1)
+
+    def rollout(self, state: SimState, num_steps: int) -> SimState:
+        """``num_steps`` substeps in groups of ``resort_every``."""
+        return self._groups(state, num_steps, self.resort_every)
+
+    def _groups(self, state: SimState, num_steps: int, R: int) -> SimState:
+        if not self._bound:
+            state = self.bind(state)
+        self._check_device(state)
+        done = 0
+        while done < num_steps:
+            state, cache = self._build(state)
+            k = min(R, num_steps - done)
+            for _ in range(k):
+                state = self._apply(state, cache)
+            done += k
+        return state
+
+    def metrics(self, state: SimState) -> dict[str, float | int]:
+        """Max fluid speed, CFL number, mean and max relative fluid density
+        error, live particle count and the count of non-finite x and v
+        entries; one device-to-host copy."""
+        params = self.params
+        fluid = state.fluid_mask
+        zero = torch.zeros((), dtype=torch.float32, device=state.device)
+        speed = torch.sqrt(torch.sum(state.v * state.v, dim=-1))
+        vmax = torch.max(torch.where(fluid, speed, zero))
+        rho_err = torch.where(
+            fluid, torch.abs(state.density - params.density0) / params.density0, zero
+        )
+        nf = torch.clamp(fluid.sum(), min=1)
+        nan = (~torch.isfinite(state.x)).sum() + (~torch.isfinite(state.v)).sum()
+        vals = torch.stack([
+            vmax, vmax * params.dt / params.support_length,
+            rho_err.sum() / nf, rho_err.max(), nan.to(torch.float32),
+        ]).tolist()
+        return {
+            "max_velocity": vals[0],
+            "cfl": vals[1],
+            "avg_density_error": vals[2],
+            "max_density_error": vals[3],
+            "num_active": state.num_active,
+            "nan_count": int(vals[4]),
+        }

@@ -1,0 +1,74 @@
+"""WCSPH: the flagship solver (the reference's SPHBaseV2 + WCSPHV2).
+
+One R-group, as ``tisph_tpu``'s seg rollout runs it
+(``WCSPH._seg_build`` and ``_seg_apply_pack``), without the TPU's pack
+and block plan:
+
+- ``_build``, once per group: stable sort by cell, CSR bounds (bounds
+  kernel), and the group-constant mass coefficients;
+- ``_apply``, every substep: density sweep (kept on fluid rows) -> Tait
+  EOS -> force sweep -> symplectic Euler -> domain-box clamp.
+
+Pair membership uses the sort-time ids and bounds of the group, and r^2
+uses current positions (``wcsph.py:160-182``): a pair is missed only when
+motion since the rebuild brought it within h from more than one cell away.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from tisph_tpu_torch.models.solver_base import SolverBase
+from tisph_tpu_torch.models.state import SimState
+from tisph_tpu_torch.ops import forces as F
+from tisph_tpu_torch.ops import grid as gridops
+from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
+from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
+from tisph_tpu_torch.ops.neighbors import pack4, pack_aux
+
+
+class GroupCache(NamedTuple):
+    """What stays fixed through an R-group."""
+
+    ids: torch.Tensor     # (N,) i32 sort-time cell ids
+    bounds: torch.Tensor  # (num_cells + 1,) i32 CSR bounds of ``ids``
+    fluid: torch.Tensor   # (N,) bool
+    effm: torch.Tensor    # (N,) f32 fl * m + bd * rho0 * V
+    flm: torch.Tensor     # (N,) f32 fl * m
+
+
+class WCSPH(SolverBase):
+    def _build(self, state: SimState) -> tuple[SimState, GroupCache]:
+        state, ids, _ = gridops.sort_state_by_cell(state, self.spec)
+        bounds = cuda_bounds.csr_bounds_sorted(ids, self.spec)
+        fluid = state.fluid_mask
+        flm = fluid.to(torch.float32) * state.mass
+        effm = flm + state.boundary_mask.to(torch.float32) * (
+            self.params.density0 * state.volume
+        )
+        return state, GroupCache(ids, bounds, fluid, effm, flm)
+
+    def _apply(self, state: SimState, cache: GroupCache) -> SimState:
+        spec, params, fm = self.spec, self.params, self.fast_math
+        ids, bounds, fluid = cache.ids, cache.bounds, cache.fluid
+
+        pos = pack4(state.x, cache.effm)
+        rho = cuda_sweeps.density_sweep(pos, ids, bounds, state.material, spec, params, fm)
+        # boundary rows keep their stored density
+        rho = torch.where(fluid, rho, state.density)
+        rho = F.apply_density_mode(rho, state, params)
+        rho, pressure = F.compute_pressures(rho, params)
+        p_rho2 = pressure / torch.clamp(rho * rho, min=1e-12)
+
+        vel = pack4(state.v, rho)
+        aux = pack_aux(p_rho2, cache.flm, state.mass)
+        # zero on non-fluid rows, as the kernel's contract says
+        dv = cuda_sweeps.force_sweep(pos, vel, aux, ids, bounds, state.material,
+                                     spec, params, fm)
+
+        state = dataclasses.replace(state, density=rho, pressure=pressure)
+        state = F.advect(state, dv, params)
+        return F.enforce_domain_boundary(state, params)

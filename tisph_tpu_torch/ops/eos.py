@@ -1,0 +1,35 @@
+"""Tait equation of state with the reference's density clamp
+(wcsphv2.py:44-48): rho <- max(rho, rho0), p = B ((rho/rho0)^gamma - 1)."""
+
+from __future__ import annotations
+
+import torch
+
+
+def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
+    """x**y by square-and-multiply in the order XLA lowers ``integer_pow``,
+    so an integer exponent rounds as it does in ``tisph_tpu``."""
+    acc = None
+    while y > 0:
+        if y & 1:
+            acc = x if acc is None else acc * x
+        y >>= 1
+        if y > 0:
+            x = x * x
+    return acc
+
+
+def tait_pressure(
+    density: torch.Tensor,
+    density0: float,
+    stiffness: float,
+    exponent: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (clamped_density, pressure)."""
+    rho = torch.clamp(density, min=density0)
+    ratio = rho / density0
+    if float(exponent) == int(exponent) and 1 <= int(exponent) <= 16:
+        p = _integer_pow(ratio, int(exponent))
+    else:
+        p = ratio**exponent
+    return rho, stiffness * (p - 1.0)

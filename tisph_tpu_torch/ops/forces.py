@@ -1,0 +1,77 @@
+"""Per-particle WCSPH phases: EOS, the reference-exact density mode,
+symplectic Euler and the domain-box clamp (``tisph_tpu.ops.forces``
+lines 277-365, and the f32 bound arithmetic of its seg step).
+
+The pair sums live in ``ops.neighbors`` (plain versions) and
+``ops.cuda.sweeps`` (the kernels).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from tisph_tpu_torch.config import SolverParams
+from tisph_tpu_torch.models.state import SimState
+from tisph_tpu_torch.ops.eos import tait_pressure
+from tisph_tpu_torch.ops.kernels import cubic_kernel_sigma
+
+
+def compute_pressures(
+    density: torch.Tensor, params: SolverParams
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Clamp + Tait EOS for all particles; returns (density, pressure)."""
+    return tait_pressure(density, params.density0, params.stiffness, params.exponent)
+
+
+def apply_density_mode(
+    rho: torch.Tensor, state: SimState, params: SolverParams
+) -> torch.Tensor:
+    """``reference_exact``: the reference's V2 solver overwrites the
+    summed fluid density with the self term m_i W(0) (wcsphv2.py:29-34);
+    otherwise ``rho`` is returned unchanged."""
+    if not params.reference_exact:
+        return rho
+    w0 = cubic_kernel_sigma(params.dim, params.support_length)
+    return torch.where(state.fluid_mask, state.mass * w0, rho)
+
+
+def advect(state: SimState, d_velocity: torch.Tensor, params: SolverParams) -> SimState:
+    """Symplectic Euler on fluid particles (wcsphv2.py:95-100)."""
+    fluid = state.fluid_mask[:, None]
+    v = torch.where(fluid, state.v + params.dt * d_velocity, state.v)
+    x = torch.where(fluid, state.x + params.dt * v, state.x)
+    return dataclasses.replace(state, x=x, v=v)
+
+
+def _box(params: SolverParams, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Clamp bounds [start + padding, end - padding] in f32 arithmetic, as
+    ``tisph_tpu`` forms them (an f64 sum moves a bound by one ulp)."""
+    pad = np.float32(params.padding)
+    lo = [np.float32(s) + pad for s in params.domain_start]
+    hi = [np.float32(e) - pad for e in params.domain_end]
+    return (torch.tensor(np.asarray(lo, np.float32), device=device),
+            torch.tensor(np.asarray(hi, np.float32), device=device))
+
+
+def enforce_domain_boundary(state: SimState, params: SolverParams) -> SimState:
+    """Domain-box clamp with a combined collision normal
+    (sph_basev2.py:158-189): fluid particles are clamped into the box and
+    their velocity reflected, v -= (1 + c_f) (v . n) n, each axis on its own
+    coordinate."""
+    lo, hi = _box(params, state.device)
+    fluid = state.fluid_mask[:, None]
+    one = torch.ones((), dtype=state.x.dtype, device=state.device)
+    zero = torch.zeros((), dtype=state.x.dtype, device=state.device)
+
+    normal = torch.where(state.x > hi, one, zero) + torch.where(state.x <= lo, -one, zero)
+    x = torch.where(fluid, torch.clamp(state.x, min=lo, max=hi), state.x)
+
+    n_len = torch.sqrt(torch.sum(normal * normal, dim=-1, keepdim=True))
+    n_hat = normal / torch.clamp(n_len, min=1e-6)
+    v_dot_n = torch.sum(state.v * n_hat, dim=-1, keepdim=True)
+    v_reflected = state.v - (1.0 + params.collision_factor) * v_dot_n * n_hat
+    v = torch.where(fluid & (n_len > 1e-6), v_reflected, state.v)
+    return dataclasses.replace(state, x=x, v=v)

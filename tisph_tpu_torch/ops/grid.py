@@ -1,0 +1,176 @@
+"""Uniform-grid binning: cell ids, a stable sort by cell, CSR bounds and
+per-particle stencil runs.
+
+The same contract as ``tisph_tpu.ops.grid``, so sorted ids, permutations
+and bounds are equal between the two packages.  Cell size = support
+length; flat ids are row-major (last axis fastest) with the gap-padded
+strides of :class:`GridSpec`.  With that order the 3^dim cells around a
+particle are 3^(dim-1) contiguous runs of the sorted particle array, one
+per *stencil row* (the particle's neighbouring leading coordinates, z-1 to
+z+1 in the fastest axis).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from tisph_tpu_torch.models.state import MATERIAL_INVALID, SimState
+
+
+@dataclasses.dataclass(frozen=True)
+class GridSpec:
+    """Static grid geometry: cell size = support length, resolution =
+    ceil(domain size / cell)."""
+
+    dim: int
+    domain_start: tuple[float, ...]
+    domain_end: tuple[float, ...]
+    cell_size: float
+    res: tuple[int, ...]
+
+    @property
+    def num_cells(self) -> int:
+        """Size of the flat id space; also the inactive sentinel id.  With
+        the padded strides this exceeds prod(res) by the gap rows."""
+        return int(self.res[0] * self.strides[0])
+
+    @property
+    def num_rows(self) -> int:
+        """Stencil rows: 3^(dim-1) contiguous runs cover the 3^dim cells."""
+        return 3 ** (self.dim - 1)
+
+    @property
+    def strides(self) -> tuple[int, ...]:
+        """Row-major strides, last axis fastest, each inner non-z axis
+        padded by one gap row (stride uses res+1), so that an out-of-grid
+        stencil offset lands in empty id space instead of wrapping into the
+        next column's cells.  Axis 0 needs no pad, so 2D strides are
+        unpadded."""
+        s = [1] * self.dim
+        for i in range(self.dim - 2, -1, -1):
+            pad = 1 if (i + 1) <= self.dim - 2 else 0
+            s[i] = s[i + 1] * (self.res[i + 1] + pad)
+        return tuple(s)
+
+
+def make_grid_spec(
+    dim: int,
+    domain_start: Sequence[float],
+    domain_end: Sequence[float],
+    support_length: float,
+) -> GridSpec:
+    res = tuple(
+        int(math.ceil((e - s) / support_length))
+        for s, e in zip(domain_start, domain_end)
+    )
+    return GridSpec(
+        dim=dim,
+        domain_start=tuple(float(v) for v in domain_start),
+        domain_end=tuple(float(v) for v in domain_end),
+        cell_size=float(support_length),
+        res=res,
+    )
+
+
+def cell_coords(x: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """(N, dim) int32 cell coordinates, clipped into the grid so that
+    out-of-domain stragglers stay in edge cells."""
+    start = torch.tensor(spec.domain_start, dtype=x.dtype, device=x.device)
+    c = torch.floor((x - start) / spec.cell_size).to(torch.int32)
+    hi = torch.tensor(spec.res, dtype=torch.int32, device=x.device) - 1
+    return torch.minimum(torch.clamp(c, min=0), hi)
+
+
+def flat_cell_ids(coords: torch.Tensor, material: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """(N,) int32 flat ids; inactive slots get the sentinel ``num_cells``
+    so a stable sort puts them at the tail."""
+    strides = torch.tensor(spec.strides, dtype=torch.int32, device=coords.device)
+    ids = torch.sum(coords * strides, dim=-1, dtype=torch.int32)
+    return torch.where(material == MATERIAL_INVALID,
+                       torch.full_like(ids, spec.num_cells), ids)
+
+
+def coords_from_ids(ids: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """Inverse of :func:`flat_cell_ids` for real cells: (N, dim) int32
+    coordinates decoded from flat ids."""
+    cols = []
+    rem = ids
+    for s in spec.strides[:-1]:
+        cols.append(torch.div(rem, s, rounding_mode="floor"))
+        rem = torch.remainder(rem, s)
+    cols.append(rem)
+    return torch.stack(cols, dim=-1).to(torch.int32)
+
+
+def sort_state_by_cell(
+    state: SimState, spec: GridSpec
+) -> tuple[SimState, torch.Tensor, torch.Tensor]:
+    """Reorder every particle field by cell id with a stable sort.
+
+    Returns (sorted_state, sorted_ids, perm), perm int64.  The sorted state
+    holds fresh tensors, so nothing the caller holds is aliased.
+    """
+    coords = cell_coords(state.x, spec)
+    ids = flat_cell_ids(coords, state.material, spec)
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    out = {
+        f.name: getattr(state, f.name).index_select(0, perm)
+        for f in dataclasses.fields(state)
+        if isinstance(getattr(state, f.name), torch.Tensor)
+    }
+    return dataclasses.replace(state, **out), sorted_ids, perm
+
+
+def csr_bounds(sorted_ids: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """bounds[c] = first sorted index with cell id >= c, c in [0,
+    num_cells]; the particles of cell c are sorted[bounds[c]:bounds[c+1]].
+
+    The plain version of the bounds kernel (``ops.cuda.bounds``), by
+    ``torch.searchsorted``; the ids must be sorted, inactive tail =
+    ``num_cells``."""
+    queries = torch.arange(spec.num_cells + 1, dtype=sorted_ids.dtype,
+                           device=sorted_ids.device)
+    return torch.searchsorted(sorted_ids, queries, side="left", out_int32=True)
+
+
+def _row_offsets(spec: GridSpec) -> np.ndarray:
+    """(num_rows, dim-1) stencil row offsets in {-1, 0, 1}."""
+    grids = np.meshgrid(*([np.arange(-1, 2, dtype=np.int32)] * (spec.dim - 1)),
+                        indexing="ij")
+    return np.stack([g.ravel() for g in grids], axis=-1)
+
+
+def stencil_runs(coords: torch.Tensor, bounds: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """(N, num_rows, 2) int32 [start, end) runs of the sorted array.
+
+    For a particle in cell (c_0..c_{d-1}) and row offset o, the run covers
+    cells (c+o, z) for z in [c_{d-1}-1, c_{d-1}+1] clipped to the grid.
+    Rows outside the grid give empty runs [s, s) at the nearest valid cell.
+    """
+    res = np.asarray(spec.res)
+    strides = np.asarray(spec.strides)
+    dev = coords.device
+    lead = coords[:, : spec.dim - 1]
+    z = coords[:, spec.dim - 1]
+    z_lo = torch.clamp(z - 1, min=0)
+    z_hi = torch.clamp(z + 1, max=int(res[-1]) - 1)
+    res_lead = torch.tensor(res[:-1], dtype=torch.int32, device=dev)
+    strides_lead = torch.tensor(strides[:-1], dtype=torch.int32, device=dev)
+
+    runs = []
+    for o in _row_offsets(spec):
+        nb = lead + torch.tensor(o, dtype=torch.int32, device=dev)
+        valid = torch.all((nb >= 0) & (nb < res_lead), dim=-1)
+        nb_cl = torch.minimum(torch.clamp(nb, min=0), res_lead - 1)
+        base = torch.sum(nb_cl * strides_lead, dim=-1, dtype=torch.int32)
+        start = bounds[torch.clamp(base + z_lo, 0, spec.num_cells).long()]
+        end = torch.where(
+            valid, bounds[torch.clamp(base + z_hi + 1, 0, spec.num_cells).long()], start
+        )
+        runs.append(torch.stack([start, end], dim=-1))
+    return torch.stack(runs, dim=1)

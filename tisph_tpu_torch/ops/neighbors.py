@@ -1,0 +1,164 @@
+"""Neighbour sweeps over the cell-sorted state: the plain PyTorch versions
+of the sweep kernel (``ops.cuda.sweeps``), with the same signatures.
+
+Three modes, each a sum over the candidates j of a row i:
+
+- ``density``: rho_i = k_sig sum_j effm_j w_ij, self term included;
+- ``bvol``:    delta_i = k_sig sum_j bd_j w_ij (Akinci boundary volume
+  denominator, self term included);
+- ``force``:   dv_i = g + (k_sig / h) sum_j coef_ij dx_ij, the fused
+  viscosity, pressure and cohesion terms of ``tisph_tpu``'s TPU sweep
+  kernel (ops/pallas/sweeps.py ``_tile_math``, lines 181-305).
+
+The candidates of i are every j whose sort-time cell id lies in one of
+i's 3^(dim-1) sort-time stencil-row ranges (``grid.stencil_runs`` over the
+rebuild's bounds, i's cell decoded from its sort-time id); positions are
+current.  The branch-free spline w = 2(1-q)+^3 - 8(1/2-q)+^3 is exactly 0
+for q >= 1, so the r < h cutoff needs no separate test, and the force
+mode's self pair gives exactly 0 because dx is bitwise 0 (x_i and x_j are
+read from the same tensor) while the rsqrt clamp keeps coef finite.  Only
+rows of the mode's consumer family are computed (fluid rows for
+``density`` and ``force``, boundary rows for ``bvol``); other rows are 0.
+
+Inputs are float4-style packs (:func:`pack4`, :func:`pack_aux`), (N, 4) f32:
+
+- ``pos`` = [x, y, z or 0, c] with c = effm (density, force) or bd (bvol);
+- ``vel`` = [vx, vy, vz or 0, rho];
+- ``aux`` = [p / max(rho^2, 1e-12), fl * m, m, 0].
+
+``fast_math`` is accepted for the kernel's signature and has no effect
+here: the plain versions always divide exactly, as ``tisph_tpu``'s
+interpret mode does.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tisph_tpu_torch.config import SolverParams
+from tisph_tpu_torch.models.state import MATERIAL_BOUNDARY, MATERIAL_FLUID
+from tisph_tpu_torch.ops.grid import GridSpec, coords_from_ids, stencil_runs
+from tisph_tpu_torch.ops.kernels import cubic_kernel_sigma
+
+# Candidate pairs per chunk of rows i: bounds the plain sweep's transient
+# memory (~40 tensors of this length in the force mode) so 195k particles
+# fit on a card or a host.
+_PAIR_BUDGET = 1 << 22
+
+
+def pack4(vec: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(N, 4) f32 contiguous pack: ``vec`` (N, dim <= 3) in columns
+    [0, dim), zeros up to column 3, ``w`` (N,) in column 3."""
+    n, dim = vec.shape
+    out = torch.zeros((n, 4), dtype=torch.float32, device=vec.device)
+    out[:, :dim] = vec
+    out[:, 3] = w
+    return out
+
+
+def pack_aux(p_rho2: torch.Tensor, flm: torch.Tensor, mass: torch.Tensor) -> torch.Tensor:
+    """(N, 4) f32 pack [p / max(rho^2, 1e-12), fl * m, m, 0]."""
+    return torch.stack([p_rho2, flm, mass, torch.zeros_like(mass)], dim=1)
+
+
+def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
+           spec: GridSpec, params: SolverParams) -> torch.Tensor:
+    n = pos.shape[0]
+    dim, rows = spec.dim, spec.num_rows
+    h = params.support_length
+    k_sig = cubic_kernel_sigma(dim, h)
+    family = MATERIAL_BOUNDARY if mode == "bvol" else MATERIAL_FLUID
+    acc = torch.zeros((n, dim if mode == "force" else 1), dtype=torch.float32,
+                      device=pos.device)
+    rows_i = torch.nonzero(material == family).squeeze(1)
+    if rows_i.numel() == 0:
+        return acc if mode == "force" else acc[:, 0]
+
+    runs = stencil_runs(coords_from_ids(ids[rows_i], spec), bounds, spec).long()
+    lens = (runs[..., 1] - runs[..., 0]).reshape(-1)      # per (i, stencil row)
+    starts = runs[..., 0].reshape(-1)
+    # chunks of whole rows i holding about _PAIR_BUDGET candidate pairs
+    per_i = torch.cumsum(lens.reshape(-1, rows).sum(1), 0)
+    cuts = torch.searchsorted(
+        per_i, torch.arange(1, int(per_i[-1]) // _PAIR_BUDGET + 1, device=pos.device)
+        * _PAIR_BUDGET).tolist()
+    # q >= 1 gives exactly 0 in every term (spline clamps), so pairs past
+    # r^2 = h^2 (with a margin that keeps every q < 1 pair) change no sum;
+    # dropping them first saves ~85% of the math.
+    r2_keep = 1.0001 * h * h
+
+    for c0, c1 in zip([0] + cuts, cuts + [rows_i.numel()]):
+        if c0 >= c1:
+            continue
+        # every j of every run of rows c0..c1, without padding
+        ln = lens[c0 * rows:c1 * rows]
+        run = torch.repeat_interleave(torch.arange(ln.numel(), device=pos.device), ln)
+        first = torch.cumsum(ln, 0) - ln
+        j = starts[c0 * rows:c1 * rows][run] + (
+            torch.arange(run.numel(), device=pos.device) - first[run])
+        i = rows_i[c0 + torch.div(run, rows, rounding_mode="floor")]
+        pi, pj = pos.index_select(0, i), pos.index_select(0, j)
+        dx = [pi[:, a] - pj[:, a] for a in range(dim)]
+        r2 = dx[0] * dx[0]
+        for a in range(1, dim):
+            r2 = r2 + dx[a] * dx[a]
+        near = torch.nonzero(r2 < r2_keep).squeeze(1)
+        i, j, r2, pj = i[near], j[near], r2[near], pj[near]
+        dx = [d[near] for d in dx]
+        rs = torch.rsqrt(torch.clamp(r2, min=1e-12))
+        q = (r2 * rs) * (1.0 / h)
+        p1 = torch.clamp(1.0 - q, min=0.0)
+        p2 = torch.clamp(0.5 - q, min=0.0)
+        p1sq = p1 * p1
+        p2sq = p2 * p2
+        w = 2.0 * p1 * p1sq - 8.0 * p2 * p2sq
+
+        if mode != "force":
+            acc[:, 0].index_add_(0, i, pj[:, 3] * w)
+            continue
+
+        vi, ai, vj, aj = vel[i], aux[i], vel[j], aux[j]
+        rho_i = vi[:, 3]
+        p_rho2_i = ai[:, 0]
+        coh_i = -((h * params.surface_tension) * (1.0 / torch.clamp(ai[:, 2], min=1e-30)))
+        nu_b_i = (params.boundary_sigma * h * params.c_s) / (2.0 * rho_i)
+        gmag = (24.0 * p2sq - 6.0 * p1sq) * rs
+        flm = aj[:, 1]
+        effm = pj[:, 3]
+        bdv = effm - flm
+        dot = (vi[:, 0] - vj[:, 0]) * dx[0]
+        for a in range(1, dim):
+            dot = dot + (vi[:, a] - vj[:, a]) * dx[a]
+        dot_neg = torch.clamp(dot, max=0.0) / (r2 + 0.01 * h * h)
+        inv_rho_sum = 1.0 / (rho_i + vj[:, 3])
+        nu_f = (2.0 * params.viscosity * h * params.c_s) * inv_rho_sum
+        visc = dot_neg * (flm * nu_f + bdv * nu_b_i)
+        press = effm * p_rho2_i + flm * aj[:, 0]
+        coef = (visc - press) * gmag + (coh_i * flm) * w
+        for a in range(dim):
+            acc[:, a].index_add_(0, i, coef * dx[a])
+
+    if mode != "force":
+        return acc[:, 0] * k_sig  # rows outside the family were never added to
+    g = torch.tensor(params.gravity[:dim], dtype=torch.float32, device=pos.device)
+    fam = (material == family)[:, None]
+    return torch.where(fam, acc * (k_sig / h) + g, acc.new_zeros(()))
+
+
+def density_sweep(pos, ids, bounds, material, spec: GridSpec,
+                  params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+    """(N,) density on fluid rows, 0 elsewhere.  ``pos`` c column = effm."""
+    return _sweep("density", pos, None, None, ids, bounds, material, spec, params)
+
+
+def bvol_sweep(pos, ids, bounds, material, spec: GridSpec,
+               params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+    """(N,) boundary-volume denominator on boundary rows, 0 elsewhere.
+    ``pos`` c column = bd (1 on boundary rows)."""
+    return _sweep("bvol", pos, None, None, ids, bounds, material, spec, params)
+
+
+def force_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
+                params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+    """(N, dim) acceleration on fluid rows, 0 elsewhere."""
+    return _sweep("force", pos, vel, aux, ids, bounds, material, spec, params)
