@@ -19,12 +19,33 @@ Phases, each of which raises on failure (nothing is caught):
      summation-order error, so twice the exact-divide bound;
 5. the main path: demo_3d (195,300 particles) through load_scene ->
    build_state -> WCSPH(device="cuda").bind -> rollout, 200 steps at R=2
-   then 50 at R=1; no NaN, CFL < 1, and the launch counters prove that
-   every substep ran the density and force kernels and every rebuild the
-   bounds kernel; then the sweep checks of phase 4 again on the evolved
-   state, and kernel times against the plain versions;
+   then 50 at R=1; one R=2 group queued behind a device-side spin must
+   return before the spin ends (no host wait in the step); no NaN,
+   CFL < 1, and the launch counters prove that every substep ran the
+   density and force kernels and every rebuild the bounds kernel; then the
+   sweep checks of phase 4 again on the evolved state, and kernel times
+   against the plain versions;
 6. the golden trajectories of tests/golden_{2d,3d}_dam_break.npz at R=1,
-   fast_math off and on, at the tolerances of tests/test_golden.py.
+   fast_math off and on, at the tolerances of tests/test_golden.py;
+7. the rigid main path: scenes/bench_3d_rigid.json (60,858 particles, a
+   666-particle sphere dropped into a dam break) through load_scene ->
+   build_state -> make_solver (WCSPHRigid(device="cuda").bind ->
+   init_rigid) -> rollout_coupled, 1,500 steps at R=2 then 100 at R=1;
+   one coupled R=2 group must queue without a host wait, as in phase 5;
+   the launch counters prove that every substep ran the bvol, density and
+   force_react kernels (and never force or reaction) and every rebuild the
+   bounds kernel; no NaN, CFL < 1, body shape drift max | |x_p - com| - d0 |
+   < 1e-4, the sphere's com_y below its start; then, on the final state
+   with its volumes from a fresh bvol pass and the sphere in the water,
+   every sweep mode kernel vs plain at fast_math off and on: bvol, density
+   and force at phase 4's tolerances, force_react and reaction with fluid
+   rows as force, boundary rows scaled by max|reaction| at the same
+   bounds, exact 0 off the family; and the times of bvol, force_react and
+   reaction against the plain versions on that state, with force and
+   force_react at fast_math off beside them;
+8. buoyancy: tests/test_rigid_dynamics.py::test_buoyancy's scenes (a box
+   of density 200 or 5000 dropped into a calm pool), 2,000 steps at R=1:
+   the light box ends with com_y > 0.27, the heavy one below.
 
 The last two lines of standard output are the JSON kernel summary and
 {"ok": true, "device": {...}}; any failure exits nonzero before them.
@@ -32,11 +53,13 @@ The last two lines of standard output are the JSON kernel summary and
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -44,8 +67,18 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEMO_3D = os.path.join(HERE, "scenes", "demo_3d.json")
+RIGID_3D = os.path.join(HERE, "scenes", "bench_3d_rigid.json")
 DEVICE = "cuda"
 STEPS_R2, STEPS_R1 = 200, 50
+RIGID_R2, RIGID_R1 = 1500, 100
+BUOYANCY_STEPS = 2000
+SPIN_CYCLES = 2_000_000_000  # about a second at the H100's clocks
+
+# tests/test_rigid_dynamics.py::test_buoyancy's pool and box
+POOL = [{"start": [0.09, 0.09, 0.09], "end": [0.91, 0.45, 0.91],
+         "velocity": [0, 0, 0], "density": 1000.0, "color": [50, 100, 200],
+         "spacing": "diameter"}]
+BOX = ((0.42, 0.5, 0.42), (0.58, 0.62, 0.58))
 
 # tests/test_golden.py's scenes and step counts
 GOLDEN = {
@@ -111,15 +144,58 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_against_plain(timing: dict) -> dict[str, tuple[float, float]]:
+    """{name: (kernel, plain, reps, plain reps)} -> {name: (kernel ms, plain
+    ms)}: plain, kernel, kernel, plain in turns within this call, means of
+    each pair."""
+    times = {}
+    for name, (kern, plain, reps, preps) in timing.items():
+        p_a = cuda_ms(plain, preps)
+        k_a = cuda_ms(kern, reps)
+        k_b = cuda_ms(kern, reps)
+        p_b = cuda_ms(plain, preps)
+        times[name] = ((k_a + k_b) / 2, (p_a + p_b) / 2)
+        print(f"  time {name:<17} kernel {k_a:.4f} / {k_b:.4f} ms   "
+              f"plain {p_a:.4f} / {p_b:.4f} ms")
+    return times
+
+
 def reset_counts(kernels) -> None:
     for k in kernels.values():
         k.launches = 0
 
 
-def sweep_inputs(solver, state):
+def assert_no_host_wait(label: str, fn) -> None:
+    """``fn()`` must only queue device work.  It runs behind a device-side
+    spin of about a second, with torch's sync debug mode set to raise on a
+    synchronising call, and the spin must still be running when ``fn``
+    returns: a host wait of any kind, even one torch cannot see, would
+    have outlasted it."""
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    spun = torch.cuda.Event()
+    spun.record()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    spin_running = not spun.query()
+    torch.cuda.synchronize()
+    print(f"  {label}: queued in {host_ms:.3f} ms of host time, device spin still "
+          f"running when it returned: {spin_running}")
+    if not spin_running:
+        raise AssertionError(f"{label}: the host waited for the device")
+
+
+def sweep_inputs(solver, state, per_step: bool = False):
     """Sorted state and the sweep packs of one substep's density and force
     calls (density from the plain version, so both sides of every
-    comparison read identical inputs)."""
+    comparison read identical inputs).  ``per_step``: boundary volumes
+    from a bvol pass on the current positions first, as the coupled
+    substep takes them."""
     from tisph_tpu_torch.ops import forces as F
     from tisph_tpu_torch.ops import neighbors
     from tisph_tpu_torch.ops.grid import csr_bounds, sort_state_by_cell
@@ -129,6 +205,11 @@ def sweep_inputs(solver, state):
     bounds = csr_bounds(ids, spec)
     fl = st.fluid_mask
     bd = st.boundary_mask.to(torch.float32)
+    if per_step:
+        delta = neighbors.bvol_sweep(neighbors.pack4(st.x, bd), ids, bounds, st.material,
+                                     spec, params)
+        vol = torch.where(st.boundary_mask, 1.0 / torch.clamp(delta, min=1e-10), st.volume)
+        st = dataclasses.replace(st, volume=vol)
     flm = fl.to(torch.float32) * st.mass
     effm = flm + bd * (params.density0 * st.volume)
     pos = neighbors.pack4(st.x, effm)
@@ -194,6 +275,99 @@ def check_sweeps(label: str, solver, inp) -> dict[str, float]:
     return errs
 
 
+def check_coupling_sweeps(label: str, solver, inp) -> dict[str, float]:
+    """Kernel vs plain for force_react and reaction at both fast_math
+    settings: fluid rows at the force tolerance scaled by max|dv|,
+    boundary rows at the same bounds scaled by max|reaction|, exact 0 on
+    every other row; returns the max abs error per mode at fast_math on."""
+    from tisph_tpu_torch.ops import neighbors
+    from tisph_tpu_torch.ops.cuda import sweeps
+
+    spec, params = solver.spec, solver.params
+    st, ids, bounds, mat = inp["st"], inp["ids"], inp["bounds"], inp["st"].material
+    fl, bd = st.fluid_mask, st.boundary_mask
+    args = (inp["pos"], inp["vel"], inp["aux"], ids, bounds, mat, spec, params)
+    ref = {"force_react": neighbors.force_react_sweep(*args),
+           "reaction": neighbors.reaction_sweep(*args)}
+    errs = {}
+    for fast in (False, True):
+        atol = TOL[fast][1]
+        got = {"force_react": sweeps.force_react_sweep(*args, fast),
+               "reaction": sweeps.reaction_sweep(*args, fast)}
+        torch.cuda.synchronize()
+        for mode, fams in (("force_react", (("fluid", fl), ("boundary", bd))),
+                           ("reaction", (("boundary", bd),))):
+            g, r = got[mode], ref[mode]
+            fam = torch.zeros_like(fl)
+            for _, rows in fams:
+                fam = fam | rows
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{label} {mode} fast={fast}: non-finite output")
+            if not torch.equal(g[~fam], torch.zeros_like(g[~fam])):
+                raise AssertionError(f"{label} {mode}: rows outside its family not 0")
+            for fam_name, rows in fams:
+                if not bool(rows.any()):
+                    raise AssertionError(f"{label}: no {fam_name} rows")
+                scale = float(r[rows].abs().max())
+                if not scale > 0.0:
+                    raise AssertionError(f"{label} {mode}: {fam_name} rows all 0")
+                err = float((g[rows] - r[rows]).abs().max())
+                rel = err / scale
+                print(f"  {label:<12} {mode:<11} {fam_name:<8} fast_math={int(fast)} "
+                      f"rows={int(rows.sum())} max|ref|={scale:.4e} max|err|={err:.3e} "
+                      f"max|err|/max|ref| = {rel:.3e} (atol {atol})")
+                if rel > atol:
+                    raise AssertionError(f"{label} {mode} {fam_name} fast={fast}: "
+                                         f"{rel:.3e} > {atol}")
+            if fast:
+                errs[mode] = float((g - r).abs().max())
+    return errs
+
+
+def body_drift(state, rigid, tags, d0) -> float:
+    """max | |x_p - com| - d0 | over the particles of body 0, matched by
+    their tag in color[:, 0] (the sort moves rows, the colour goes with
+    them)."""
+    sel = (state.object_id == int(rigid.object_ids[0])) & state.boundary_mask
+    x = state.x[sel][torch.argsort(state.color[sel, 0])]
+    if not torch.equal(torch.sort(state.color[sel, 0]).values, tags):
+        raise AssertionError("body particles lost or duplicated")
+    d = torch.linalg.vector_norm(x - rigid.com[0], dim=1)
+    return float((d - d0).abs().max())
+
+
+def buoyancy(tt, density: float, tmp: str) -> float:
+    """test_buoyancy's scene with a box of ``density``: com_y after
+    BUOYANCY_STEPS coupled steps at R=1, on the card."""
+    from tisph_tpu_torch.geometry.mesh import box_mesh, save_obj
+
+    save_obj(box_mesh(*BOX), os.path.join(tmp, "box.obj"))
+    raw = {
+        "configuration": {"dim": 3, "domainStart": [0.0] * 3, "domainEnd": [1.0] * 3,
+                          "particleRadius": 0.02, "density0": 1000,
+                          "gravitation": [0.0, -9.81, 0.0], "c_s": 40.0},
+        "rigidBodies": [{"geometryFile": "box.obj", "scale": [1, 1, 1],
+                         "translation": [0, 0, 0], "rotationAngle": 0,
+                         "rotationAxis": [0, 1, 0], "velocity": [0, 0, 0],
+                         "density": density, "color": [150, 150, 150], "isDynamic": True}],
+        "fluidBlocks": POOL,
+    }
+    scene = tt.scene_from_dict(raw, base_dir=tmp)
+    solver, state, rigid = tt.make_solver(scene, tt.build_state(scene, device=DEVICE),
+                                          device=DEVICE, resort_every=1)
+    t0 = time.perf_counter()
+    state, rigid = solver.rollout_coupled(state, rigid, BUOYANCY_STEPS)
+    com = rigid.com[0].tolist()
+    wall = time.perf_counter() - t0
+    m = solver.metrics(state)
+    print(f"  density {density:g}: {state.num_active} particles, com after "
+          f"{BUOYANCY_STEPS} steps ({BUOYANCY_STEPS * solver.params.dt:.2f} s) = "
+          f"{com}, {wall * 1e3 / BUOYANCY_STEPS:.4f} ms/step, metrics {m}")
+    if m["nan_count"] or not all(math.isfinite(c) for c in com):
+        raise AssertionError(f"buoyancy density {density}: non-finite state")
+    return com[1]
+
+
 def golden_check(tt, name: str, raw: dict, steps: int, fast_math: bool) -> dict:
     """Run a golden scene at R=1 and match its particles to the recorded
     ones.  The recording is ordered by position, and a 1-ulp difference
@@ -241,6 +415,8 @@ def main() -> int:
         "sweep.density": cuda_sweeps.density_sweep,
         "sweep.force": cuda_sweeps.force_sweep,
         "sweep.bvol": cuda_sweeps.bvol_sweep,
+        "sweep.force_react": cuda_sweeps.force_react_sweep,
+        "sweep.reaction": cuda_sweeps.reaction_sweep,
     }
 
     phase("1 environment")
@@ -287,13 +463,13 @@ def main() -> int:
     g_scene = tt.scene_from_dict(GOLDEN["3d_dam_break"][0])
     g_solver = tt.WCSPH(g_scene, device=DEVICE)
     g_inp = sweep_inputs(g_solver, g_solver.bind(tt.build_state(g_scene, device=DEVICE)))
-    errs_bvol = check_sweeps("golden_3d", g_solver, g_inp)
+    check_sweeps("golden_3d", g_solver, g_inp)
     check_sweeps("demo_3d", solver, sweep_inputs(solver, state))
 
     phase(f"5 main path: demo_3d, {STEPS_R2} steps at R=2, {STEPS_R1} at R=1")
     n = state.num_active
     state = solver.rollout(state, 2)  # warm-up, outside the counted run
-    torch.cuda.synchronize()
+    assert_no_host_wait("demo_3d, one R=2 group", lambda: solver.rollout(state, 2))
     reset_counts(kernels)
     t0 = time.perf_counter()
     state = solver.rollout(state, STEPS_R2)
@@ -307,11 +483,11 @@ def main() -> int:
     wall1 = time.perf_counter() - t0
     launches = {k: f.launches for k, f in kernels.items()}
     groups = -(-STEPS_R2 // 2)
-    want_r2 = {"csr_bounds": groups, "sweep.density": STEPS_R2, "sweep.force": STEPS_R2,
-               "sweep.bvol": 0}
+    zero = {"sweep.bvol": 0, "sweep.force_react": 0, "sweep.reaction": 0}
+    want_r2 = {"csr_bounds": groups, "sweep.density": STEPS_R2, "sweep.force": STEPS_R2} | zero
     total = STEPS_R2 + STEPS_R1
-    want = {"csr_bounds": groups + STEPS_R1, "sweep.density": total, "sweep.force": total,
-            "sweep.bvol": 0}
+    want = {"csr_bounds": groups + STEPS_R1, "sweep.density": total,
+            "sweep.force": total} | zero
     if after_r2 != want_r2 or launches != want:
         raise AssertionError(f"launch counts {after_r2} then {launches}, "
                              f"expected {want_r2} then {want}")
@@ -325,8 +501,9 @@ def main() -> int:
           f"({wall2 * 1e3 / STEPS_R2:.4f} ms/step), R=1 {pps1:.6e} particle-steps/s "
           f"({wall1 * 1e3 / STEPS_R1:.4f} ms/step) on {card_line}")
 
-    # The boundary-volume mode runs at bind; demo_3d has no boundary, so its
-    # launch is counted on the golden 3D scene's bind (the same main path).
+    # The boundary-volume mode runs at bind on static boundaries; demo_3d has
+    # none, so its launch is checked on the golden 3D scene's bind (the
+    # rigid path of phase 7 runs it every substep).
     reset_counts(kernels)
     g_solver2 = tt.WCSPH(g_scene, device=DEVICE)
     g_state = g_solver2.bind(tt.build_state(g_scene, device=DEVICE))
@@ -334,12 +511,10 @@ def main() -> int:
     torch.cuda.synchronize()
     if cuda_sweeps.bvol_sweep.launches != 1:
         raise AssertionError(f"bvol launches {cuda_sweeps.bvol_sweep.launches} at bind, want 1")
-    launches["sweep.bvol"] = cuda_sweeps.bvol_sweep.launches
 
     print("  sweep checks on the evolved demo_3d state:")
     inp = sweep_inputs(solver, state)
     errs = check_sweeps("demo_3d+250", solver, inp)
-    errs["bvol"] = errs_bvol["bvol"]
     st, ids, bnd, mat = inp["st"], inp["ids"], inp["bounds"], inp["st"].material
     sp, pr = solver.spec, solver.params
     timing = {
@@ -353,24 +528,8 @@ def main() -> int:
                                             mat, sp, pr),
             lambda: neighbors.force_sweep(inp["pos"], inp["vel"], inp["aux"], ids, bnd,
                                           mat, sp, pr), 20, 2),
-        "sweep.bvol": (
-            lambda: cuda_sweeps.bvol_sweep(g_inp["pos_b"], g_inp["ids"], g_inp["bounds"],
-                                           g_inp["st"].material, g_solver.spec,
-                                           g_solver.params),
-            lambda: neighbors.bvol_sweep(g_inp["pos_b"], g_inp["ids"], g_inp["bounds"],
-                                         g_inp["st"].material, g_solver.spec,
-                                         g_solver.params), 50, 5),
     }
-    times = {}
-    for name, (kern, plain, reps, preps) in timing.items():
-        # plain, kernel, kernel, plain: compare within one call, in turns
-        p_a = cuda_ms(plain, preps)
-        k_a = cuda_ms(kern, reps)
-        k_b = cuda_ms(kern, reps)
-        p_b = cuda_ms(plain, preps)
-        times[name] = ((k_a + k_b) / 2, (p_a + p_b) / 2)
-        print(f"  time {name:<14} kernel {k_a:.4f} / {k_b:.4f} ms   "
-              f"plain {p_a:.4f} / {p_b:.4f} ms")
+    times = time_against_plain(timing)
 
     phase("6 golden trajectories (R=1)")
     for name, (raw, steps) in GOLDEN.items():
@@ -379,9 +538,104 @@ def main() -> int:
                 raise AssertionError(f"golden {name} fast_math={fast} outside the "
                                      "test_golden tolerances")
 
+    phase(f"7 rigid main path: bench_3d_rigid, {RIGID_R2} steps at R=2, {RIGID_R1} at R=1")
+    r_scene = tt.load_scene(RIGID_3D)
+    r_state = tt.build_state(r_scene, device=DEVICE)
+    # tag every particle in color[:, 0] (exact in f32 below 2^24; colour
+    # plays no part in the physics) to follow the body's particles
+    tags_all = torch.arange(r_state.capacity, dtype=torch.float32, device=DEVICE)
+    r_state = dataclasses.replace(r_state, color=torch.cat(
+        [tags_all[:, None], r_state.color[:, 1:]], dim=1))
+    r_solver, r_state, rigid = tt.make_solver(r_scene, r_state, device=DEVICE, resort_every=2)
+    if not isinstance(r_solver, tt.WCSPHRigid):
+        raise AssertionError(f"bench_3d_rigid dispatched {type(r_solver).__name__}")
+    sel0 = (r_state.object_id == 0) & r_state.boundary_mask
+    tags = r_state.color[sel0, 0]
+    d0 = torch.linalg.vector_norm(r_state.x[sel0] - rigid.com[0], dim=1)
+    com_y0 = float(rigid.com[0, 1])
+    rn = r_state.num_active
+    print(f"  {rn} particles ({int(r_state.fluid_mask.sum())} fluid, "
+          f"{int(sel0.sum())} body) capacity {r_state.capacity}, com_y {com_y0:.6f}")
+    r_state, rigid = r_solver.rollout_coupled(r_state, rigid, 2)  # warm-up, not counted
+    assert_no_host_wait("bench_3d_rigid, one coupled R=2 group",
+                        lambda: r_solver.rollout_coupled(r_state, rigid, 2))
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    r_state, rigid = r_solver.rollout_coupled(r_state, rigid, RIGID_R2)
+    torch.cuda.synchronize()
+    rwall2 = time.perf_counter() - t0
+    r_solver.resort_every = 1
+    t0 = time.perf_counter()
+    r_state, rigid = r_solver.rollout_coupled(r_state, rigid, RIGID_R1)
+    torch.cuda.synchronize()
+    rwall1 = time.perf_counter() - t0
+    r_launches = {k: f.launches for k, f in kernels.items()}
+    r_steps = RIGID_R2 + RIGID_R1
+    r_want = {"csr_bounds": -(-RIGID_R2 // 2) + RIGID_R1, "sweep.density": r_steps,
+              "sweep.force": 0, "sweep.bvol": r_steps, "sweep.force_react": r_steps,
+              "sweep.reaction": 0}
+    if r_launches != r_want:
+        raise AssertionError(f"rigid launch counts {r_launches}, expected {r_want}")
+    m = r_solver.metrics(r_state)
+    drift = body_drift(r_state, rigid, tags, d0)
+    com = rigid.com[0].tolist()
+    print(f"  launches: {r_launches}")
+    print(f"  metrics: {m}")
+    print(f"  body: com {com} v_com {rigid.v_com[0].tolist()} omega {rigid.omega[0].tolist()} "
+          f"shape drift {drift:.3e} (< 1e-4)")
+    if m["nan_count"] != 0 or not math.isfinite(m["max_velocity"]) or m["cfl"] >= 1.0:
+        raise AssertionError(f"rigid path unhealthy: {m}")
+    if not drift < 1e-4:
+        raise AssertionError(f"body shape drift {drift:.3e} >= 1e-4")
+    if not (all(math.isfinite(c) for c in com) and com[1] < com_y0):
+        raise AssertionError(f"sphere com {com} did not fall from com_y {com_y0}")
+    rpps2, rpps1 = rn * RIGID_R2 / rwall2, rn * RIGID_R1 / rwall1
+    print(f"  {rn} particles: R=2 {rpps2:.6e} particle-steps/s "
+          f"({rwall2 * 1e3 / RIGID_R2:.4f} ms/step), R=1 {rpps1:.6e} particle-steps/s "
+          f"({rwall1 * 1e3 / RIGID_R1:.4f} ms/step) on {card_line}")
+
+    print("  sweep checks on the final bench_3d_rigid state (volumes from a fresh bvol pass):")
+    r_inp = sweep_inputs(r_solver, r_state, per_step=True)
+    # every mode this path runs, at this path's shapes: bvol, density and
+    # (on the fluid rows) force, then force_react and reaction
+    r_errs = check_sweeps("rigid+1602", r_solver, r_inp)
+    errs |= check_coupling_sweeps("rigid+1602", r_solver, r_inp)
+    # the JSON's entries of the modes whose launches come from this run
+    # take their error and time from this run's state too
+    errs["bvol"] = r_errs["bvol"]
+    launches |= {k: r_launches[k] for k in ("sweep.bvol", "sweep.force_react", "sweep.reaction")}
+    r_st, r_ids, r_bnd = r_inp["st"], r_inp["ids"], r_inp["bounds"]
+    r_args = (r_inp["pos"], r_inp["vel"], r_inp["aux"], r_ids, r_bnd,
+              r_st.material, r_solver.spec, r_solver.params)
+    r_bvol = (r_inp["pos_b"], r_ids, r_bnd, r_st.material, r_solver.spec, r_solver.params)
+    times |= time_against_plain({
+        "sweep.bvol": (lambda: cuda_sweeps.bvol_sweep(*r_bvol),
+                       lambda: neighbors.bvol_sweep(*r_bvol), 50, 5),
+        "sweep.force_react": (lambda: cuda_sweeps.force_react_sweep(*r_args),
+                              lambda: neighbors.force_react_sweep(*r_args), 20, 2),
+        "sweep.reaction": (lambda: cuda_sweeps.reaction_sweep(*r_args),
+                           lambda: neighbors.reaction_sweep(*r_args), 20, 2),
+        # what the boundary family and fast_math cost force_react on this
+        # state (printed only; not in the kernels line)
+        "force@rigid": (lambda: cuda_sweeps.force_sweep(*r_args),
+                        lambda: neighbors.force_sweep(*r_args), 20, 2),
+        "force_react exact": (lambda: cuda_sweeps.force_react_sweep(*r_args, False),
+                              lambda: neighbors.force_react_sweep(*r_args), 20, 2),
+    })
+
+    phase(f"8 buoyancy: test_buoyancy's box in a pool, {BUOYANCY_STEPS} steps at R=1")
+    with tempfile.TemporaryDirectory() as tmp:
+        light = buoyancy(tt, 200.0, tmp)
+        heavy = buoyancy(tt, 5000.0, tmp)
+    if not light > 0.27:
+        raise AssertionError(f"light body (density 200) should float, com_y={light}")
+    if not heavy < 0.27:
+        raise AssertionError(f"heavy body (density 5000) should sink, com_y={heavy}")
+
     src = {"csr_bounds": ("tisph_tpu_torch/csrc/bounds.cu", "tisph_tpu/ops/pallas/bounds.py:43")}
-    for k in ("sweep.density", "sweep.force", "sweep.bvol"):
-        src[k] = ("tisph_tpu_torch/csrc/sweeps.cu", "tisph_tpu/ops/pallas/sweeps.py:787")
+    for k in kernels:
+        if k.startswith("sweep."):
+            src[k] = ("tisph_tpu_torch/csrc/sweeps.cu", "tisph_tpu/ops/pallas/sweeps.py:787")
     errs["csr_bounds"] = float(bounds_err)
     summary = {"kernels": [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],

@@ -1,6 +1,7 @@
 """Port config parity: every scene file parses to the same field values as
-tisph_tpu.config, the compat presets resolve to equal SolverParams, and
-scenes with rigid bodies or emitters are refused (not silently dropped)."""
+tisph_tpu.config (rigid bodies included), the compat presets resolve to
+equal SolverParams, and scenes with emitters are refused (not silently
+dropped)."""
 
 import dataclasses
 import glob
@@ -28,7 +29,15 @@ def _raw(path):
 
 
 def _unsupported(raw):
-    return bool(raw.get("rigidBodies")) or bool(raw.get("emitters"))
+    return bool(raw.get("emitters"))
+
+
+def _fields_match(got, ref):
+    """The port's SceneConfig equals tisph_tpu's field by field (the port
+    has no ``emitters`` field: it refuses scenes that have any)."""
+    ref = dataclasses.asdict(ref)
+    assert ref.pop("emitters") == ()
+    assert dataclasses.asdict(got) == ref
 
 
 @pytest.mark.parametrize("path", SCENES, ids=os.path.basename)
@@ -38,9 +47,7 @@ def test_scene_fields_match_jax(path):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pt.load_scene(path)
         return
-    ref = dataclasses.asdict(tt.load_scene(path))
-    assert ref.pop("rigid_bodies") == () and ref.pop("emitters") == ()
-    assert dataclasses.asdict(pt.load_scene(path)) == ref
+    _fields_match(pt.load_scene(path), tt.load_scene(path))
 
 
 @pytest.mark.parametrize("compat", COMPAT)
@@ -61,7 +68,21 @@ def test_unknown_compat_rejected():
 
 @pytest.mark.parametrize("key", ["rigidBodies", "emitters"])
 def test_unported_bodies_raise(key):
+    """Emitters are still refused; rigid bodies, a later slice that is now
+    ported, parse to tisph_tpu's fields instead (a minimal entry with
+    every default, and a static obstacle with every key)."""
     raw = {"configuration": {"dim": 2}, "fluidBlocks": [],
            key: [{"geometryFile": "x.obj", "start": [0, 0], "end": [1, 1]}]}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pt.scene_from_dict(raw)
+    if key == "emitters":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            pt.scene_from_dict(raw)
+        return
+    _fields_match(pt.scene_from_dict(raw), tt.scene_from_dict(raw))
+    raw = {"configuration": {"dim": 3, "particleRadius": 0.02}, "fluidBlocks": [],
+           key: [{"geometryFile": "assets/sphere.obj", "scale": [0.1, 0.2, 0.3],
+                  "translation": [0.5, 0.4, 0.5], "rotationAngle": 30,
+                  "rotationAxis": [1, 0, 1], "velocity": [0.5, 0, 0], "density": 700,
+                  "color": [10, 20, 30], "isDynamic": False}]}
+    got = pt.scene_from_dict(raw, base_dir="scenes")
+    _fields_match(got, tt.scene_from_dict(raw, base_dir="scenes"))
+    assert got.rigid_bodies[0].rotation_angle == 30.0 and not got.rigid_bodies[0].is_dynamic

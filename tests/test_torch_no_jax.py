@@ -1,7 +1,8 @@
-"""The PyTorch port imports neither jax nor the JAX package: a run_scene
-style bind and step on the CPU, in a fresh interpreter, leaves both out of
-sys.modules (tisph_tpu/__init__.py imports jax and every solver, so
-importing any tisph_tpu module would pull jax in)."""
+"""The PyTorch port imports neither jax nor the JAX package: run_scene on
+the CPU, a fluid scene with a boundary block and a scene with a dynamic
+mesh body (voxelizer and coupled solver), in a fresh interpreter, leaves
+both out of sys.modules (tisph_tpu/__init__.py imports jax and every
+solver, so importing any tisph_tpu module would pull jax in)."""
 
 import json
 import os
@@ -20,9 +21,10 @@ import tisph_tpu_torch as tt
 from tisph_tpu_torch import bench, run_scene
 import chip_smoke
 
-rc = run_scene.main([sys.argv[1], "--steps", "2", "--substeps", "2", "--resort", "2",
-                     "--metrics-every", "1", "--device", "cpu"])
-assert rc == 0, rc
+for path in sys.argv[1:]:
+    rc = run_scene.main([path, "--steps", "2", "--substeps", "2", "--resort", "2",
+                         "--metrics-every", "1", "--device", "cpu"])
+    assert rc == 0, rc
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tisph_tpu"))
 print(json.dumps(bad))
@@ -40,11 +42,24 @@ def test_port_imports_no_jax(tmp_path):
         "fluidBlocks": [{"start": [0.15, 0.15], "end": [0.55, 0.55],
                          "velocity": [0.2, -1.0]}],
     }
+    rigid = {
+        "configuration": {
+            "dim": 3, "domainStart": [0.0] * 3, "domainEnd": [1.0] * 3,
+            "particleRadius": 0.04, "density0": 1000,
+            "gravitation": [0.0, -9.81, 0.0], "c_s": 40.0,
+        },
+        "rigidBodies": [{"geometryFile": os.path.join(REPO, "scenes", "assets", "sphere.obj"),
+                         "scale": [0.15] * 3, "translation": [0.5, 0.45, 0.5],
+                         "density": 400.0, "isDynamic": True}],
+        "fluidBlocks": [{"start": [0.2] * 3, "end": [0.8, 0.45, 0.8], "spacing": "diameter"}],
+    }
     path = tmp_path / "scene.json"
     path.write_text(json.dumps(scene))
+    rigid_path = tmp_path / "rigid.json"
+    rigid_path.write_text(json.dumps(rigid))
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     proc = subprocess.run(
-        [sys.executable, "-c", _CODE, str(path)],
+        [sys.executable, "-c", _CODE, str(path), str(rigid_path)],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr

@@ -147,7 +147,7 @@ def test_advect_and_clamp_match_jax(raw):
         np.testing.assert_allclose(getattr(got, k).numpy(), np.asarray(getattr(want, k)),
                                    rtol=RTOL, atol=0, err_msg=k)
     # some rows really were clamped onto the box
-    lo, hi = F._box(params, port.device)
+    lo, hi = F.domain_box(params, port.device)
     assert ((got.x == lo) | (got.x == hi)).any()
 
 

@@ -4,8 +4,15 @@
   mode, resort_every=2), and R=1 against its default CPU (blocked) solver,
   both compared by object_id (sort order may differ once positions differ
   by an ulp) at x atol 1e-5 (tests/test_seg.py:395);
+- the rigid coupled rollout (WCSPHRigid) with a box body half in the
+  water, R=2 against tisph_tpu's seg coupled rollout in interpret mode and
+  R=1 against its blocked one: com atol 1e-5, v_com and omega atol 1e-4
+  (tests/test_rigid_dynamics.py:138-151), x atol 1e-4 by a particle tag
+  carried in color[:, 0], body-row volumes rtol 2e-5;
+- a static mesh obstacle through plain WCSPH against tisph_tpu's WCSPH;
 - the golden trajectories at tests/test_golden.py's tolerances;
-- run_scene writes frames tisph_tpu.render.export.load_frame reads.
+- run_scene writes frames tisph_tpu.render.export.load_frame reads, and
+  runs a dynamic-body scene through the coupled solver.
 """
 
 import dataclasses
@@ -20,8 +27,10 @@ import torch
 import jax
 import jax.numpy as jnp
 import tisph_tpu as tt
+from tisph_tpu.geometry.mesh import box_mesh, save_obj
 from tisph_tpu.models.state import pad_state_capacity as jax_pad
 from tisph_tpu.models.state import state_to_host as jax_to_host
+from tisph_tpu.models.wcsph_rigid import WCSPHRigid as JWCSPHRigid
 from tisph_tpu.ops.neighbors import SweepConfig
 from tisph_tpu.render.export import load_frame
 
@@ -73,6 +82,93 @@ def test_rollout_matches_jax(resort):
     assert np.abs(got["x"] - start["x"][np.argsort(start["object_id"])]).max() > 1e-3
 
 
+def _body_scene(tmp_path, dynamic, radius=0.033):
+    """tests/test_rigid_dynamics.py:118-124's scene with the box lowered
+    into the water (fluid top y = 0.4, box y 0.35-0.47)."""
+    save_obj(box_mesh((0.42, 0.35, 0.42), (0.58, 0.47, 0.58)), tmp_path / "box.obj")
+    return {
+        "configuration": {"dim": 3, "domainStart": [0.0] * 3, "domainEnd": [1.0] * 3,
+                          "particleRadius": radius, "density0": 1000,
+                          "gravitation": [0.0, -9.81, 0.0], "c_s": 40.0},
+        "rigidBodies": [{"geometryFile": "box.obj", "scale": [1, 1, 1],
+                         "translation": [0, 0, 0], "rotationAngle": 0,
+                         "rotationAxis": [0, 1, 0], "velocity": [0, 0, 0],
+                         "density": 400.0, "color": [150, 150, 150], "isDynamic": dynamic}],
+        "fluidBlocks": [{"start": [0.1, 0.1, 0.1], "end": [0.9, 0.4, 0.9],
+                         "velocity": [0, 0, 0], "density": 1000.0,
+                         "color": [50, 100, 200], "spacing": "diameter"}],
+    }
+
+
+def _tagged(state):
+    """Tag every particle with its row in color[:, 0] (exact in f32):
+    object_id is the body identity here and cannot carry the tag."""
+    return dataclasses.replace(
+        state, color=state.color.at[:, 0].set(jnp.arange(state.capacity, dtype=jnp.float32)))
+
+
+def _by_tag(host):
+    order = np.argsort(host["color"][:, 0])
+    return {k: np.asarray(v)[order] for k, v in host.items() if k != "num_active"}
+
+
+@pytest.mark.parametrize("resort", [2, 1])
+def test_coupled_rollout_matches_jax(tmp_path, resort):
+    raw = _body_scene(tmp_path, dynamic=True)
+    scene = tt.scene_from_dict(raw, base_dir=str(tmp_path))
+    if resort == 2:
+        solver = JWCSPHRigid(scene, sweep_cfg=SweepConfig(
+            impl="pallas", block_size=128, window_cap=512, tile=128, interpret=True,
+            layout="seg", pad_capacity=0, resort_every=2, fast_math=False))
+    else:
+        solver = JWCSPHRigid(scene)  # the blocked jnp sweeps on the CPU
+    state = _tagged(solver.bind(tt.build_state(scene)))
+    rigid = solver.init_rigid(state)
+    start = jax_to_host(state)
+    rstart = {f.name: np.asarray(getattr(rigid, f.name)) for f in dataclasses.fields(rigid)}
+    s_j, r_j = solver.rollout_coupled(state, rigid, 3)
+    want, r_want = _by_tag(jax_to_host(s_j)), jax.device_get(r_j)
+
+    port = pt.WCSPHRigid(pt.scene_from_dict(raw, base_dir=str(tmp_path)), device="cpu",
+                         resort_every=resort)
+    st, rg = port.rollout_coupled(port.bind(pt.state_from_host(start, "cpu")),
+                                  pt.rigid_from_host(rstart, "cpu"), 3)
+    got = _by_tag(pt.state_to_host(st))
+    np.testing.assert_allclose(rg.com.numpy(), r_want.com, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(rg.v_com.numpy(), r_want.v_com, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(rg.omega.numpy(), r_want.omega, rtol=0, atol=1e-4)
+    np.testing.assert_array_equal(got["material"], want["material"])
+    np.testing.assert_array_equal(got["object_id"], want["object_id"])
+    np.testing.assert_allclose(got["x"], want["x"], rtol=0, atol=1e-4)
+    body = got["material"] == 0
+    np.testing.assert_allclose(got["volume"][body], want["volume"][body], rtol=2e-5)
+    # the body is in the water: the fluid's reaction holds it against g
+    free_fall = -9.81 * 3 * port.params.dt
+    assert float(rg.v_com[0, 1]) > 0.8 * free_fall
+    assert (got["volume"][body] != scene.particle_volume0).all()
+
+
+def test_static_obstacle_matches_jax(tmp_path):
+    """A box mesh with isDynamic false is a static boundary of plain WCSPH
+    (volumes once at bind), as in tisph_tpu."""
+    raw = _body_scene(tmp_path, dynamic=False, radius=0.04)
+    scene = tt.scene_from_dict(raw, base_dir=str(tmp_path))
+    solver = tt.WCSPH(scene)  # blocked jnp sweeps on the CPU
+    state = _tagged(solver.bind(tt.build_state(scene)))
+    start = jax_to_host(state)
+    want = _by_tag(jax_to_host(solver.rollout(state, 4)))
+    port, st, rigid = pt.make_solver(pt.scene_from_dict(raw, base_dir=str(tmp_path)),
+                                     pt.state_from_host(start, "cpu"), device="cpu")
+    assert type(port) is pt.WCSPH and port.boundary_mode == "static" and rigid is None
+    got = _by_tag(pt.state_to_host(pt.advance(port, st, rigid, 4)[0]))
+    np.testing.assert_array_equal(got["material"], want["material"])
+    assert (got["material"] == 0).sum() > 0
+    np.testing.assert_allclose(got["x"], want["x"], rtol=0, atol=1e-5)
+    np.testing.assert_allclose(got["volume"], want["volume"], rtol=2e-5)
+    body = got["material"] == 0
+    assert np.array_equal(got["x"][body], _by_tag(start)["x"][body])  # it never moves
+
+
 def _match_golden(got, ref):
     """Each particle's recorded counterpart is the one of least cost
     max(|dx|/5e-5, |dv|/5e-2, |drho|/(5e-4 rho)), test_golden's
@@ -122,3 +218,14 @@ def test_run_scene_writes_frames(tmp_path):
         assert frame[k].dtype == ref[k].dtype and frame[k].shape == ref[k].shape, k
     assert np.isfinite(frame["x"]).all()
     assert int(jax.device_get(frame["num_active"])) == int(ref["num_active"])
+
+
+def test_run_scene_runs_dynamic_body(tmp_path, capsys):
+    raw = _body_scene(tmp_path, dynamic=True, radius=0.04)
+    scene_path = tmp_path / "scene.json"
+    scene_path.write_text(json.dumps(raw))
+    rc = run_scene.main([str(scene_path), "--steps", "2", "--substeps", "2", "--resort", "2",
+                         "--metrics-every", "1", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert rc == 0, out
+    assert "dynamic rigid bodies: 1" in out and "nan=0" in out

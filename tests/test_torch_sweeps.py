@@ -1,12 +1,17 @@
-"""Port sweep parity: the plain density, force and bvol sweeps
-(ops.neighbors) against tisph_tpu's seg TPU kernel in interpret mode
-(density_sweep_seg, force_sweep_seg, bvol_sweep_seg) on the same sorted
-state, in 2D and 3D, with and without boundary particles.
+"""Port sweep parity: the plain density, force, bvol, force_react and
+reaction sweeps (ops.neighbors) against tisph_tpu's seg TPU kernel in
+interpret mode (density_sweep_seg, force_sweep_seg, bvol_sweep_seg,
+force_react_sweep_seg, reaction_sweep_seg) on the same sorted state, in 2D
+and 3D, with and without boundary particles; the coupling modes on a
+moving boundary body inside the fluid, with per-step volumes.
 
 Tolerances, the JAX suite's for the same sums taken in another order:
 density and bvol rtol 2e-5 (tests/test_seg.py:117), force scaled by its
-largest component atol 5e-6 (tests/test_pallas.py:117).  The CUDA kernel
-runs on a card only (the `cuda` test)."""
+largest component atol 5e-6 (tests/test_pallas.py:117, test_seg.py:223),
+and the reaction scaled by its largest component at the same bound.  The
+CUDA kernel runs on a card only (the `cuda` tests)."""
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -21,6 +26,7 @@ from tisph_tpu.ops.neighbors import SweepConfig
 from tisph_tpu.ops.pallas import sweeps as ps
 
 import tisph_tpu_torch as pt
+from tisph_tpu_torch.models.state import pad_state_capacity
 from tisph_tpu_torch.ops import forces as F
 from tisph_tpu_torch.ops import grid, neighbors
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
@@ -182,3 +188,134 @@ def test_kernel_matches_plain_on_cuda(dim, boundary):
         want = neighbors.force_sweep(pos, vel, aux, ids, bounds, st.material, spec, params)
         scale = want[fl].abs().max()
         torch.testing.assert_close(got[fl] / scale, want[fl] / scale, rtol=0, atol=force_atol)
+
+
+def _coupling_raw(dim):
+    """A boundary block standing for a rigid body, half inside a fluid
+    sampled at rest spacing (so that pressure does not swamp viscosity)."""
+    raw = _raw(dim, False)
+    raw["fluidBlocks"][0]["spacing"] = "diameter"
+    raw["boundaryBlocks"] = [{"start": [0.4, 0.3, 0.35][:dim], "end": [0.65, 0.5, 0.6][:dim]}]
+    return raw
+
+
+def _coupling_setup(dim):
+    """JAX seg inputs of a coupled substep: seeded non-zero velocities on
+    every particle (the body moves through the fluid), boundary volumes
+    from the bvol sweep on these positions, density and EOS from the seg
+    kernel; and the same sorted state and packs in the port."""
+    raw = _coupling_raw(dim)
+    scene = tt.scene_from_dict(raw)
+    solver = tt.WCSPH(scene, boundary_mode="per_step", sweep_cfg=SweepConfig(
+        impl="pallas", block_size=128, window_cap=512, tile=128, interpret=True,
+        layout="seg", pad_capacity=8192, fast_math=False))
+    state = solver.bind(tt.build_state(scene))
+    spec_j, params_j, cfg = solver.spec, solver.params, solver.sweep_cfg
+    st_j, ids_j, _ = jgrid.sort_state_by_cell(state, spec_j)
+    rng = np.random.default_rng(11)
+    st_j = dataclasses.replace(st_j, v=st_j.v + jnp.asarray(
+        rng.normal(0.0, 1.0, st_j.v.shape).astype(np.float32)))
+    plan = jgrid.seg_plan(ids_j, spec_j, cfg.block_size, cfg.pad_capacity // cfg.block_size)
+    meta, _ = ps.seg_block_meta(plan, ids_j, spec_j, cfg.block_size, cfg.window_cap)
+    jax_args = (meta, spec_j, params_j, cfg.block_size, cfg.window_cap)
+    kw = dict(tile=cfg.tile, interpret=True)
+
+    def pack_of(st):
+        return ps.pack_state(st.x, st.v, st.density, st.pressure, st.mass, st.volume,
+                             st.material, ids_j, params_j)
+
+    delta = ps.bvol_sweep_seg(pack_of(st_j), *jax_args, **kw)
+    bd_j = plan.back_valid & st_j.boundary_mask
+    st_j = dataclasses.replace(st_j, volume=jnp.where(bd_j, 1.0 / jnp.maximum(delta, 1e-10),
+                                                      st_j.volume))
+    pack = pack_of(st_j)
+    rho = ps.density_sweep_seg(pack, *jax_args, **kw)
+    rho, p = jF.compute_pressures(jnp.where(plan.back_valid & st_j.fluid_mask, rho,
+                                            st_j.density), params_j)
+    pack = ps.repack_eos(pack, rho, p)
+
+    port = pad_state_capacity(pt.state_from_host(jax_to_host(st_j), "cpu"), st_j.capacity)
+    spec = grid.make_grid_spec(dim, scene.domain_start, scene.domain_end, scene.support_length)
+    params = pt.SolverParams.from_scene(pt.scene_from_dict(raw))
+    st, ids, perm = grid.sort_state_by_cell(port, spec)
+    assert torch.equal(perm, torch.arange(port.capacity))  # already sorted
+    bounds = grid.csr_bounds(ids, spec)
+    flm, effm = _effm(st, params)
+    rho_t, p_t = torch.tensor(np.asarray(rho)), torch.tensor(np.asarray(p))
+    packs = (neighbors.pack4(st.x, effm), neighbors.pack4(st.v, rho_t),
+             neighbors.pack_aux(p_t / torch.clamp(rho_t * rho_t, min=1e-12), flm, st.mass))
+    return dict(pack=pack, jax_args=jax_args, kw=kw, st=st, ids=ids, bounds=bounds,
+                spec=spec, params=params, packs=packs)
+
+
+def check_coupling_sweeps_match_seg_kernel(dim):
+    """force_react and reaction against the seg kernel (its 3D case runs
+    from test_torch_sweeps_3d.py); in the plain versions, force_react
+    equals force on fluid rows and reaction on boundary rows bitwise, as
+    tests/test_seg.py:227-285 checks the TPU kernel."""
+    s = _coupling_setup(dim)
+    st, spec, params = s["st"], s["spec"], s["params"]
+    args = (*s["packs"], s["ids"], s["bounds"], st.material, spec, params)
+    n = st.num_active
+    fl, bd = st.fluid_mask.numpy(), st.boundary_mask.numpy()
+    assert fl[:n].any() and bd[:n].any() and not (fl | bd)[n:].any()
+    fr = neighbors.force_react_sweep(*args).numpy()
+    rx = neighbors.reaction_sweep(*args).numpy()
+    fr_j = np.asarray(ps.force_react_sweep_seg(s["pack"], *s["jax_args"], **s["kw"]))
+    rx_j = np.asarray(ps.reaction_sweep_seg(s["pack"], *s["jax_args"], **s["kw"]))
+    for got, want, rows in ((fr, fr_j, fl), (fr, fr_j, bd), (rx, rx_j, bd)):
+        scale = np.abs(want[rows]).max()
+        assert scale > 0
+        np.testing.assert_allclose(got[rows] / scale, want[rows] / scale, rtol=0,
+                                   atol=FORCE_ATOL)
+    # the body moves: the viscous (dot) term must count in the reaction
+    still = (*s["packs"][:1], neighbors.pack4(torch.zeros_like(st.v), s["packs"][1][:, 3]),
+             *args[2:])
+    assert np.abs(neighbors.reaction_sweep(*still).numpy()[bd] - rx[bd]).max() > 0.1 * np.abs(
+        rx[bd]).max()
+    assert (fr[~(fl | bd)] == 0).all() and (rx[~bd] == 0).all()
+    assert np.array_equal(fr[fl], neighbors.force_sweep(*args).numpy()[fl])
+    assert np.array_equal(fr[bd], rx[bd])
+
+
+def test_coupling_sweeps_match_seg_kernel_2d():
+    check_coupling_sweeps_match_seg_kernel(2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [2, 3])
+def test_coupling_kernel_matches_plain_on_cuda(dim):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sweep kernel has no CPU mode")
+    scene = pt.scene_from_dict(_coupling_raw(dim))
+    solver = pt.WCSPH(scene, device="cuda")  # its spec and params
+    state = pt.build_state(scene, device="cuda")
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    state = dataclasses.replace(state, v=state.v + torch.randn(
+        state.v.shape, generator=gen).to("cuda"))
+    st, ids, _ = grid.sort_state_by_cell(state, solver.spec)
+    bounds = grid.csr_bounds(ids, solver.spec)
+    spec, params = solver.spec, solver.params
+    bdm = st.boundary_mask
+    delta = neighbors.bvol_sweep(neighbors.pack4(st.x, bdm.to(torch.float32)), ids, bounds,
+                                 st.material, spec, params)
+    st = dataclasses.replace(st, volume=torch.where(bdm, 1.0 / torch.clamp(delta, min=1e-10),
+                                                    st.volume))
+    flm, effm = _effm(st, params)
+    pos = neighbors.pack4(st.x, effm)
+    rho = neighbors.density_sweep(pos, ids, bounds, st.material, spec, params)
+    rho, p = F.compute_pressures(torch.where(st.fluid_mask, rho, st.density), params)
+    args = (pos, neighbors.pack4(st.v, rho),
+            neighbors.pack_aux(p / torch.clamp(rho * rho, min=1e-12), flm, st.mass),
+            ids, bounds, st.material, spec, params)
+    fl = st.fluid_mask
+    want_fr = neighbors.force_react_sweep(*args)
+    want_rx = neighbors.reaction_sweep(*args)
+    for fast, atol in ((False, FORCE_ATOL), (True, 2 * FORCE_ATOL)):
+        got_fr = cuda_sweeps.force_react_sweep(*args, fast)
+        got_rx = cuda_sweeps.reaction_sweep(*args, fast)
+        for got, want, rows in ((got_fr, want_fr, fl), (got_fr, want_fr, bdm),
+                                (got_rx, want_rx, bdm)):
+            scale = want[rows].abs().max()
+            torch.testing.assert_close(got[rows] / scale, want[rows] / scale, rtol=0, atol=atol)
+        assert torch.equal(got_rx[~bdm], torch.zeros_like(got_rx[~bdm]))

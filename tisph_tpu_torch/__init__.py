@@ -6,8 +6,8 @@ package is the reference it is tested against.  Module tree (each module
 mirrors the ``tisph_tpu`` module of the same path):
 
 - ``config``             scene schema, SolverParams
-- ``geometry``           lattice sampler, ``build_state`` (scene -> state)
-- ``models``             SimState, SolverBase, WCSPH
+- ``geometry``           lattice sampler, meshes, voxelizer, ``build_state``
+- ``models``             SimState, SolverBase, WCSPH, rigid bodies, WCSPHRigid
 - ``ops``                kernels, EOS, grid, per-particle phases, plain sweeps
 - ``ops.cuda``           kernel wrappers and the nvcc build
 - ``csrc``               the CUDA sources
@@ -16,8 +16,10 @@ mirrors the ``tisph_tpu`` module of the same path):
 
 from tisph_tpu_torch.config import SceneConfig, SolverParams, load_scene, scene_from_dict
 from tisph_tpu_torch.geometry.builder import build_state
+from tisph_tpu_torch.models.rigid import RigidState, rigid_from_host, rigid_to_host
 from tisph_tpu_torch.models.state import SimState, state_from_host, state_to_host
 from tisph_tpu_torch.models.wcsph import WCSPH
+from tisph_tpu_torch.models.wcsph_rigid import WCSPHRigid, advance, make_solver
 
 __all__ = [
     "SceneConfig",
@@ -29,4 +31,10 @@ __all__ = [
     "state_from_host",
     "state_to_host",
     "WCSPH",
+    "RigidState",
+    "rigid_from_host",
+    "rigid_to_host",
+    "WCSPHRigid",
+    "make_solver",
+    "advance",
 ]

@@ -7,15 +7,27 @@ calls; R=2 is the headline cadence and R=1 (the reference's per-substep
 resort) is always on record; the faster one is reported as ``value`` with
 the cadence it ran at.  Both cadences start from the same bound state:
 the dam break's early transient thins the fluid, so a cadence measured
-after the other would see cheaper steps.  Needs a CUDA device: there is
-no CPU measurement.
+after the other would see cheaper steps.  A scene with a dynamic rigid
+body times the coupled solver's ``rollout_coupled`` (``WCSPHRigid``), as
+the ladder's ``3d_rigid_coupled`` cell does.  Needs a CUDA device: there
+is no CPU measurement.
+
+``--settle N`` first runs N steps at R=2 (e.g. to put a falling body in
+the water) and measures from there.  ``--profile N`` adds a ``profile``
+entry per cadence: ``torch.profiler`` over N more warm steps, giving per
+step the profiled host wall, the device busy time, the device idle share,
+the device operations (kernels, copies, fills) and the costliest device
+operations by name.
 
 Usage: python -m tisph_tpu_torch.bench [--scene scenes/demo_3d.json] [--steps 50]
+       python -m tisph_tpu_torch.bench --scene scenes/bench_3d_rigid.json \
+           [--settle 1200] [--profile 20]
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import os
 import sys
@@ -29,14 +41,15 @@ _SCENE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
                       "scenes", "demo_3d.json")
 
 
-def _measure(solver, state, steps: int, resort: int):
-    """Warm rollout of ``steps`` at R = ``resort`` from ``state`` (which
-    rollouts never modify); pps, or None on NaN."""
+def _measure(solver, state, rigid, steps: int, resort: int):
+    """Warm rollout of ``steps`` at R = ``resort`` from ``state`` and
+    ``rigid`` (None without dynamic bodies; rollouts modify neither); pps,
+    or None on NaN."""
     solver.resort_every = resort
-    state = solver.rollout(state, resort)  # warm-up: caches, allocator
+    state, rigid = tt.advance(solver, state, rigid, resort)  # warm-up: caches, allocator
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state = solver.rollout(state, steps)
+    state, rigid = tt.advance(solver, state, rigid, steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if solver.metrics(state)["nan_count"]:
@@ -44,38 +57,80 @@ def _measure(solver, state, steps: int, resort: int):
     return state.num_active * steps / wall
 
 
+def _profile(solver, state, rigid, steps: int, resort: int, top: int = 8) -> dict:
+    """``torch.profiler`` over ``steps`` warm steps at R = ``resort``, per
+    step: device busy is the sum of the device operations' durations (one
+    stream, so they do not overlap), the idle share is 1 - busy / wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    solver.resort_every = resort
+    state, rigid = tt.advance(solver, state, rigid, resort)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tt.advance(solver, state, rigid, steps)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict[str, float] = collections.defaultdict(float)
+    ops = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] += e.time_range.elapsed_us() / 1e3
+            ops += 1
+    if not ops:
+        raise RuntimeError("the profiler recorded no device operation")
+    busy = sum(by_name.values())
+    costliest = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    return {
+        "resort_every": resort,
+        "wall_ms_per_step": wall_ms / steps,
+        "device_busy_ms_per_step": busy / steps,
+        "device_idle_share": 1.0 - busy / wall_ms,
+        "device_ops_per_step": ops / steps,
+        "device_ms_per_step_by_op": {k: v / steps for k, v in costliest},
+    }
+
+
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default=_SCENE)
     ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--settle", type=int, default=0, help="steps at R=2 before measuring")
+    ap.add_argument("--profile", type=int, default=0, help="profiled steps per cadence")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench: no CUDA device; the port is measured on a GPU only", file=sys.stderr)
         return 2
 
     scene = tt.load_scene(args.scene)
-    state = tt.build_state(scene, device="cuda")
-    solver = tt.WCSPH(scene, device="cuda")
-    state = solver.bind(state)
+    solver, state, rigid = tt.make_solver(scene, tt.build_state(scene, device="cuda"),
+                                          device="cuda")
+    if args.settle:
+        solver.resort_every = 2
+        state, rigid = tt.advance(solver, state, rigid, args.settle)
     n = state.num_active
 
-    pps = _measure(solver, state, args.steps, 2)
+    pps = _measure(solver, state, rigid, args.steps, 2)
     if pps is None:
         print(json.dumps({"metric": "particle-steps/sec", "value": 0.0,
                           "unit": "particle-steps/sec", "error": "NaN during benchmark"}))
         return 1
     resort = 2
-    r1_pps = _measure(solver, state, args.steps, 1)
+    r1_pps = _measure(solver, state, rigid, args.steps, 1)
     if r1_pps is not None and r1_pps > pps:
         pps, resort = r1_pps, 1
-    print(json.dumps({
-        "metric": f"particle-steps/sec ({scene.dim}D dam break, {n // 1000}k particles)",
+    what = "dam break with a dynamic rigid body" if rigid is not None else "dam break"
+    line = {
+        "metric": f"particle-steps/sec ({scene.dim}D {what}, {n // 1000}k particles)",
         "value": round(pps, 1),
         "unit": "particle-steps/sec",
         "r1_pps": None if r1_pps is None else round(r1_pps, 1),
         "resort_every": resort,
         "device": torch.cuda.get_device_name(0),
-    }))
+    }
+    if args.profile:
+        line["profile"] = [_profile(solver, state, rigid, args.profile, r) for r in (2, 1)]
+    print(json.dumps(line))
     return 0
 
 

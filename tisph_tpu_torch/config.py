@@ -2,9 +2,9 @@
 
 The same JSON scene schema as ``tisph_tpu.config`` (the reference's
 data/scenes/*.json), parsed to the same field values, and the same three
-``compat`` presets for :class:`SolverParams`.  Rigid bodies and emitters
-are later slices of the port: a scene that declares them is refused
-instead of run without them.
+``compat`` presets for :class:`SolverParams`.  Emitters are a later
+slice of the port: a scene that declares them is refused instead of run
+without them.
 """
 
 from __future__ import annotations
@@ -48,6 +48,23 @@ class BoundaryBlock:
 
 
 @dataclasses.dataclass(frozen=True)
+class RigidBody:
+    """Mesh body voxelized at the particle diameter (``rigidBodies``
+    entry).  Static bodies are boundary particles that never move; dynamic
+    ones (``isDynamic``) run through ``models.wcsph_rigid.WCSPHRigid``."""
+
+    geometry_file: str
+    scale: tuple[float, ...]
+    translation: tuple[float, ...]
+    rotation_angle: float = 0.0
+    rotation_axis: tuple[float, float, float] = (0.0, 1.0, 0.0)
+    velocity: tuple[float, ...] = (0.0, 0.0, 0.0)
+    density: float = _DEFAULT_DENSITY0
+    color: tuple[float, float, float] = (0.6, 0.6, 0.6)
+    is_dynamic: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class SceneConfig:
     """Parsed scene: domain, discretisation and bodies.
 
@@ -63,6 +80,7 @@ class SceneConfig:
     gravitation: tuple[float, ...] = (0.0, -9.81, 0.0)
     c_s: float = 100.0
     fluid_blocks: tuple[FluidBlock, ...] = ()
+    rigid_bodies: tuple[RigidBody, ...] = ()
     boundary_blocks: tuple[BoundaryBlock, ...] = ()
     # Keys the reference parses but ignores; honored under compat="config".
     stiffness_B: float | None = None
@@ -74,6 +92,7 @@ class SceneConfig:
     steps_per_render: int = 1
     simulation_method: int = 0
     output_interval: int = 40
+    # directory of the scene file; relative geometryFile paths resolve here
     base_dir: str = "."
 
     @property
@@ -169,14 +188,9 @@ def _color(v: Any) -> tuple[float, float, float]:
 def scene_from_dict(raw: dict[str, Any], base_dir: str = ".") -> SceneConfig:
     """Build a :class:`SceneConfig` from the reference JSON schema dict.
 
-    Raises NotImplementedError for scenes with rigid bodies or emitters:
-    those slices are not ported yet (ROADMAP.md, queue 1, items 11 and 12).
+    Raises NotImplementedError for scenes with emitters: that slice is not
+    ported yet (ROADMAP.md, queue 1, item 12).
     """
-    if raw.get("rigidBodies"):
-        raise NotImplementedError(
-            "rigidBodies are not ported to tisph_tpu_torch yet "
-            "(ROADMAP.md, queue 1, item 11: rigid bodies)"
-        )
     if raw.get("emitters"):
         raise NotImplementedError(
             "emitters are not ported to tisph_tpu_torch yet "
@@ -211,6 +225,22 @@ def scene_from_dict(raw: dict[str, Any], base_dir: str = ".") -> SceneConfig:
             )
         )
 
+    rigid_bodies = []
+    for rb in raw.get("rigidBodies", []) or []:
+        rigid_bodies.append(
+            RigidBody(
+                geometry_file=str(rb["geometryFile"]),
+                scale=_tup(rb.get("scale", [1.0] * dim), dim, 1.0),
+                translation=_tup(rb.get("translation"), dim),
+                rotation_angle=float(rb.get("rotationAngle", 0.0)),
+                rotation_axis=tuple(float(x) for x in rb.get("rotationAxis", [0.0, 1.0, 0.0])),
+                velocity=_tup(rb.get("velocity"), dim),
+                density=float(rb.get("density", _DEFAULT_DENSITY0) or _DEFAULT_DENSITY0),
+                color=_color(rb.get("color")),
+                is_dynamic=bool(rb.get("isDynamic", False)),
+            )
+        )
+
     boundary_blocks = []
     for bb in raw.get("boundaryBlocks", []) or []:
         d = min(dim, len(bb["start"]))
@@ -235,6 +265,7 @@ def scene_from_dict(raw: dict[str, Any], base_dir: str = ".") -> SceneConfig:
         gravitation=tuple(float(g) for g in grav),
         c_s=float(cfg.get("c_s", 100.0)),
         fluid_blocks=tuple(fluid_blocks),
+        rigid_bodies=tuple(rigid_bodies),
         boundary_blocks=tuple(boundary_blocks),
         stiffness_B=float(cfg["B"]) if "B" in cfg else None,
         gamma=float(cfg["gamma"]) if "gamma" in cfg else None,

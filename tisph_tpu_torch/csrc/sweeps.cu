@@ -1,9 +1,11 @@
-// WCSPH neighbour sweeps (density, force, bvol) for Hopper (sm_90a).
+// WCSPH neighbour sweeps (density, force, bvol, force_react, reaction) for
+// Hopper (sm_90a).
 //
 // Replaces tisph_tpu/ops/pallas/sweeps.py::_seg_sweep_kernel, the TPU's
-// seg-layout sweep, in its density, force and bvol modes; the pair math is
-// that kernel's _tile_math (sweeps.py:181-305) and is mirrored by the plain
-// versions in tisph_tpu_torch/ops/neighbors.py.
+// seg-layout sweep, in all five of its physics modes; the pair math is
+// that kernel's _tile_math (sweeps.py:181-297) and _ivals_acc0
+// (sweeps.py:307-381), mirrored by the plain versions in
+// tisph_tpu_torch/ops/neighbors.py.
 //
 // Design: one thread per row i of the cell-sorted state, as the reference
 // Taichi code walks for_all_neighbors.  The thread decodes i's sort-time
@@ -11,30 +13,44 @@
 // inside the grid reads the contiguous candidate range
 // [bounds[c_lo], bounds[c_hi + 1]) and sums over it in f32 registers.
 // Rows outside the mode's consumer family (fluid for density and force,
-// boundary for bvol) write 0 and exit at once.  No shared-memory tiling,
-// TMA or tensor cores: the sweep is bound by the j loads (about 27 * 64 =
-// 1,728 candidates per interior i at radius spacing, about 270 of them
-// inside h), which mostly hit L2; neighbouring threads sit in the same or
-// adjacent cells and walk nearly the same runs, so their loads partly
-// coalesce into broadcasts.  Pairs with q >= 1 are skipped before the
-// force mode's j loads of velocity and pressure: the branch-free spline is
-// exactly 0 there, so the skip changes no sum.
+// boundary for bvol and reaction, fluid or boundary for force_react)
+// write 0 and exit at once.  No shared-memory tiling, TMA or tensor cores:
+// the sweep is bound by the j loads (about 27 * 64 = 1,728 candidates per
+// interior i at radius spacing, about 270 of them inside h), which mostly
+// hit L2; neighbouring threads sit in the same or adjacent cells and walk
+// nearly the same runs, so their loads partly coalesce into broadcasts.
+// Pairs with q >= 1 are skipped before the gradient modes' j loads of
+// velocity and pressure: the branch-free spline is exactly 0 there, so
+// the skip changes no sum.
+//
+// The rigid coupling modes (two-way Akinci coupling):
+// - reaction: boundary i accumulates the fluid -> boundary force
+//   F_i = (k_sig / h) bvol_i sum_j flm_j (nu_b,j dot_neg - p_j / rho_j^2)
+//   grad W_ij, with nu_b,j = sigma_b h c_s / (2 rho_j) and bvol_i = rho0 V_i,
+//   read from pos.w (effm, which is rho0 V on boundary rows);
+// - force_react: the force mode on fluid rows and the reaction on boundary
+//   rows in one pass; boundary rows get neither gravity nor cohesion.  Each
+//   side's per-pair arithmetic is the one of its separate mode, so the
+//   fused output equals force and reaction on their rows.
 //
 // Numerics kept from the TPU kernel:
-// - self pair: density and bvol fold W(0) in through j == i; in force dx
-//   is bitwise 0 (x_i and x_j come from the same buffer) and the rsqrt
-//   clamp max(r2, 1e-12) keeps coef finite, so it adds exactly 0;
-// - the spline normalisation k_sig (k_sig / h for force) is one multiply
-//   per i after the sum, and the cohesion coefficient carries the extra h;
-// - gravity is added once per i after the sum;
-// - FAST = fast_math: an approximate reciprocal (__fdividef) on the two
-//   viscosity-only divides; otherwise exact IEEE divides.
+// - self pair: density and bvol fold W(0) in through j == i; in the
+//   gradient modes dx is bitwise 0 (x_i and x_j come from the same buffer)
+//   and the rsqrt clamp max(r2, 1e-12) keeps coef finite, so it adds
+//   exactly 0 (and flm_i = 0 for a boundary i);
+// - the spline normalisation k_sig (k_sig / h for the gradient modes) is
+//   one multiply per i after the sum, and the cohesion coefficient carries
+//   the extra h;
+// - gravity is added once per fluid i after the sum;
+// - FAST = fast_math: an approximate reciprocal (__fdividef) on the
+//   viscosity-only divides (and the reaction's 1 / rho_j); otherwise exact
+//   IEEE divides.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-enum Mode { kDensity = 0, kForce = 1, kBvol = 2 };
+enum Mode { kDensity = 0, kForce = 1, kBvol = 2, kForceReact = 3, kReaction = 4 };
 
 struct GridArgs {
   int res0;   // cells along axis 0
@@ -46,7 +62,7 @@ struct GridArgs {
 
 struct PhysArgs {
   float inv_h;     // 1 / h
-  float fin;       // k_sig (density, bvol) or k_sig / h (force)
+  float fin;       // k_sig (density, bvol) or k_sig / h (gradient modes)
   float eps_visc;  // 0.01 h^2
   float visc_num;  // 2 nu h c_s
   float nub_num;   // sigma_b h c_s
@@ -65,16 +81,22 @@ sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
              const float4* __restrict__ aux, const int* __restrict__ ids,
              const int* __restrict__ bounds, const int* __restrict__ material,
              float* __restrict__ out, int n, GridArgs g, PhysArgs p) {
-  constexpr int kOut = (MODE == kForce) ? DIM : 1;
+  constexpr bool kGrad = MODE == kForce || MODE == kForceReact || MODE == kReaction;
+  constexpr int kOut = kGrad ? DIM : 1;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int mat = material[i];
-  const bool consumer = (MODE == kBvol) ? (mat == 0) : (mat == 1);
+  const bool consumer = (MODE == kBvol || MODE == kReaction) ? (mat == 0)
+                        : (MODE == kForceReact)               ? (mat == 0 || mat == 1)
+                                                              : (mat == 1);
   if (!consumer) {
 #pragma unroll
     for (int a = 0; a < kOut; ++a) out[i * kOut + a] = 0.0f;
     return;
   }
+  // reaction arithmetic on this row: every row of the reaction mode, the
+  // boundary rows of force_react
+  const bool react_i = MODE == kReaction || (MODE == kForceReact && mat == 0);
 
   // sort-time cell of i, decoded from its id
   const int id = ids[i];
@@ -93,13 +115,15 @@ sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
   const float4 pi = pos[i];
   float4 vi = make_float4(0.f, 0.f, 0.f, 0.f);
   float p_rho2_i = 0.f, coh_i = 0.f, nub_i = 0.f;
-  if (MODE == kForce) {
-    vi = vel[i];
+  if (kGrad) vi = vel[i];
+  if (kGrad && !react_i) {
     const float4 ai = aux[i];
     p_rho2_i = ai.x;
     coh_i = -(p.coh_num * (1.0f / fmaxf(ai.z, 1e-30f)));
     nub_i = p.nub_num / (2.0f * vi.w);
   }
+  const float bvol_i = pi.w;            // rho0 V_i on a boundary row
+  const float nub_half = 0.5f * p.nub_num;  // sigma_b h c_s / 2, exact
   float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f;
 
   constexpr int kOy = (DIM == 3) ? 1 : 0;
@@ -126,7 +150,7 @@ sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
         const float p1sq = p1 * p1;
         const float p2sq = p2 * p2;
         const float w = 2.0f * p1 * p1sq - 8.0f * p2 * p2sq;
-        if (MODE != kForce) {
+        if (!kGrad) {
           acc0 += pj.w * w;
           continue;
         }
@@ -134,14 +158,20 @@ sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
         const float4 vj = vel[j];
         const float4 aj = aux[j];
         const float flm = aj.y;
-        const float bdv = pj.w - flm;
         float dot = (vi.x - vj.x) * dx + (vi.y - vj.y) * dy;
         if (DIM == 3) dot += (vi.z - vj.z) * dz;
         const float dot_neg = fdiv<FAST>(fminf(dot, 0.0f), r2 + p.eps_visc);
-        const float nu_f = p.visc_num * fdiv<FAST>(1.0f, vi.w + vj.w);
-        const float visc = dot_neg * (flm * nu_f + bdv * nub_i);
-        const float press = pj.w * p_rho2_i + flm * aj.x;
-        const float coef = (visc - press) * gmag + (coh_i * flm) * w;
+        float coef;
+        if (react_i) {
+          const float nub_j = nub_half * fdiv<FAST>(1.0f, fmaxf(vj.w, 1e-12f));
+          coef = (bvol_i * (flm * (nub_j * dot_neg - aj.x))) * gmag;
+        } else {
+          const float bdv = pj.w - flm;
+          const float nu_f = p.visc_num * fdiv<FAST>(1.0f, vi.w + vj.w);
+          const float visc = dot_neg * (flm * nu_f + bdv * nub_i);
+          const float press = pj.w * p_rho2_i + flm * aj.x;
+          coef = (visc - press) * gmag + (coh_i * flm) * w;
+        }
         acc0 += coef * dx;
         acc1 += coef * dy;
         if (DIM == 3) acc2 += coef * dz;
@@ -149,7 +179,11 @@ sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
     }
   }
 
-  if (MODE == kForce) {
+  if (kGrad && react_i) {  // a force on a body particle: no gravity here
+    out[i * DIM + 0] = acc0 * p.fin;
+    out[i * DIM + 1] = acc1 * p.fin;
+    if (DIM == 3) out[i * DIM + 2] = acc2 * p.fin;
+  } else if (kGrad) {
     out[i * DIM + 0] = acc0 * p.fin + p.g[0];
     out[i * DIM + 1] = acc1 * p.fin + p.g[1];
     if (DIM == 3) out[i * DIM + 2] = acc2 * p.fin + p.g[2];
@@ -185,9 +219,10 @@ void launch_fast(int fast, const void* pos, const void* vel, const void* aux,
 
 }  // namespace
 
-// mode: 0 density, 1 force, 2 bvol; dim: 2 or 3.  vel and aux are read by
-// the force mode only.  Returns cudaGetLastError() after the launch, or
-// cudaErrorInvalidValue for an unknown mode or dim.
+// mode: 0 density, 1 force, 2 bvol, 3 force_react, 4 reaction; dim: 2 or
+// 3; fast_math is read by the three gradient modes.  vel and aux are read
+// by the gradient modes only.  Returns cudaGetLastError() after the
+// launch, or cudaErrorInvalidValue for an unknown mode or dim.
 extern "C" int tisph_sweep(int mode, int dim, int fast_math, const void* pos,
                            const void* vel, const void* aux, const void* ids,
                            const void* bounds, const void* material, void* out,
@@ -199,21 +234,31 @@ extern "C" int tisph_sweep(int mode, int dim, int fast_math, const void* pos,
   const GridArgs g{res0, res1, res_z, s0, s1};
   const PhysArgs p{inv_h, fin, eps_visc, visc_num, nub_num, coh_num, {gx, gy, gz}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TISPH_ARGS pos, vel, aux, ids, bounds, material, out, n, g, p, st
   if (dim == 3 && mode == kDensity) {
-    launch<kDensity, 3, false>(pos, vel, aux, ids, bounds, material, out, n, g, p, st);
+    launch<kDensity, 3, false>(TISPH_ARGS);
   } else if (dim == 3 && mode == kBvol) {
-    launch<kBvol, 3, false>(pos, vel, aux, ids, bounds, material, out, n, g, p, st);
+    launch<kBvol, 3, false>(TISPH_ARGS);
   } else if (dim == 3 && mode == kForce) {
-    launch_fast<kForce, 3>(fast_math, pos, vel, aux, ids, bounds, material, out, n, g, p, st);
+    launch_fast<kForce, 3>(fast_math, TISPH_ARGS);
+  } else if (dim == 3 && mode == kForceReact) {
+    launch_fast<kForceReact, 3>(fast_math, TISPH_ARGS);
+  } else if (dim == 3 && mode == kReaction) {
+    launch_fast<kReaction, 3>(fast_math, TISPH_ARGS);
   } else if (dim == 2 && mode == kDensity) {
-    launch<kDensity, 2, false>(pos, vel, aux, ids, bounds, material, out, n, g, p, st);
+    launch<kDensity, 2, false>(TISPH_ARGS);
   } else if (dim == 2 && mode == kBvol) {
-    launch<kBvol, 2, false>(pos, vel, aux, ids, bounds, material, out, n, g, p, st);
+    launch<kBvol, 2, false>(TISPH_ARGS);
   } else if (dim == 2 && mode == kForce) {
-    launch_fast<kForce, 2>(fast_math, pos, vel, aux, ids, bounds, material, out, n, g, p, st);
+    launch_fast<kForce, 2>(fast_math, TISPH_ARGS);
+  } else if (dim == 2 && mode == kForceReact) {
+    launch_fast<kForceReact, 2>(fast_math, TISPH_ARGS);
+  } else if (dim == 2 && mode == kReaction) {
+    launch_fast<kReaction, 2>(fast_math, TISPH_ARGS);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef TISPH_ARGS
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,17 +1,21 @@
 """Scene -> SimState builder.
 
-Boundary blocks first, then fluid blocks (the order ``tisph_tpu`` uses,
-after its rigid bodies, which this port does not take yet), sampled on the
-host and uploaded to ``device`` in one go.
+Rigid bodies first, then boundary blocks, then fluid blocks (the order
+``tisph_tpu`` uses, so body k gets object id k), sampled on the host and
+uploaded to ``device`` in one go.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
-from tisph_tpu_torch.config import SceneConfig
+from tisph_tpu_torch.config import RigidBody, SceneConfig
+from tisph_tpu_torch.geometry.mesh import load_obj
 from tisph_tpu_torch.geometry.sampler import cube_lattice
+from tisph_tpu_torch.geometry.voxelize import voxelize_points
 from tisph_tpu_torch.models.state import (
     MATERIAL_BOUNDARY,
     MATERIAL_FLUID,
@@ -19,6 +23,20 @@ from tisph_tpu_torch.models.state import (
     make_state,
     pad_capacity,
 )
+
+
+def load_rigid_points(rigid: RigidBody, scene: SceneConfig) -> np.ndarray:
+    """Load, transform (scale, rotate about the centroid, translate) and
+    voxelize a body at pitch = particle diameter: (P, 3) float32."""
+    path = rigid.geometry_file
+    if not os.path.isabs(path):
+        path = os.path.join(scene.base_dir, path)
+    mesh = load_obj(path)
+    mesh.apply_scale(rigid.scale if len(rigid.scale) == 3 else rigid.scale[0])
+    if rigid.rotation_angle:
+        mesh.apply_rotation(rigid.rotation_angle, rigid.rotation_axis)
+    mesh.apply_translation(rigid.translation)
+    return voxelize_points(mesh, scene.particle_diameter)
 
 
 def build_state(
@@ -31,6 +49,17 @@ def build_state(
     dim = scene.dim
     positions, velocities, densities, materials, colors, object_ids = [], [], [], [], [], []
     next_obj = 0
+
+    for rigid in scene.rigid_bodies:
+        pts = load_rigid_points(rigid, scene)
+        n = pts.shape[0]
+        positions.append(pts[:, :dim])
+        velocities.append(np.tile(np.asarray(rigid.velocity[:dim], np.float32), (n, 1)))
+        densities.append(np.full(n, rigid.density, np.float32))
+        materials.append(np.full(n, MATERIAL_BOUNDARY, np.int32))
+        colors.append(np.tile(np.asarray(rigid.color, np.float32), (n, 1)))
+        object_ids.append(np.full(n, next_obj, np.int32))
+        next_obj += 1
 
     for bb in scene.boundary_blocks:
         pts = cube_lattice(bb.start, bb.end, scene.particle_diameter)

@@ -26,6 +26,12 @@ class SolverBase:
     """Static configuration (SolverParams, GridSpec, device, R) plus the
     step; all simulation state lives in :class:`SimState`."""
 
+    # "static": the Akinci boundary volumes are computed once at bind
+    # (boundary particles never move); "per_step": every substep on current
+    # positions, as the reference does (sph_basev2.py:212), which moving
+    # bodies need.  Fixed by the solver class.
+    boundary_mode = "static"
+
     def __init__(
         self,
         scene: SceneConfig,
@@ -35,7 +41,7 @@ class SolverBase:
         fast_math: bool = True,
     ):
         """``resort_every``: substeps per neighbour-structure rebuild (R).
-        ``fast_math``: approximate reciprocals on the force sweep's two
+        ``fast_math``: approximate reciprocals on the gradient sweeps'
         viscosity-only divides in the CUDA kernel (no effect on the CPU)."""
         if resort_every < 1:
             raise ValueError(f"resort_every must be >= 1, got {resort_every}")
@@ -60,10 +66,11 @@ class SolverBase:
             raise ValueError(f"state is on {dev}, solver on {self.device}")
 
     def bind(self, state: SimState) -> SimState:
-        """Check the state's device and compute the static Akinci boundary
-        volumes (boundary particles never move in this slice)."""
+        """Check the state's device and, under ``boundary_mode="static"``,
+        compute the Akinci boundary volumes once."""
         self._check_device(state)
-        state = self._precompute_boundary_volumes(state)
+        if self.boundary_mode == "static":
+            state = self._precompute_boundary_volumes(state)
         self._bound = True
         return state
 
@@ -92,27 +99,38 @@ class SolverBase:
     def _apply(self, state: SimState, cache) -> SimState:
         raise NotImplementedError
 
+    def _substep(self, carry: tuple, cache) -> tuple:
+        """One substep of the carry ``(state, ...)``; the plain solvers
+        carry the state alone."""
+        return (self._apply(carry[0], cache),)
+
     # -- public API ------------------------------------------------------
     def step(self, state: SimState) -> SimState:
         """One substep with a fresh neighbour structure."""
-        return self._groups(state, 1, 1)
+        return self._groups((state,), 1, 1, self._substep)[0]
 
     def rollout(self, state: SimState, num_steps: int) -> SimState:
         """``num_steps`` substeps in groups of ``resort_every``."""
-        return self._groups(state, num_steps, self.resort_every)
+        return self._groups((state,), num_steps, self.resort_every, self._substep)[0]
 
-    def _groups(self, state: SimState, num_steps: int, R: int) -> SimState:
+    def _groups(self, carry: tuple, num_steps: int, R: int, substep) -> tuple:
+        """Run ``num_steps`` of ``substep(carry, cache) -> carry`` in groups
+        of R, rebuilding the neighbour structure of ``carry[0]`` (the
+        SimState, which the rebuild sorts) before each group."""
+        state = carry[0]
         if not self._bound:
             state = self.bind(state)
         self._check_device(state)
         done = 0
         while done < num_steps:
             state, cache = self._build(state)
+            carry = (state,) + tuple(carry[1:])
             k = min(R, num_steps - done)
             for _ in range(k):
-                state = self._apply(state, cache)
+                carry = substep(carry, cache)
+            state = carry[0]
             done += k
-        return state
+        return carry
 
     def metrics(self, state: SimState) -> dict[str, float | int]:
         """Max fluid speed, CFL number, mean and max relative fluid density

@@ -6,8 +6,11 @@ and block plan:
 
 - ``_build``, once per group: stable sort by cell, CSR bounds (bounds
   kernel), and the group-constant mass coefficients;
-- ``_apply``, every substep: density sweep (kept on fluid rows) -> Tait
-  EOS -> force sweep -> symplectic Euler -> domain-box clamp.
+- ``_apply``, every substep: under ``boundary_mode="per_step"`` the bvol
+  sweep on current positions and the refresh of V and effm on boundary
+  rows -> density sweep (kept on fluid rows) -> Tait EOS -> force sweep
+  (``force_react`` with ``with_reactions``) -> symplectic Euler ->
+  domain-box clamp.
 
 Pair membership uses the sort-time ids and bounds of the group, and r^2
 uses current positions (``wcsph.py:160-182``): a pair is missed only when
@@ -33,29 +36,42 @@ from tisph_tpu_torch.ops.neighbors import pack4, pack_aux
 class GroupCache(NamedTuple):
     """What stays fixed through an R-group."""
 
-    ids: torch.Tensor     # (N,) i32 sort-time cell ids
-    bounds: torch.Tensor  # (num_cells + 1,) i32 CSR bounds of ``ids``
-    fluid: torch.Tensor   # (N,) bool
-    effm: torch.Tensor    # (N,) f32 fl * m + bd * rho0 * V
-    flm: torch.Tensor     # (N,) f32 fl * m
+    ids: torch.Tensor       # (N,) i32 sort-time cell ids
+    bounds: torch.Tensor    # (num_cells + 1,) i32 CSR bounds of ``ids``
+    fluid: torch.Tensor     # (N,) bool
+    boundary: torch.Tensor  # (N,) bool
+    effm: torch.Tensor      # (N,) f32 fl * m + bd * rho0 * V (V of the rebuild)
+    flm: torch.Tensor       # (N,) f32 fl * m
 
 
 class WCSPH(SolverBase):
     def _build(self, state: SimState) -> tuple[SimState, GroupCache]:
         state, ids, _ = gridops.sort_state_by_cell(state, self.spec)
         bounds = cuda_bounds.csr_bounds_sorted(ids, self.spec)
-        fluid = state.fluid_mask
+        fluid, boundary = state.fluid_mask, state.boundary_mask
         flm = fluid.to(torch.float32) * state.mass
-        effm = flm + state.boundary_mask.to(torch.float32) * (
-            self.params.density0 * state.volume
-        )
-        return state, GroupCache(ids, bounds, fluid, effm, flm)
+        effm = flm + boundary.to(torch.float32) * (self.params.density0 * state.volume)
+        return state, GroupCache(ids, bounds, fluid, boundary, effm, flm)
 
-    def _apply(self, state: SimState, cache: GroupCache) -> SimState:
+    def _apply(self, state: SimState, cache: GroupCache, with_reactions: bool = False):
+        """One substep; with ``with_reactions`` returns ``(state,
+        reactions)``, the (N, dim) fluid -> boundary forces on boundary
+        rows (0 elsewhere), for the rigid-body integrator."""
         spec, params, fm = self.spec, self.params, self.fast_math
-        ids, bounds, fluid = cache.ids, cache.bounds, cache.fluid
+        ids, bounds, fluid, bd = cache.ids, cache.bounds, cache.fluid, cache.boundary
 
-        pos = pack4(state.x, cache.effm)
+        effm = cache.effm
+        if self.boundary_mode == "per_step":
+            # Akinci volumes on current positions with the group's sort-time
+            # structure; the bvol pack's c column is bd, not effm
+            delta = cuda_sweeps.bvol_sweep(pack4(state.x, bd.to(torch.float32)), ids, bounds,
+                                           state.material, spec, params, fm)
+            volume = torch.where(bd, 1.0 / torch.clamp(delta, min=1e-10), state.volume)
+            # effm = rho0 V on boundary rows is also the reaction's bvol_i
+            effm = cache.flm + torch.where(bd, params.density0 * volume, 0.0)
+            state = dataclasses.replace(state, volume=volume)
+
+        pos = pack4(state.x, effm)
         rho = cuda_sweeps.density_sweep(pos, ids, bounds, state.material, spec, params, fm)
         # boundary rows keep their stored density
         rho = torch.where(fluid, rho, state.density)
@@ -65,10 +81,14 @@ class WCSPH(SolverBase):
 
         vel = pack4(state.v, rho)
         aux = pack_aux(p_rho2, cache.flm, state.mass)
-        # zero on non-fluid rows, as the kernel's contract says
-        dv = cuda_sweeps.force_sweep(pos, vel, aux, ids, bounds, state.material,
-                                     spec, params, fm)
+        # dv on fluid rows (and the reaction on boundary rows with
+        # with_reactions), 0 elsewhere, as the kernel's contract says
+        sweep = cuda_sweeps.force_react_sweep if with_reactions else cuda_sweeps.force_sweep
+        dv = sweep(pos, vel, aux, ids, bounds, state.material, spec, params, fm)
 
         state = dataclasses.replace(state, density=rho, pressure=pressure)
-        state = F.advect(state, dv, params)
-        return F.enforce_domain_boundary(state, params)
+        state = F.advect(state, dv, params)  # fluid rows only
+        state = F.enforce_domain_boundary(state, params)
+        if with_reactions:
+            return state, torch.where(bd[:, None], dv, 0.0)
+        return state

@@ -3,11 +3,11 @@ dispatch, one wrapper per mode.
 
 Replaces ``tisph_tpu/ops/pallas/sweeps.py::_seg_sweep_kernel`` (launched
 by ``_run_sweep_seg``, wrapped by ``density_sweep_seg``,
-``force_sweep_seg`` and ``bvol_sweep_seg``).  The plain versions are
-``ops.neighbors.density_sweep``, ``force_sweep`` and ``bvol_sweep``, with
-the same signatures and pack layouts (see ``ops.neighbors``): a CPU tensor
-goes there, a CUDA tensor launches the kernel or raises.  Each wrapper
-counts its launches in ``<wrapper>.launches``.
+``force_sweep_seg``, ``bvol_sweep_seg``, ``force_react_sweep_seg`` and
+``reaction_sweep_seg``).  The plain versions are the functions of the same
+names in ``ops.neighbors``, with the same signatures and pack layouts: a
+CPU tensor goes there, a CUDA tensor launches the kernel or raises.  Each
+wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from tisph_tpu_torch.ops.cuda import build
 from tisph_tpu_torch.ops.grid import GridSpec
 from tisph_tpu_torch.ops.kernels import cubic_kernel_sigma
 
-_MODES = {"density": 0, "force": 1, "bvol": 2}
+_MODES = {"density": 0, "force": 1, "bvol": 2, "force_react": 3, "reaction": 4}
+_GRAD = ("force", "force_react", "reaction")  # read vel and aux, write (N, dim)
 
 
 def _check(name: str, spec: GridSpec, ids, bounds, material, packs) -> None:
@@ -51,10 +52,10 @@ def _launch(mode: str, pos, vel, aux, ids, bounds, material,
     name = f"{mode}_sweep"
     if ids.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {ids.device}")
-    packs = {"pos": pos} | ({"vel": vel, "aux": aux} if mode == "force" else {})
+    packs = {"pos": pos} | ({"vel": vel, "aux": aux} if mode in _GRAD else {})
     _check(name, spec, ids, bounds, material, packs)
     n, dim = ids.shape[0], spec.dim
-    out = torch.empty((n, dim) if mode == "force" else (n,),
+    out = torch.empty((n, dim) if mode in _GRAD else (n,),
                       dtype=torch.float32, device=ids.device)
     h = params.support_length
     k_sig = cubic_kernel_sigma(dim, h)
@@ -71,7 +72,7 @@ def _launch(mode: str, pos, vel, aux, ids, bounds, material,
             res[0], res[1] if dim == 3 else 0, res[-1],
             strides[0], strides[1] if dim == 3 else 0,
             1.0 / h,
-            k_sig / h if mode == "force" else k_sig,
+            k_sig / h if mode in _GRAD else k_sig,
             0.01 * h * h,
             2.0 * params.viscosity * h * params.c_s,
             params.boundary_sigma * h * params.c_s,
@@ -116,6 +117,33 @@ def force_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
     return out
 
 
+def force_react_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
+                      params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+    """(N, dim): acceleration on fluid rows, fluid -> boundary reaction
+    force on boundary rows, 0 elsewhere (``neighbors.force_react_sweep``)."""
+    if ids.device.type == "cpu":
+        return neighbors.force_react_sweep(pos, vel, aux, ids, bounds, material, spec,
+                                           params, fast_math)
+    out = _launch("force_react", pos, vel, aux, ids, bounds, material, spec, params,
+                  fast_math)
+    force_react_sweep.launches += 1
+    return out
+
+
+def reaction_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
+                   params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+    """(N, dim) fluid -> boundary reaction force on boundary rows, 0
+    elsewhere (``neighbors.reaction_sweep``)."""
+    if ids.device.type == "cpu":
+        return neighbors.reaction_sweep(pos, vel, aux, ids, bounds, material, spec,
+                                        params, fast_math)
+    out = _launch("reaction", pos, vel, aux, ids, bounds, material, spec, params, fast_math)
+    reaction_sweep.launches += 1
+    return out
+
+
 density_sweep.launches = 0
 bvol_sweep.launches = 0
 force_sweep.launches = 0
+force_react_sweep.launches = 0
+reaction_sweep.launches = 0

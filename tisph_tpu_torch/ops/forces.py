@@ -15,6 +15,7 @@ import torch
 
 from tisph_tpu_torch.config import SolverParams
 from tisph_tpu_torch.models.state import SimState
+from tisph_tpu_torch.ops.consts import device_constant
 from tisph_tpu_torch.ops.eos import tait_pressure
 from tisph_tpu_torch.ops.kernels import cubic_kernel_sigma
 
@@ -46,14 +47,15 @@ def advect(state: SimState, d_velocity: torch.Tensor, params: SolverParams) -> S
     return dataclasses.replace(state, x=x, v=v)
 
 
-def _box(params: SolverParams, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+def domain_box(params: SolverParams, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """Clamp bounds [start + padding, end - padding] in f32 arithmetic, as
-    ``tisph_tpu`` forms them (an f64 sum moves a bound by one ulp)."""
+    ``tisph_tpu`` forms them (an f64 sum moves a bound by one ulp); made
+    once per device (``ops.consts``)."""
     pad = np.float32(params.padding)
-    lo = [np.float32(s) + pad for s in params.domain_start]
-    hi = [np.float32(e) - pad for e in params.domain_end]
-    return (torch.tensor(np.asarray(lo, np.float32), device=device),
-            torch.tensor(np.asarray(hi, np.float32), device=device))
+    lo = [float(np.float32(s) + pad) for s in params.domain_start]
+    hi = [float(np.float32(e) - pad) for e in params.domain_end]
+    return (device_constant(lo, torch.float32, device),
+            device_constant(hi, torch.float32, device))
 
 
 def enforce_domain_boundary(state: SimState, params: SolverParams) -> SimState:
@@ -61,7 +63,7 @@ def enforce_domain_boundary(state: SimState, params: SolverParams) -> SimState:
     (sph_basev2.py:158-189): fluid particles are clamped into the box and
     their velocity reflected, v -= (1 + c_f) (v . n) n, each axis on its own
     coordinate."""
-    lo, hi = _box(params, state.device)
+    lo, hi = domain_box(params, state.device)
     fluid = state.fluid_mask[:, None]
     one = torch.ones((), dtype=state.x.dtype, device=state.device)
     zero = torch.zeros((), dtype=state.x.dtype, device=state.device)

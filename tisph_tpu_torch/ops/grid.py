@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from tisph_tpu_torch.models.state import MATERIAL_INVALID, SimState
+from tisph_tpu_torch.ops.consts import device_constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,16 +81,16 @@ def make_grid_spec(
 def cell_coords(x: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     """(N, dim) int32 cell coordinates, clipped into the grid so that
     out-of-domain stragglers stay in edge cells."""
-    start = torch.tensor(spec.domain_start, dtype=x.dtype, device=x.device)
+    start = device_constant(spec.domain_start, x.dtype, x.device)
     c = torch.floor((x - start) / spec.cell_size).to(torch.int32)
-    hi = torch.tensor(spec.res, dtype=torch.int32, device=x.device) - 1
+    hi = device_constant([r - 1 for r in spec.res], torch.int32, x.device)
     return torch.minimum(torch.clamp(c, min=0), hi)
 
 
 def flat_cell_ids(coords: torch.Tensor, material: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     """(N,) int32 flat ids; inactive slots get the sentinel ``num_cells``
     so a stable sort puts them at the tail."""
-    strides = torch.tensor(spec.strides, dtype=torch.int32, device=coords.device)
+    strides = device_constant(spec.strides, torch.int32, coords.device)
     ids = torch.sum(coords * strides, dim=-1, dtype=torch.int32)
     return torch.where(material == MATERIAL_INVALID,
                        torch.full_like(ids, spec.num_cells), ids)

@@ -1,14 +1,22 @@
 """Neighbour sweeps over the cell-sorted state: the plain PyTorch versions
 of the sweep kernel (``ops.cuda.sweeps``), with the same signatures.
 
-Three modes, each a sum over the candidates j of a row i:
+Five modes, each a sum over the candidates j of a row i:
 
-- ``density``: rho_i = k_sig sum_j effm_j w_ij, self term included;
-- ``bvol``:    delta_i = k_sig sum_j bd_j w_ij (Akinci boundary volume
+- ``density``:  rho_i = k_sig sum_j effm_j w_ij, self term included;
+- ``bvol``:     delta_i = k_sig sum_j bd_j w_ij (Akinci boundary volume
   denominator, self term included);
-- ``force``:   dv_i = g + (k_sig / h) sum_j coef_ij dx_ij, the fused
+- ``force``:    dv_i = g + (k_sig / h) sum_j coef_ij dx_ij, the fused
   viscosity, pressure and cohesion terms of ``tisph_tpu``'s TPU sweep
-  kernel (ops/pallas/sweeps.py ``_tile_math``, lines 181-305).
+  kernel (ops/pallas/sweeps.py ``_tile_math``, lines 181-297);
+- ``reaction``: F_i = (k_sig / h) sum_j bvol_i flm_j (nu_b,j dot_neg_ij -
+  p_j / rho_j^2) gmag_ij dx_ij on boundary rows, the fluid -> boundary
+  force of the two-way rigid coupling, with nu_b,j = sigma_b h c_s /
+  (2 max(rho_j, 1e-12)) and bvol_i = rho0 V_i read from the ``pos`` c
+  column (effm is rho0 V on boundary rows);
+- ``force_react``: ``force`` on fluid rows and ``reaction`` on boundary
+  rows, each with the arithmetic of its separate mode, so the fused output
+  equals them bitwise on their rows.
 
 The candidates of i are every j whose sort-time cell id lies in one of
 i's 3^(dim-1) sort-time stencil-row ranges (``grid.stencil_runs`` over the
@@ -18,11 +26,13 @@ for q >= 1, so the r < h cutoff needs no separate test, and the force
 mode's self pair gives exactly 0 because dx is bitwise 0 (x_i and x_j are
 read from the same tensor) while the rsqrt clamp keeps coef finite.  Only
 rows of the mode's consumer family are computed (fluid rows for
-``density`` and ``force``, boundary rows for ``bvol``); other rows are 0.
+``density`` and ``force``, boundary rows for ``bvol`` and ``reaction``,
+both for ``force_react``); other rows are 0.
 
 Inputs are float4-style packs (:func:`pack4`, :func:`pack_aux`), (N, 4) f32:
 
-- ``pos`` = [x, y, z or 0, c] with c = effm (density, force) or bd (bvol);
+- ``pos`` = [x, y, z or 0, c] with c = effm (density and the gradient
+  modes) or bd (bvol);
 - ``vel`` = [vx, vy, vz or 0, rho];
 - ``aux`` = [p / max(rho^2, 1e-12), fl * m, m, 0].
 
@@ -44,6 +54,16 @@ from tisph_tpu_torch.ops.kernels import cubic_kernel_sigma
 # memory (~40 tensors of this length in the force mode) so 195k particles
 # fit on a card or a host.
 _PAIR_BUDGET = 1 << 22
+
+# consumer family (row materials) of each mode
+_FAMILY = {
+    "density": (MATERIAL_FLUID,),
+    "force": (MATERIAL_FLUID,),
+    "bvol": (MATERIAL_BOUNDARY,),
+    "reaction": (MATERIAL_BOUNDARY,),
+    "force_react": (MATERIAL_FLUID, MATERIAL_BOUNDARY),
+}
+_GRAD = ("force", "force_react", "reaction")  # the (N, dim) gradient modes
 
 
 def pack4(vec: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -67,12 +87,15 @@ def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
     dim, rows = spec.dim, spec.num_rows
     h = params.support_length
     k_sig = cubic_kernel_sigma(dim, h)
-    family = MATERIAL_BOUNDARY if mode == "bvol" else MATERIAL_FLUID
-    acc = torch.zeros((n, dim if mode == "force" else 1), dtype=torch.float32,
-                      device=pos.device)
-    rows_i = torch.nonzero(material == family).squeeze(1)
+    grad = mode in _GRAD
+    fam = material == _FAMILY[mode][0]
+    for m in _FAMILY[mode][1:]:
+        fam = fam | (material == m)
+    fluid = material == MATERIAL_FLUID
+    acc = torch.zeros((n, dim if grad else 1), dtype=torch.float32, device=pos.device)
+    rows_i = torch.nonzero(fam).squeeze(1)
     if rows_i.numel() == 0:
-        return acc if mode == "force" else acc[:, 0]
+        return acc if grad else acc[:, 0]
 
     runs = stencil_runs(coords_from_ids(ids[rows_i], spec), bounds, spec).long()
     lens = (runs[..., 1] - runs[..., 0]).reshape(-1)      # per (i, stencil row)
@@ -103,7 +126,7 @@ def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
         for a in range(1, dim):
             r2 = r2 + dx[a] * dx[a]
         near = torch.nonzero(r2 < r2_keep).squeeze(1)
-        i, j, r2, pj = i[near], j[near], r2[near], pj[near]
+        i, j, r2, pi, pj = i[near], j[near], r2[near], pi[near], pj[near]
         dx = [d[near] for d in dx]
         rs = torch.rsqrt(torch.clamp(r2, min=1e-12))
         q = (r2 * rs) * (1.0 / h)
@@ -113,36 +136,46 @@ def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
         p2sq = p2 * p2
         w = 2.0 * p1 * p1sq - 8.0 * p2 * p2sq
 
-        if mode != "force":
+        if not grad:
             acc[:, 0].index_add_(0, i, pj[:, 3] * w)
             continue
 
-        vi, ai, vj, aj = vel[i], aux[i], vel[j], aux[j]
-        rho_i = vi[:, 3]
-        p_rho2_i = ai[:, 0]
-        coh_i = -((h * params.surface_tension) * (1.0 / torch.clamp(ai[:, 2], min=1e-30)))
-        nu_b_i = (params.boundary_sigma * h * params.c_s) / (2.0 * rho_i)
+        vi, vj, aj = vel[i], vel[j], aux[j]
         gmag = (24.0 * p2sq - 6.0 * p1sq) * rs
         flm = aj[:, 1]
-        effm = pj[:, 3]
-        bdv = effm - flm
         dot = (vi[:, 0] - vj[:, 0]) * dx[0]
         for a in range(1, dim):
             dot = dot + (vi[:, a] - vj[:, a]) * dx[a]
         dot_neg = torch.clamp(dot, max=0.0) / (r2 + 0.01 * h * h)
-        inv_rho_sum = 1.0 / (rho_i + vj[:, 3])
-        nu_f = (2.0 * params.viscosity * h * params.c_s) * inv_rho_sum
-        visc = dot_neg * (flm * nu_f + bdv * nu_b_i)
-        press = effm * p_rho2_i + flm * aj[:, 0]
-        coef = (visc - press) * gmag + (coh_i * flm) * w
+        coef = None
+        if mode != "reaction":
+            ai = aux[i]
+            rho_i = vi[:, 3]
+            p_rho2_i = ai[:, 0]
+            coh_i = -((h * params.surface_tension) * (1.0 / torch.clamp(ai[:, 2], min=1e-30)))
+            nu_b_i = (params.boundary_sigma * h * params.c_s) / (2.0 * rho_i)
+            effm = pj[:, 3]
+            bdv = effm - flm
+            inv_rho_sum = 1.0 / (rho_i + vj[:, 3])
+            nu_f = (2.0 * params.viscosity * h * params.c_s) * inv_rho_sum
+            visc = dot_neg * (flm * nu_f + bdv * nu_b_i)
+            press = effm * p_rho2_i + flm * aj[:, 0]
+            coef = (visc - press) * gmag + (coh_i * flm) * w
+        if mode != "force":
+            inv_rho_j = 1.0 / torch.clamp(vj[:, 3], min=1e-12)
+            nu_b_j = (params.boundary_sigma * h * params.c_s * 0.5) * inv_rho_j
+            react = (pi[:, 3] * (flm * (nu_b_j * dot_neg - aj[:, 0]))) * gmag
+            coef = react if coef is None else torch.where(fluid[i], coef, react)
         for a in range(dim):
             acc[:, a].index_add_(0, i, coef * dx[a])
 
-    if mode != "force":
+    if not grad:
         return acc[:, 0] * k_sig  # rows outside the family were never added to
-    g = torch.tensor(params.gravity[:dim], dtype=torch.float32, device=pos.device)
-    fam = (material == family)[:, None]
-    return torch.where(fam, acc * (k_sig / h) + g, acc.new_zeros(()))
+    out = acc * (k_sig / h)
+    if mode != "reaction":  # gravity on fluid rows only
+        g = torch.tensor(params.gravity[:dim], dtype=torch.float32, device=pos.device)
+        out = torch.where(fluid[:, None], out + g, out)
+    return torch.where(fam[:, None], out, acc.new_zeros(()))
 
 
 def density_sweep(pos, ids, bounds, material, spec: GridSpec,
@@ -162,3 +195,17 @@ def force_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
                 params: SolverParams, fast_math: bool = True) -> torch.Tensor:
     """(N, dim) acceleration on fluid rows, 0 elsewhere."""
     return _sweep("force", pos, vel, aux, ids, bounds, material, spec, params)
+
+
+def force_react_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
+                      params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+    """(N, dim): acceleration on fluid rows, fluid -> boundary reaction
+    force on boundary rows, 0 elsewhere."""
+    return _sweep("force_react", pos, vel, aux, ids, bounds, material, spec, params)
+
+
+def reaction_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
+                   params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+    """(N, dim) fluid -> boundary reaction force on boundary rows, 0
+    elsewhere.  ``pos`` c column = effm (rho0 V on boundary rows)."""
+    return _sweep("reaction", pos, vel, aux, ids, bounds, material, spec, params)

@@ -1,5 +1,8 @@
 """Run a scene file: the main loop of ``examples/run_scene.py`` on the
-PyTorch port (no viewer, orbit, BPA, GIF, checkpoint or rigid options).
+PyTorch port (no viewer, orbit, BPA, GIF or checkpoint options).  A scene
+with a dynamic rigid body (``"isDynamic": true``) runs the coupled solver
+``WCSPHRigid``; static bodies are boundary particles of plain ``WCSPH``
+(``make_solver``).
 
 Usage:
     python -m tisph_tpu_torch.run_scene scenes/demo_3d.json --steps 100 \
@@ -46,9 +49,10 @@ def main(argv: list[str] | None = None) -> int:
     scene = tt.load_scene(args.scene)
     print(f"scene: dim={scene.dim} domain={scene.domain_start}->{scene.domain_end} "
           f"r={scene.particle_radius}")
-    state = tt.build_state(scene, device=device)
-    solver = tt.WCSPH(scene, device=device, resort_every=args.resort)
-    state = solver.bind(state)
+    solver, state, rigid = tt.make_solver(scene, tt.build_state(scene, device=device),
+                                          device=device, resort_every=args.resort)
+    if rigid is not None:
+        print(f"dynamic rigid bodies: {rigid.num_bodies}")
     print(f"particles: {state.num_active} (capacity {state.capacity}) "
           f"grid: res={solver.spec.res} dt={solver.params.dt} R={args.resort} "
           f"device={device}")
@@ -58,7 +62,7 @@ def main(argv: list[str] | None = None) -> int:
     _sync(device)
     t0 = time.perf_counter()
     for frame in range(args.steps):
-        state = solver.rollout(state, args.substeps)
+        state, rigid = tt.advance(solver, state, rigid, args.substeps)
         if args.out:
             np.savez_compressed(os.path.join(args.out, f"frame_{frame:06d}.npz"),
                                 **tt.state_to_host(state))
