@@ -45,7 +45,25 @@ Phases, each of which raises on failure (nothing is caught):
    force_react at fast_math off beside them;
 8. buoyancy: tests/test_rigid_dynamics.py::test_buoyancy's scenes (a box
    of density 200 or 5000 dropped into a calm pool), 2,000 steps at R=1:
-   the light box ends with com_y > 0.27, the heavy one below.
+   the light box ends with com_y > 0.27, the heavy one below;
+9. the linear main path: demo_3d through load_scene -> build_state ->
+   WCSPH(device="cuda", layout="linear").bind -> rollout, 100 steps at R=1;
+   one step queued behind the device spin must return without a host
+   wait; the launch counters prove that every substep ran the linear
+   kernel's density and force modes and the bounds kernel, and never the
+   seg sweeps; no NaN, CFL < 1; on the evolved state the linear kernel
+   against its plain version and against the seg kernel at phase 4's
+   tolerances, fast_math off and on, its block windows against
+   grid.block_window_bounds exactly, its candidates per block, and the
+   times of both kernels and the plain version; the golden trajectories
+   through layout="linear", fast_math off and on.
+
+Every kernel's entry in the JSON line has a bound: the larger of the bytes
+it must move (each input read once, each output written once) over 3.35
+TB/s and its f32 operations (pairs inside h on this run's state, times the
+operations per pair counted from the CUDA source) over 67 TFLOP/s, the
+H100 SXM's published peaks; and, for the bounds kernel, the time of
+torch.searchsorted on the same inputs (no PyTorch call computes a sweep).
 
 The last two lines of standard output are the JSON kernel summary and
 {"ok": true, "device": {...}}; any failure exits nonzero before them.
@@ -72,6 +90,7 @@ DEVICE = "cuda"
 STEPS_R2, STEPS_R1 = 200, 50
 RIGID_R2, RIGID_R1 = 1500, 100
 BUOYANCY_STEPS = 2000
+LINEAR_STEPS = 100
 SPIN_CYCLES = 2_000_000_000  # about a second at the H100's clocks
 
 # tests/test_rigid_dynamics.py::test_buoyancy's pool and box
@@ -110,6 +129,19 @@ TOL = {  # (density and bvol rtol, force atol after scaling by max|force|)
     False: (2e-5, 5e-6),
     True: (2e-5, 1e-5),
 }
+
+# The H100 SXM's published peaks (NVIDIA's data sheet): device memory and
+# f32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# f32 operations per pair inside h in 3D, counted from csrc/sweeps.cu (the
+# linear kernel's pair code is the same): 23 to the spline value w (3
+# differences, r^2 in 5, the clamp, rsqrt, q in 2, p1 and p2 in 2 each,
+# their squares, w in 5), then density and bvol +2 (multiply-add into the
+# sum); force +37 (gmag 4, dot 8, dot_neg 3, bdv 1, nu_f 3, visc 4, press
+# 3, coef 5, the three sums 6); reaction +29 (gmag 4, dot 8, dot_neg 3,
+# nu_b,j 3, coef 5, sums 6).
+FLOPS_PER_PAIR = {"density": 25, "bvol": 25, "force": 60, "reaction": 52}
 
 
 def phase(name: str) -> None:
@@ -324,6 +356,111 @@ def check_coupling_sweeps(label: str, solver, inp) -> dict[str, float]:
     return errs
 
 
+def check_linear_sweeps(label: str, solver, inp) -> dict[str, float]:
+    """The linear kernel against its plain version and against the seg
+    kernel (the same function) at both fast_math settings, at phase 4's
+    tolerances; its block windows against grid.block_window_bounds
+    exactly.  Returns the max abs error against the plain version at
+    fast_math on, per mode."""
+    from tisph_tpu_torch.ops import grid, neighbors
+    from tisph_tpu_torch.ops.cuda import sweeps
+
+    spec, params = solver.spec, solver.params
+    st, ids, bounds, mat = inp["st"], inp["ids"], inp["bounds"], inp["st"].material
+    fl = st.fluid_mask
+    d_args = (inp["pos"], ids, bounds, mat, spec, params)
+    f_args = (inp["pos"], inp["vel"], inp["aux"], ids, bounds, mat, spec, params)
+    plain = {"density": neighbors.density_sweep_linear(*d_args),
+             "force": neighbors.force_sweep_linear(*f_args)}
+    windows = torch.empty((-(-ids.shape[0] // neighbors.LINEAR_BLOCK), spec.num_rows, 2),
+                          dtype=torch.int32, device=DEVICE)
+    errs = {}
+    for fast in (False, True):
+        rtol, atol_f = TOL[fast]
+        got = {"density": sweeps.density_sweep_linear(*d_args, fast, windows=windows),
+               "force": sweeps.force_sweep_linear(*f_args, fast)}
+        seg = {"density": sweeps.density_sweep(*d_args, fast),
+               "force": sweeps.force_sweep(*f_args, fast)}
+        torch.cuda.synchronize()
+        for mode in ("density", "force"):
+            g = got[mode]
+            if not torch.isfinite(g).all():
+                raise AssertionError(f"{label} linear {mode} fast={fast}: non-finite output")
+            if not torch.equal(g[~fl], torch.zeros_like(g[~fl])):
+                raise AssertionError(f"{label} linear {mode}: rows off the fluid not 0")
+            for ref_name, r in (("plain", plain[mode]), ("seg kernel", seg[mode])):
+                err = float((g - r).abs().max())
+                if mode == "force":
+                    rel = err / float(r[fl].abs().max())
+                    ok, tol = rel <= atol_f, f"max|err|/max|ref| = {rel:.3e} (atol {atol_f})"
+                else:
+                    rel = float(((g - r)[fl].abs() / r[fl].abs().clamp(min=1e-30)).max())
+                    ok, tol = rel <= rtol, f"max rel err = {rel:.3e} (rtol {rtol})"
+                print(f"  {label:<12} linear {mode:<8} vs {ref_name:<10} fast_math={int(fast)} "
+                      f"rows={int(fl.sum())} max|err|={err:.3e} {tol}")
+                if not ok:
+                    raise AssertionError(f"{label} linear {mode} vs {ref_name} fast={fast}: {tol}")
+                if fast and ref_name == "plain":
+                    errs[mode] = err
+    lo, hi = grid.block_window_bounds(ids, grid.coords_from_ids(ids, spec), spec,
+                                      neighbors.LINEAR_BLOCK)
+    if not torch.equal(windows, torch.stack([lo, hi], dim=-1)):
+        raise AssertionError(f"{label}: the kernel's block windows != block_window_bounds")
+    # candidates: the j each block loads (its windows) against the j each
+    # row of the seg kernel walks (its stencil runs)
+    per_block = (hi - lo).clamp(min=0).sum(dim=1).double()
+    runs = grid.stencil_runs(grid.coords_from_ids(ids[fl], spec), bounds, spec).double()
+    per_row = (runs[..., 1] - runs[..., 0]).sum(dim=1)
+    print(f"  {label}: block windows equal block_window_bounds ({lo.numel()} windows); "
+          f"candidates per block of 128 rows: mean {float(per_block.mean()):.1f}, max "
+          f"{float(per_block.max()):.0f}, total {float(per_block.sum()):.0f}; per fluid row "
+          f"of the seg kernel: mean {float(per_row.mean()):.1f}, total {float(per_row.sum()):.0f}")
+    return errs
+
+
+def pairs_inside_h(inp, solver, rows, cols) -> int:
+    """#(i, j) with i in ``rows``, j in ``cols`` and r_ij < h, self pairs
+    included: the pairs whose terms a sweep of those rows must compute."""
+    from tisph_tpu_torch.ops import neighbors
+
+    x, h2 = inp["st"].x, solver.params.support_length ** 2
+    total = torch.zeros((), dtype=torch.int64, device=DEVICE)
+    for i, j in neighbors.candidates(inp["ids"], inp["bounds"],
+                                     torch.nonzero(rows).squeeze(1), solver.spec):
+        d = x[i] - x[j]
+        total += ((torch.sum(d * d, dim=1) < h2) & cols[j]).sum()
+    return int(total)
+
+
+def sweep_bound(mode: str, inp, solver) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations") of one sweep call on ``inp``:
+    bytes = the packs it reads (pos; vel and aux in the gradient modes),
+    ids, material, the CSR bounds and its output; operations = its pairs
+    inside h times FLOPS_PER_PAIR (the reaction rows of force_react at the
+    reaction's count)."""
+    st = inp["st"]
+    n, dim, nc = st.capacity, solver.spec.dim, solver.spec.num_cells
+    fl, bd = st.fluid_mask, st.boundary_mask
+    act = st.active_mask
+    grad = mode in ("force", "force_react", "reaction")
+    nbytes = n * (16 + 4 + 4) + (nc + 1) * 4 + (2 * n * 16 + n * dim * 4 if grad else n * 4)
+    if mode == "density":
+        flops = FLOPS_PER_PAIR["density"] * pairs_inside_h(inp, solver, fl, act)
+    elif mode == "bvol":  # only boundary j carry weight
+        flops = FLOPS_PER_PAIR["bvol"] * pairs_inside_h(inp, solver, bd, bd)
+    elif mode == "force":
+        flops = FLOPS_PER_PAIR["force"] * pairs_inside_h(inp, solver, fl, act)
+    elif mode == "reaction":  # only fluid j carry weight
+        flops = FLOPS_PER_PAIR["reaction"] * pairs_inside_h(inp, solver, bd, fl)
+    else:
+        flops = (FLOPS_PER_PAIR["force"] * pairs_inside_h(inp, solver, fl, act)
+                 + FLOPS_PER_PAIR["reaction"] * pairs_inside_h(inp, solver, bd, fl))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    print(f"  bound {mode:<12} {nbytes / 1e6:.3f} MB -> {t_bytes * 1e3:.5f} ms, "
+          f"{flops / 1e9:.4f} GFLOP -> {t_ops * 1e3:.5f} ms")
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def body_drift(state, rigid, tags, d0) -> float:
     """max | |x_p - com| - d0 | over the particles of body 0, matched by
     their tag in color[:, 0] (the sort moves rows, the colour goes with
@@ -368,15 +505,18 @@ def buoyancy(tt, density: float, tmp: str) -> float:
     return com[1]
 
 
-def golden_check(tt, name: str, raw: dict, steps: int, fast_math: bool) -> dict:
-    """Run a golden scene at R=1 and match its particles to the recorded
-    ones.  The recording is ordered by position, and a 1-ulp difference
+def golden_check(tt, name: str, raw: dict, steps: int, fast_math: bool,
+                 layout: str = "seg") -> dict:
+    """Run a golden scene at R=1 on ``layout``'s sweeps and match its
+    particles to the recorded ones.  The recording is ordered by position,
+    and a 1-ulp difference
     reorders particles with equal coordinates, so each particle is matched
     to the recorded one of least cost max(|dx|/5e-5, |dv|/5e-2,
     |drho|/(5e-4 rho)) (test_golden's tolerances): the run reproduces the
     golden iff that matching is one to one with every cost <= 1."""
     scene = tt.scene_from_dict(raw)
-    solver = tt.WCSPH(scene, device=DEVICE, resort_every=1, fast_math=fast_math)
+    solver = tt.WCSPH(scene, device=DEVICE, resort_every=1, fast_math=fast_math,
+                      layout=layout)
     out = tt.state_to_host(solver.rollout(solver.bind(tt.build_state(scene, device=DEVICE)),
                                           steps))
     with np.load(os.path.join(HERE, "tests", f"golden_{name}.npz")) as z:
@@ -391,7 +531,8 @@ def golden_check(tt, name: str, raw: dict, steps: int, fast_math: bool) -> dict:
     one_to_one = len(ref["x"]) == len(got["x"]) == len(torch.unique(idx))
     same_mat = bool((got["material"] == ref["material"][idx]).all())
     worst = float(best.max())
-    print(f"  golden {name} fast_math={int(fast_math)}: {len(got['x'])} particles, "
+    print(f"  golden {name} layout={layout} fast_math={int(fast_math)}: "
+          f"{len(got['x'])} particles, "
           f"one to one {one_to_one}, materials equal {same_mat}, "
           f"worst cost {worst:.4f} (<= 1 passes)")
     return {"ok": one_to_one and same_mat and worst <= 1.0, "worst": worst}
@@ -417,6 +558,8 @@ def main() -> int:
         "sweep.bvol": cuda_sweeps.bvol_sweep,
         "sweep.force_react": cuda_sweeps.force_react_sweep,
         "sweep.reaction": cuda_sweeps.reaction_sweep,
+        "linear.density": cuda_sweeps.density_sweep_linear,
+        "linear.force": cuda_sweeps.force_sweep_linear,
     }
 
     phase("1 environment")
@@ -483,7 +626,8 @@ def main() -> int:
     wall1 = time.perf_counter() - t0
     launches = {k: f.launches for k, f in kernels.items()}
     groups = -(-STEPS_R2 // 2)
-    zero = {"sweep.bvol": 0, "sweep.force_react": 0, "sweep.reaction": 0}
+    zero = {"sweep.bvol": 0, "sweep.force_react": 0, "sweep.reaction": 0,
+            "linear.density": 0, "linear.force": 0}
     want_r2 = {"csr_bounds": groups, "sweep.density": STEPS_R2, "sweep.force": STEPS_R2} | zero
     total = STEPS_R2 + STEPS_R1
     want = {"csr_bounds": groups + STEPS_R1, "sweep.density": total,
@@ -530,6 +674,15 @@ def main() -> int:
                                           mat, sp, pr), 20, 2),
     }
     times = time_against_plain(timing)
+    queries = torch.arange(sp.num_cells + 1, dtype=torch.int32, device=DEVICE)
+    library = {"csr_bounds": cuda_ms(lambda: torch.searchsorted(ids, queries, out_int32=True),
+                                     200)}
+    print(f"  time csr_bounds as one torch.searchsorted call: {library['csr_bounds']:.4f} ms")
+    # the bounds kernel reads the ids and writes the bounds; its searches
+    # are integer compares, far below the bytes' time
+    bound = {"csr_bounds": ((ids.numel() + sp.num_cells + 1) * 4 / HBM_BYTES_PER_S * 1e3,
+                            "bytes")}
+    bound |= {f"sweep.{m}": sweep_bound(m, inp, solver) for m in ("density", "force")}
 
     phase("6 golden trajectories (R=1)")
     for name, (raw, steps) in GOLDEN.items():
@@ -573,7 +726,7 @@ def main() -> int:
     r_steps = RIGID_R2 + RIGID_R1
     r_want = {"csr_bounds": -(-RIGID_R2 // 2) + RIGID_R1, "sweep.density": r_steps,
               "sweep.force": 0, "sweep.bvol": r_steps, "sweep.force_react": r_steps,
-              "sweep.reaction": 0}
+              "sweep.reaction": 0, "linear.density": 0, "linear.force": 0}
     if r_launches != r_want:
         raise AssertionError(f"rigid launch counts {r_launches}, expected {r_want}")
     m = r_solver.metrics(r_state)
@@ -622,6 +775,8 @@ def main() -> int:
         "force_react exact": (lambda: cuda_sweeps.force_react_sweep(*r_args, False),
                               lambda: neighbors.force_react_sweep(*r_args), 20, 2),
     })
+    bound |= {f"sweep.{m}": sweep_bound(m, r_inp, r_solver)
+              for m in ("bvol", "force_react", "reaction")}
 
     phase(f"8 buoyancy: test_buoyancy's box in a pool, {BUOYANCY_STEPS} steps at R=1")
     with tempfile.TemporaryDirectory() as tmp:
@@ -632,15 +787,71 @@ def main() -> int:
     if not heavy < 0.27:
         raise AssertionError(f"heavy body (density 5000) should sink, com_y={heavy}")
 
+    phase(f"9 linear main path: demo_3d, {LINEAR_STEPS} steps at R=1, layout=linear")
+    l_solver = tt.WCSPH(scene, device=DEVICE, layout="linear")
+    l_state = l_solver.bind(tt.build_state(scene, device=DEVICE))
+    l_state = l_solver.rollout(l_state, 2)  # warm-up, outside the counted run
+    assert_no_host_wait("demo_3d linear, one step", lambda: l_solver.rollout(l_state, 1))
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    l_state = l_solver.rollout(l_state, LINEAR_STEPS)
+    torch.cuda.synchronize()
+    lwall = time.perf_counter() - t0
+    l_launches = {k: f.launches for k, f in kernels.items()}
+    l_want = {k: 0 for k in kernels} | {"csr_bounds": LINEAR_STEPS,
+                                        "linear.density": LINEAR_STEPS,
+                                        "linear.force": LINEAR_STEPS}
+    if l_launches != l_want:
+        raise AssertionError(f"linear launch counts {l_launches}, expected {l_want}")
+    m = l_solver.metrics(l_state)
+    print(f"  launches: {l_launches}")
+    print(f"  metrics: {m}")
+    if m["nan_count"] != 0 or not math.isfinite(m["max_velocity"]) or m["cfl"] >= 1.0:
+        raise AssertionError(f"linear path unhealthy: {m}")
+    print(f"  {n} particles: R=1 {n * LINEAR_STEPS / lwall:.6e} particle-steps/s "
+          f"({lwall * 1e3 / LINEAR_STEPS:.4f} ms/step) on {card_line}")
+    launches |= {k: l_launches[k] for k in ("linear.density", "linear.force")}
+
+    print("  linear kernel checks on the evolved demo_3d state:")
+    l_inp = sweep_inputs(l_solver, l_state)
+    lin_errs = check_linear_sweeps(f"demo_3d+{LINEAR_STEPS + 2}", l_solver, l_inp)
+    l_st, l_ids, l_bnd = l_inp["st"], l_inp["ids"], l_inp["bounds"]
+    l_d = (l_inp["pos"], l_ids, l_bnd, l_st.material, l_solver.spec, l_solver.params)
+    l_f = (l_inp["pos"], l_inp["vel"], l_inp["aux"], l_ids, l_bnd, l_st.material,
+           l_solver.spec, l_solver.params)
+    times |= time_against_plain({
+        "linear.density": (lambda: cuda_sweeps.density_sweep_linear(*l_d),
+                           lambda: neighbors.density_sweep_linear(*l_d), 20, 2),
+        "linear.force": (lambda: cuda_sweeps.force_sweep_linear(*l_f),
+                         lambda: neighbors.force_sweep_linear(*l_f), 20, 2),
+        # the seg kernel on the same state (printed only)
+        "seg density@lin": (lambda: cuda_sweeps.density_sweep(*l_d),
+                            lambda: neighbors.density_sweep(*l_d), 20, 2),
+        "seg force@lin": (lambda: cuda_sweeps.force_sweep(*l_f),
+                          lambda: neighbors.force_sweep(*l_f), 20, 2),
+    })
+    bound |= {f"linear.{m}": sweep_bound(m, l_inp, l_solver) for m in ("density", "force")}
+    for name, (raw, steps) in GOLDEN.items():
+        for fast in (False, True):
+            if not golden_check(tt, name, raw, steps, fast_math=fast, layout="linear")["ok"]:
+                raise AssertionError(f"golden {name} layout=linear fast_math={fast} outside "
+                                     "the test_golden tolerances")
+
     src = {"csr_bounds": ("tisph_tpu_torch/csrc/bounds.cu", "tisph_tpu/ops/pallas/bounds.py:43")}
     for k in kernels:
         if k.startswith("sweep."):
             src[k] = ("tisph_tpu_torch/csrc/sweeps.cu", "tisph_tpu/ops/pallas/sweeps.py:787")
-    errs["csr_bounds"] = float(bounds_err)
+        elif k.startswith("linear."):
+            src[k] = ("tisph_tpu_torch/csrc/sweeps_linear.cu",
+                      "tisph_tpu/ops/pallas/sweeps.py:384")
+    err_of = {"csr_bounds": float(bounds_err)}
+    err_of |= {f"sweep.{m}": e for m, e in errs.items()}
+    err_of |= {f"linear.{m}": e for m, e in lin_errs.items()}
     summary = {"kernels": [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
-         "launches": launches[k], "max_abs_err": errs[k.split(".")[-1]],
-         "ms": times[k][0], "plain_ms": times[k][1]}
+         "launches": launches[k], "max_abs_err": err_of[k],
+         "ms": times[k][0], "plain_ms": times[k][1],
+         "bound_ms": bound[k][0], "bound_by": bound[k][1], "library_ms": library.get(k)}
         for k in kernels
     ]}
     print(card_line)

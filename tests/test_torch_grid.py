@@ -1,6 +1,7 @@
 """Port grid parity: gap-padded strides, cell ids, the stable sort (ids AND
-permutation), CSR bounds and stencil runs equal tisph_tpu's exactly, on
-numpy-random states with out-of-domain stragglers and inactive tail slots.
+permutation), CSR bounds, stencil runs, and the linear layout's target
+ranges and block windows equal tisph_tpu's exactly, on numpy-random states
+with out-of-domain stragglers and inactive tail slots.
 The bounds kernel itself runs on a CUDA card only (the `cuda` test)."""
 
 import dataclasses
@@ -86,6 +87,36 @@ def test_sort_bounds_runs_match_jax(dim):
     act = ids < spec.num_cells
     np.testing.assert_array_equal(grid.coords_from_ids(ids[act], spec).numpy(),
                                   coords[act].numpy())
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_block_windows_match_jax(dim):
+    """The linear layout's per-(block, row) windows and per-particle
+    target ranges equal JAX's exactly, over the whole array (ragged last
+    block, inactive tail) and for an i side that is a row range of the j
+    array; the windows read out of the CSR bounds equal the searchsorted
+    ones."""
+    ref, port, spec_j, spec = _states(dim, seed=10 + dim)
+    st_j, ids_j, _ = jgrid.sort_state_by_cell(ref, spec_j)
+    st, ids, _ = grid.sort_state_by_cell(port, spec)
+    n = ids.shape[0]
+    assert n % 128 and (ids == spec.num_cells).sum() == 61
+    coords = grid.cell_coords(st.x, spec)
+    coords_j = jnp.asarray(coords.numpy())
+    np.testing.assert_array_equal(grid.cell_target_ranges(coords, spec).numpy(),
+                                  np.asarray(jgrid.cell_target_ranges(coords_j, spec_j)))
+    b = grid.csr_bounds(ids, spec)
+    for o in (0, 300):  # all rows; rows [300, n) of the j array
+        want = jgrid.block_window_bounds(ids_j, coords_j[o:], spec_j, 128, ids_i=ids_j[o:])
+        plain = grid.block_window_bounds(ids, coords[o:], spec, 128, ids_i=ids[o:])
+        from_bounds = grid.block_window_bounds(ids, coords[o:], spec, 128, ids_i=ids[o:],
+                                               bounds=b)
+        assert plain[0].shape == (-(-(n - o) // 128), spec.num_rows)
+        for got in (plain, from_bounds):
+            for g, w in zip(got, want):
+                assert g.dtype == torch.int32
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert (plain[1] > plain[0]).any()  # not all empty
 
 
 def test_bounds_wrapper_takes_plain_version_on_cpu():

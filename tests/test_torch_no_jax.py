@@ -1,7 +1,7 @@
 """The PyTorch port imports neither jax nor the JAX package: run_scene on
-the CPU, a fluid scene with a boundary block and a scene with a dynamic
-mesh body (voxelizer and coupled solver), in a fresh interpreter, leaves
-both out of sys.modules (tisph_tpu/__init__.py imports jax and every
+the CPU, a fluid scene with a boundary block (on the seg and the linear
+layout) and a scene with a dynamic mesh body (voxelizer and coupled
+solver), in a fresh interpreter, leaves both out of sys.modules (tisph_tpu/__init__.py imports jax and every
 solver, so importing any tisph_tpu module would pull jax in)."""
 
 import json
@@ -18,13 +18,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CODE = r"""
 import json, sys
 import tisph_tpu_torch as tt
-from tisph_tpu_torch import bench, run_scene
+from tisph_tpu_torch import bench, paired_bench, run_scene
 import chip_smoke
 
 for path in sys.argv[1:]:
     rc = run_scene.main([path, "--steps", "2", "--substeps", "2", "--resort", "2",
                          "--metrics-every", "1", "--device", "cpu"])
     assert rc == 0, rc
+rc = run_scene.main([sys.argv[1], "--steps", "2", "--substeps", "2", "--resort", "1",
+                     "--layout", "linear", "--metrics-every", "1", "--device", "cpu"])
+assert rc == 0, rc
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tisph_tpu"))
 print(json.dumps(bad))

@@ -82,6 +82,47 @@ def test_rollout_matches_jax(resort):
     assert np.abs(got["x"] - start["x"][np.argsort(start["object_id"])]).max() > 1e-3
 
 
+def test_linear_rollout_matches_jax():
+    """WCSPH(layout="linear") against tisph_tpu's linear-layout pallas step
+    (WCSPH._step_fn_pallas, kernel in interpret mode) over 4 steps."""
+    scene = tt.scene_from_dict(SCENE)
+    solver = tt.WCSPH(scene, sweep_cfg=SweepConfig(
+        impl="pallas", block_size=128, window_cap=1024, tile=128, interpret=True,
+        layout="linear", fast_math=False))
+    state = solver.bind(tt.build_state(scene))
+    state = dataclasses.replace(state, object_id=jnp.arange(state.capacity, dtype=jnp.int32))
+    start = jax_to_host(state)
+    end = solver.rollout(state, 4)
+    assert int(end.occ_window) <= solver.sweep_cfg.window_cap  # no window was clipped
+    want = _by_id(jax_to_host(end))
+
+    port = pt.WCSPH(pt.scene_from_dict(SCENE), device="cpu", layout="linear")
+    got = _by_id(pt.state_to_host(port.rollout(port.bind(pt.state_from_host(start, "cpu")), 4)))
+    np.testing.assert_array_equal(got["object_id"], want["object_id"])
+    np.testing.assert_allclose(got["x"], want["x"], rtol=0, atol=1e-5)
+    assert np.abs(got["x"] - start["x"][np.argsort(start["object_id"])]).max() > 1e-3
+
+
+def test_linear_layout_refuses_what_it_does_not_run(tmp_path):
+    """R > 1 (tisph_tpu ignores it off the seg layout silently; the port
+    raises), an unknown layout, and a dynamic body (the coupled step has no
+    linear kernel)."""
+    scene = pt.scene_from_dict(SCENE)
+    with pytest.raises(ValueError, match="resort_every=2"):
+        pt.WCSPH(scene, device="cpu", layout="linear", resort_every=2)
+    with pytest.raises(ValueError, match="layouts"):
+        pt.WCSPH(scene, device="cpu", layout="blocked")
+    solver = pt.WCSPH(scene, device="cpu", layout="linear")
+    state = solver.bind(pt.build_state(scene, device="cpu"))
+    solver.resort_every = 2
+    with pytest.raises(ValueError, match="resort_every=2"):
+        solver.rollout(state, 2)
+    raw = _body_scene(tmp_path, dynamic=True, radius=0.04)
+    body = pt.scene_from_dict(raw, base_dir=str(tmp_path))
+    with pytest.raises(ValueError, match="layouts"):
+        pt.make_solver(body, pt.build_state(body, device="cpu"), device="cpu", layout="linear")
+
+
 def _body_scene(tmp_path, dynamic, radius=0.033):
     """tests/test_rigid_dynamics.py:118-124's scene with the box lowered
     into the water (fluid top y = 0.4, box y 0.35-0.47)."""
@@ -188,9 +229,17 @@ def _match_golden(got, ref):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_golden_trajectory(name):
+    check_golden(name, "seg")
+
+
+def test_golden_trajectory_linear_2d():
+    check_golden("2d_dam_break", "linear")
+
+
+def check_golden(name, layout):
     raw, steps = CASES[name]
     scene = pt.scene_from_dict(raw)
-    solver = pt.WCSPH(scene, device="cpu", resort_every=1)
+    solver = pt.WCSPH(scene, device="cpu", resort_every=1, layout=layout)
     got = pt.state_to_host(solver.rollout(solver.bind(pt.build_state(scene, device="cpu")),
                                           steps))
     with np.load(_golden_path(name)) as z:

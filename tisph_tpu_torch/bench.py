@@ -12,14 +12,17 @@ body times the coupled solver's ``rollout_coupled`` (``WCSPHRigid``), as
 the ladder's ``3d_rigid_coupled`` cell does.  Needs a CUDA device: there
 is no CPU measurement.
 
-``--settle N`` first runs N steps at R=2 (e.g. to put a falling body in
-the water) and measures from there.  ``--profile N`` adds a ``profile``
-entry per cadence: ``torch.profiler`` over N more warm steps, giving per
-step the profiled host wall, the device busy time, the device idle share,
-the device operations (kernels, copies, fills) and the costliest device
-operations by name.
+``--layout linear`` runs the linear layout's sweeps (``WCSPH(layout=
+"linear")``), which rebuild every substep: it measures and reports R=1
+only.  ``--settle N`` first runs N steps at R=2 (R=1 under ``linear``;
+e.g. to put a falling body in the water) and measures from there.
+``--profile N`` adds a ``profile`` entry per cadence: ``torch.profiler``
+over N more warm steps, giving per step the profiled host wall, the
+device busy time, the device idle share, the device operations (kernels,
+copies, fills) and the costliest device operations by name.
 
 Usage: python -m tisph_tpu_torch.bench [--scene scenes/demo_3d.json] [--steps 50]
+           [--layout {seg,linear}]
        python -m tisph_tpu_torch.bench --scene scenes/bench_3d_rigid.json \
            [--settle 1200] [--profile 20]
 """
@@ -95,8 +98,11 @@ def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", default=_SCENE)
     ap.add_argument("--steps", type=int, default=50)
-    ap.add_argument("--settle", type=int, default=0, help="steps at R=2 before measuring")
+    ap.add_argument("--settle", type=int, default=0,
+                    help="steps before measuring (R=2; R=1 under linear)")
     ap.add_argument("--profile", type=int, default=0, help="profiled steps per cadence")
+    ap.add_argument("--layout", choices=("seg", "linear"), default="seg",
+                    help="the sweeps' layout; linear runs at R=1 only")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("bench: no CUDA device; the port is measured on a GPU only", file=sys.stderr)
@@ -104,21 +110,23 @@ def main(argv: list[str] | None = None) -> int:
 
     scene = tt.load_scene(args.scene)
     solver, state, rigid = tt.make_solver(scene, tt.build_state(scene, device="cuda"),
-                                          device="cuda")
+                                          device="cuda", layout=args.layout)
+    cadences = (2, 1) if args.layout == "seg" else (1,)
     if args.settle:
-        solver.resort_every = 2
+        solver.resort_every = cadences[0]
         state, rigid = tt.advance(solver, state, rigid, args.settle)
     n = state.num_active
 
-    pps = _measure(solver, state, rigid, args.steps, 2)
+    pps = _measure(solver, state, rigid, args.steps, cadences[0])
     if pps is None:
         print(json.dumps({"metric": "particle-steps/sec", "value": 0.0,
                           "unit": "particle-steps/sec", "error": "NaN during benchmark"}))
         return 1
-    resort = 2
-    r1_pps = _measure(solver, state, rigid, args.steps, 1)
-    if r1_pps is not None and r1_pps > pps:
-        pps, resort = r1_pps, 1
+    resort, r1_pps = cadences[0], pps
+    if args.layout == "seg":
+        r1_pps = _measure(solver, state, rigid, args.steps, 1)
+        if r1_pps is not None and r1_pps > pps:
+            pps, resort = r1_pps, 1
     what = "dam break with a dynamic rigid body" if rigid is not None else "dam break"
     line = {
         "metric": f"particle-steps/sec ({scene.dim}D {what}, {n // 1000}k particles)",
@@ -126,10 +134,11 @@ def main(argv: list[str] | None = None) -> int:
         "unit": "particle-steps/sec",
         "r1_pps": None if r1_pps is None else round(r1_pps, 1),
         "resort_every": resort,
+        "layout": args.layout,
         "device": torch.cuda.get_device_name(0),
     }
     if args.profile:
-        line["profile"] = [_profile(solver, state, rigid, args.profile, r) for r in (2, 1)]
+        line["profile"] = [_profile(solver, state, rigid, args.profile, r) for r in cadences]
     print(json.dumps(line))
     return 0
 

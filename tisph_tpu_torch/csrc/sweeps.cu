@@ -5,7 +5,8 @@
 // seg-layout sweep, in all five of its physics modes; the pair math is
 // that kernel's _tile_math (sweeps.py:181-297) and _ivals_acc0
 // (sweeps.py:307-381), mirrored by the plain versions in
-// tisph_tpu_torch/ops/neighbors.py.
+// tisph_tpu_torch/ops/neighbors.py.  The pair code it shares with the
+// linear-layout kernel C (csrc/sweeps_linear.cu) is in sweep_common.cuh.
 //
 // Design: one thread per row i of the cell-sorted state, as the reference
 // Taichi code walks for_all_neighbors.  The thread decodes i's sort-time
@@ -48,32 +49,13 @@
 
 #include <cuda_runtime.h>
 
+#include "sweep_common.cuh"
+
 namespace {
 
+using namespace tisph;
+
 enum Mode { kDensity = 0, kForce = 1, kBvol = 2, kForceReact = 3, kReaction = 4 };
-
-struct GridArgs {
-  int res0;   // cells along axis 0
-  int res1;   // cells along axis 1 (3D only)
-  int res_z;  // cells along the fastest axis
-  int s0;     // id stride of axis 0
-  int s1;     // id stride of axis 1 (3D only)
-};
-
-struct PhysArgs {
-  float inv_h;     // 1 / h
-  float fin;       // k_sig (density, bvol) or k_sig / h (gradient modes)
-  float eps_visc;  // 0.01 h^2
-  float visc_num;  // 2 nu h c_s
-  float nub_num;   // sigma_b h c_s
-  float coh_num;   // h * surface_tension
-  float g[3];      // gravity
-};
-
-template <bool FAST>
-__device__ __forceinline__ float fdiv(float a, float b) {
-  return FAST ? a * __fdividef(1.0f, b) : a / b;
-}
 
 template <int MODE, int DIM, bool FAST>
 __global__ void __launch_bounds__(128)
@@ -99,29 +81,16 @@ sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
   const bool react_i = MODE == kReaction || (MODE == kForceReact && mat == 0);
 
   // sort-time cell of i, decoded from its id
-  const int id = ids[i];
-  const int cx = id / g.s0;
-  int cy = 0, cz;
-  if (DIM == 3) {
-    const int rem = id - cx * g.s0;
-    cy = rem / g.s1;
-    cz = rem - cy * g.s1;
-  } else {
-    cz = id - cx * g.s0;
-  }
+  int cx, cy, cz;
+  decode_cell<DIM>(ids[i], g, cx, cy, cz);
   const int zlo = max(cz - 1, 0);
   const int zhi = min(cz + 1, g.res_z - 1);
 
   const float4 pi = pos[i];
   float4 vi = make_float4(0.f, 0.f, 0.f, 0.f);
-  float p_rho2_i = 0.f, coh_i = 0.f, nub_i = 0.f;
+  FluidRow fi{0.f, 0.f, 0.f};
   if (kGrad) vi = vel[i];
-  if (kGrad && !react_i) {
-    const float4 ai = aux[i];
-    p_rho2_i = ai.x;
-    coh_i = -(p.coh_num * (1.0f / fmaxf(ai.z, 1e-30f)));
-    nub_i = p.nub_num / (2.0f * vi.w);
-  }
+  if (kGrad && !react_i) fi = fluid_row(vi, aux[i], p);
   const float bvol_i = pi.w;            // rho0 V_i on a boundary row
   const float nub_half = 0.5f * p.nub_num;  // sigma_b h c_s / 2, exact
   float acc0 = 0.f, acc1 = 0.f, acc2 = 0.f;
@@ -140,37 +109,21 @@ sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
         const float dx = pi.x - pj.x;
         const float dy = pi.y - pj.y;
         const float dz = pi.z - pj.z;
-        float r2 = dx * dx + dy * dy;
-        if (DIM == 3) r2 += dz * dz;
-        const float rs = rsqrtf(fmaxf(r2, 1e-12f));
-        const float q = (r2 * rs) * p.inv_h;
-        if (q >= 1.0f) continue;  // every term is exactly 0 here
-        const float p1 = fmaxf(1.0f - q, 0.0f);
-        const float p2 = fmaxf(0.5f - q, 0.0f);
-        const float p1sq = p1 * p1;
-        const float p2sq = p2 * p2;
-        const float w = 2.0f * p1 * p1sq - 8.0f * p2 * p2sq;
+        Spline s;
+        if (!spline<DIM>(dx, dy, dz, p.inv_h, s)) continue;
         if (!kGrad) {
-          acc0 += pj.w * w;
+          acc0 += pj.w * s.w;
           continue;
         }
-        const float gmag = (24.0f * p2sq - 6.0f * p1sq) * rs;
         const float4 vj = vel[j];
         const float4 aj = aux[j];
-        const float flm = aj.y;
-        float dot = (vi.x - vj.x) * dx + (vi.y - vj.y) * dy;
-        if (DIM == 3) dot += (vi.z - vj.z) * dz;
-        const float dot_neg = fdiv<FAST>(fminf(dot, 0.0f), r2 + p.eps_visc);
+        const float dneg = dot_neg<DIM, FAST>(vi, vj, dx, dy, dz, s.r2, p);
         float coef;
         if (react_i) {
           const float nub_j = nub_half * fdiv<FAST>(1.0f, fmaxf(vj.w, 1e-12f));
-          coef = (bvol_i * (flm * (nub_j * dot_neg - aj.x))) * gmag;
+          coef = (bvol_i * (aj.y * (nub_j * dneg - aj.x))) * s.gmag;
         } else {
-          const float bdv = pj.w - flm;
-          const float nu_f = p.visc_num * fdiv<FAST>(1.0f, vi.w + vj.w);
-          const float visc = dot_neg * (flm * nu_f + bdv * nub_i);
-          const float press = pj.w * p_rho2_i + flm * aj.x;
-          coef = (visc - press) * gmag + (coh_i * flm) * w;
+          coef = fluid_coef<FAST>(fi, vi, pj, vj, aj, dneg, s, p);
         }
         acc0 += coef * dx;
         acc1 += coef * dy;

@@ -31,6 +31,8 @@ class SolverBase:
     # positions, as the reference does (sph_basev2.py:212), which moving
     # bodies need.  Fixed by the solver class.
     boundary_mode = "static"
+    # sweep layouts the solver runs (see __init__)
+    layouts = ("seg", "linear")
 
     def __init__(
         self,
@@ -39,12 +41,22 @@ class SolverBase:
         device: str | torch.device = "cuda",
         resort_every: int = 1,
         fast_math: bool = True,
+        layout: str = "seg",
     ):
         """``resort_every``: substeps per neighbour-structure rebuild (R).
         ``fast_math``: approximate reciprocals on the gradient sweeps'
-        viscosity-only divides in the CUDA kernel (no effect on the CPU)."""
-        if resort_every < 1:
-            raise ValueError(f"resort_every must be >= 1, got {resort_every}")
+        viscosity-only divides in the CUDA kernels (no effect on the CPU).
+        ``layout``: the density and force sweeps' kernel, the counterpart
+        of ``tisph_tpu``'s ``SweepConfig.layout``: ``"seg"``, a thread per
+        row over its own stencil runs (csrc/sweeps.cu), or ``"linear"``,
+        blocks of 128 rows over shared windows (csrc/sweeps_linear.cu),
+        which runs at R = 1 only, as ``tisph_tpu`` applies R > 1 only on the
+        seg layout."""
+        if layout not in self.layouts:
+            raise ValueError(f"{type(self).__name__} runs the layouts {self.layouts}, "
+                             f"not {layout!r}")
+        self.layout = layout
+        self._check_resort(resort_every)
         self.scene = scene
         self.params = SolverParams.from_scene(scene, compat)
         self.device = torch.device(device)
@@ -57,6 +69,13 @@ class SolverBase:
             support_length=scene.support_length,
         )
         self._bound = False
+
+    def _check_resort(self, R: int) -> None:
+        if R < 1:
+            raise ValueError(f"resort_every must be >= 1, got {R}")
+        if R > 1 and self.layout == "linear":
+            raise ValueError(f"resort_every={R}: the linear layout rebuilds every substep "
+                             "(R = 1); R > 1 needs layout='seg'")
 
     def _check_device(self, state: SimState) -> None:
         dev = state.device
@@ -117,6 +136,7 @@ class SolverBase:
         """Run ``num_steps`` of ``substep(carry, cache) -> carry`` in groups
         of R, rebuilding the neighbour structure of ``carry[0]`` (the
         SimState, which the rebuild sorts) before each group."""
+        self._check_resort(R)
         state = carry[0]
         if not self._bound:
             state = self.bind(state)

@@ -15,6 +15,11 @@ and block plan:
 Pair membership uses the sort-time ids and bounds of the group, and r^2
 uses current positions (``wcsph.py:160-182``): a pair is missed only when
 motion since the rebuild brought it within h from more than one cell away.
+
+With ``layout="linear"`` the density and force sweeps are the linear
+layout's kernel (``WCSPH._step_fn_pallas``, ``wcsph.py:58-113``), at
+R = 1: sort, bounds, density kept on fluid rows, EOS, force zeroed off
+fluid rows, advect, clamp; the same pair set as the seg sweeps.
 """
 
 from __future__ import annotations
@@ -71,8 +76,10 @@ class WCSPH(SolverBase):
             effm = cache.flm + torch.where(bd, params.density0 * volume, 0.0)
             state = dataclasses.replace(state, volume=volume)
 
+        linear = self.layout == "linear"
         pos = pack4(state.x, effm)
-        rho = cuda_sweeps.density_sweep(pos, ids, bounds, state.material, spec, params, fm)
+        density = cuda_sweeps.density_sweep_linear if linear else cuda_sweeps.density_sweep
+        rho = density(pos, ids, bounds, state.material, spec, params, fm)
         # boundary rows keep their stored density
         rho = torch.where(fluid, rho, state.density)
         rho = F.apply_density_mode(rho, state, params)
@@ -83,7 +90,10 @@ class WCSPH(SolverBase):
         aux = pack_aux(p_rho2, cache.flm, state.mass)
         # dv on fluid rows (and the reaction on boundary rows with
         # with_reactions), 0 elsewhere, as the kernel's contract says
-        sweep = cuda_sweeps.force_react_sweep if with_reactions else cuda_sweeps.force_sweep
+        if with_reactions:
+            sweep = cuda_sweeps.force_react_sweep
+        else:
+            sweep = cuda_sweeps.force_sweep_linear if linear else cuda_sweeps.force_sweep
         dv = sweep(pos, vel, aux, ids, bounds, state.material, spec, params, fm)
 
         state = dataclasses.replace(state, density=rho, pressure=pressure)

@@ -30,6 +30,10 @@ from tisph_tpu_torch.models.wcsph import GroupCache, WCSPH
 
 class WCSPHRigid(WCSPH):
     boundary_mode = "per_step"  # the bodies move
+    # tisph_tpu's coupled step off the seg layout runs its blocked jnp
+    # sweeps, not the linear kernel (wcsph_rigid.py:42-72), and the linear
+    # kernel has no force_react mode: a dynamic scene refuses "linear"
+    layouts = ("seg",)
 
     def init_rigid(self, state: SimState) -> RigidState:
         """Bodies at rest, mass and COM from ``state``'s particles."""

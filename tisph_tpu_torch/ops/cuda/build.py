@@ -1,5 +1,6 @@
 """Builds ``tisph_tpu_torch/csrc/*.cu`` into one shared library with a
-plain C interface and loads it with ctypes.
+plain C interface and loads it with ctypes: one ``nvcc -c`` per source,
+all started together, then one link.
 
 The one place that runs ``nvcc``.  The library lands in
 ``build/tisph_tpu_torch/`` beside the package, named by a hash of the
@@ -11,6 +12,7 @@ CPU fallback.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -25,7 +27,7 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tisph_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,6 +39,9 @@ _SIGNATURES = {
     "tisph_sweep": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                     _I, _I, _I, _I, _I,
                     _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "tisph_linear_sweep": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                           _I, _I, _I, _I, _I, _I,
+                           _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "tisph_error_string": [_I],
 }
 
@@ -65,30 +70,31 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtisph_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmd: list[str]) -> None:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+
+
 def build() -> tuple[Path, float]:
-    """Compile the library unless a build of the current sources exists.
-    Returns (path, seconds spent compiling; 0.0 when it was cached)."""
+    """Compile the library unless a build of the current sources exists:
+    one nvcc per source, all at once, then one link.  Returns (path,
+    seconds spent compiling; 0.0 when it was cached)."""
     out = library_path()
     if out.exists():
         return out, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        srcs = [s for s in _sources() if s.suffix == ".cu"]
+        objs = [os.path.join(tmp, f"{s.stem}.o") for s in srcs]
+        with concurrent.futures.ThreadPoolExecutor(len(srcs)) as pool:
+            list(pool.map(_run, [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)]
+                                 for s, o in zip(srcs, objs)]))
+        so = os.path.join(tmp, "lib.so")
+        _run([nvcc, "-shared", "-o", so, *objs])
+        os.replace(so, out)  # atomic: concurrent builds race harmlessly
     return out, time.perf_counter() - t0
 
 

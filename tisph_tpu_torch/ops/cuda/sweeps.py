@@ -1,13 +1,21 @@
-"""WCSPH neighbour sweeps: the CUDA kernel ``csrc/sweeps.cu`` and its
-dispatch, one wrapper per mode.
+"""WCSPH neighbour sweeps: the CUDA kernels ``csrc/sweeps.cu`` and
+``csrc/sweeps_linear.cu`` and their dispatch, one wrapper per mode.
 
-Replaces ``tisph_tpu/ops/pallas/sweeps.py::_seg_sweep_kernel`` (launched
-by ``_run_sweep_seg``, wrapped by ``density_sweep_seg``,
-``force_sweep_seg``, ``bvol_sweep_seg``, ``force_react_sweep_seg`` and
-``reaction_sweep_seg``).  The plain versions are the functions of the same
-names in ``ops.neighbors``, with the same signatures and pack layouts: a
-CPU tensor goes there, a CUDA tensor launches the kernel or raises.  Each
-wrapper counts its launches in ``<wrapper>.launches``.
+- ``csrc/sweeps.cu`` replaces ``tisph_tpu/ops/pallas/sweeps.py::
+  _seg_sweep_kernel`` (launched by ``_run_sweep_seg``, wrapped by
+  ``density_sweep_seg``, ``force_sweep_seg``, ``bvol_sweep_seg``,
+  ``force_react_sweep_seg`` and ``reaction_sweep_seg``): the wrappers
+  ``density_sweep``, ``force_sweep``, ``bvol_sweep``, ``force_react_sweep``
+  and ``reaction_sweep``;
+- ``csrc/sweeps_linear.cu`` replaces ``_sweep_kernel``, the linear-layout
+  sweep (launched by ``_run_sweep``, wrapped by ``density_sweep`` and
+  ``force_sweep`` there): the wrappers ``density_sweep_linear`` and
+  ``force_sweep_linear``.
+
+The plain versions are the functions of the same names in
+``ops.neighbors``, with the same signatures and pack layouts: a CPU tensor
+goes there, a CUDA tensor launches the kernel or raises.  Each wrapper
+counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from tisph_tpu_torch.ops.grid import GridSpec
 from tisph_tpu_torch.ops.kernels import cubic_kernel_sigma
 
 _MODES = {"density": 0, "force": 1, "bvol": 2, "force_react": 3, "reaction": 4}
+_LINEAR_MODES = {"density": 0, "force": 1}  # csrc/sweeps_linear.cu
 _GRAD = ("force", "force_react", "reaction")  # read vel and aux, write (N, dim)
 
 
@@ -47,6 +56,27 @@ def _check(name: str, spec: GridSpec, ids, bounds, material, packs) -> None:
         raise ValueError(f"{name}: dim must be 2 or 3, got {spec.dim}")
 
 
+def _grid_args(spec: GridSpec) -> tuple[int, ...]:
+    """res0, res1, res_z, s0, s1 of the kernels' GridArgs (axis 1: 0 in 2D)."""
+    res, strides, d3 = spec.res, spec.strides, spec.dim == 3
+    return res[0], res[1] if d3 else 0, res[-1], strides[0], strides[1] if d3 else 0
+
+
+def _phys_args(grad: bool, spec: GridSpec, params: SolverParams) -> tuple[float, ...]:
+    """The kernels' PhysArgs: 1/h, the finaliser k_sig (k_sig / h for the
+    gradient modes), 0.01 h^2, 2 nu h c_s, sigma_b h c_s, h sigma_st, g."""
+    h = params.support_length
+    k_sig = cubic_kernel_sigma(spec.dim, h)
+    g = tuple(params.gravity) + (0.0,) * (3 - spec.dim)
+    return (1.0 / h, k_sig / h if grad else k_sig, 0.01 * h * h,
+            2.0 * params.viscosity * h * params.c_s, params.boundary_sigma * h * params.c_s,
+            h * params.surface_tension, *g)
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
 def _launch(mode: str, pos, vel, aux, ids, bounds, material,
             spec: GridSpec, params: SolverParams, fast_math: bool) -> torch.Tensor:
     name = f"{mode}_sweep"
@@ -57,28 +87,39 @@ def _launch(mode: str, pos, vel, aux, ids, bounds, material,
     n, dim = ids.shape[0], spec.dim
     out = torch.empty((n, dim) if mode in _GRAD else (n,),
                       dtype=torch.float32, device=ids.device)
-    h = params.support_length
-    k_sig = cubic_kernel_sigma(dim, h)
-    res, strides = spec.res, spec.strides
-    g = tuple(params.gravity) + (0.0,) * (3 - dim)
     with torch.cuda.device(ids.device):
         err = build.load().tisph_sweep(
-            _MODES[mode], dim, int(fast_math),
-            pos.data_ptr(),
-            vel.data_ptr() if vel is not None else None,
-            aux.data_ptr() if aux is not None else None,
-            ids.data_ptr(), bounds.data_ptr(), material.data_ptr(), out.data_ptr(),
-            n,
-            res[0], res[1] if dim == 3 else 0, res[-1],
-            strides[0], strides[1] if dim == 3 else 0,
-            1.0 / h,
-            k_sig / h if mode in _GRAD else k_sig,
-            0.01 * h * h,
-            2.0 * params.viscosity * h * params.c_s,
-            params.boundary_sigma * h * params.c_s,
-            h * params.surface_tension,
-            *g,
+            _MODES[mode], dim, int(fast_math), pos.data_ptr(), _ptr(vel), _ptr(aux),
+            ids.data_ptr(), bounds.data_ptr(), material.data_ptr(), out.data_ptr(), n,
+            *_grid_args(spec), *_phys_args(mode in _GRAD, spec, params),
             torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, name)
+    return out
+
+
+def _launch_linear(mode: str, pos, vel, aux, ids, bounds, material, spec: GridSpec,
+                   params: SolverParams, fast_math: bool, windows) -> torch.Tensor:
+    name = f"{mode}_sweep_linear"
+    if ids.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {ids.device}")
+    grad = mode == "force"
+    _check(name, spec, ids, bounds, material,
+           {"pos": pos} | ({"vel": vel, "aux": aux} if grad else {}))
+    n, dim = ids.shape[0], spec.dim
+    if windows is not None:
+        shape = (-(-n // neighbors.LINEAR_BLOCK), spec.num_rows, 2)
+        if (windows.device != ids.device or windows.dtype != torch.int32
+                or tuple(windows.shape) != shape or not windows.is_contiguous()):
+            raise ValueError(f"{name}: windows must be a contiguous {shape} int32 tensor "
+                             f"on {ids.device}")
+    out = torch.empty((n, dim) if grad else (n,), dtype=torch.float32, device=ids.device)
+    with torch.cuda.device(ids.device):
+        err = build.load().tisph_linear_sweep(
+            _LINEAR_MODES[mode], dim, int(fast_math), pos.data_ptr(), _ptr(vel), _ptr(aux),
+            ids.data_ptr(), bounds.data_ptr(), material.data_ptr(), out.data_ptr(),
+            _ptr(windows), n, *_grid_args(spec), spec.num_cells,
+            *_phys_args(grad, spec, params), torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, name)
     return out
@@ -142,8 +183,45 @@ def reaction_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
     return out
 
 
+def density_sweep_linear(pos, ids, bounds, material, spec: GridSpec, params: SolverParams,
+                         fast_math: bool = True,
+                         windows: torch.Tensor | None = None) -> torch.Tensor:
+    """(N,) density on fluid rows, 0 elsewhere, over the linear layout
+    (``neighbors.density_sweep_linear``).  ``windows``: on the card only,
+    an optional (ceil(N / 128), num_rows, 2) int32 tensor that receives
+    each block's windows [start, end)."""
+    if ids.device.type == "cpu":
+        if windows is not None:
+            raise ValueError("density_sweep_linear: windows are written by the kernel only")
+        return neighbors.density_sweep_linear(pos, ids, bounds, material, spec, params,
+                                              fast_math)
+    out = _launch_linear("density", pos, None, None, ids, bounds, material, spec, params,
+                         fast_math, windows)
+    density_sweep_linear.launches += 1
+    return out
+
+
+def force_sweep_linear(pos, vel, aux, ids, bounds, material, spec: GridSpec,
+                       params: SolverParams, fast_math: bool = True,
+                       windows: torch.Tensor | None = None) -> torch.Tensor:
+    """(N, dim) acceleration on fluid rows, 0 elsewhere, over the linear
+    layout (``neighbors.force_sweep_linear``); ``windows`` as in
+    :func:`density_sweep_linear`."""
+    if ids.device.type == "cpu":
+        if windows is not None:
+            raise ValueError("force_sweep_linear: windows are written by the kernel only")
+        return neighbors.force_sweep_linear(pos, vel, aux, ids, bounds, material, spec,
+                                            params, fast_math)
+    out = _launch_linear("force", pos, vel, aux, ids, bounds, material, spec, params,
+                         fast_math, windows)
+    force_sweep_linear.launches += 1
+    return out
+
+
 density_sweep.launches = 0
 bvol_sweep.launches = 0
 force_sweep.launches = 0
 force_react_sweep.launches = 0
 reaction_sweep.launches = 0
+density_sweep_linear.launches = 0
+force_sweep_linear.launches = 0

@@ -175,3 +175,74 @@ def stencil_runs(coords: torch.Tensor, bounds: torch.Tensor, spec: GridSpec) -> 
         )
         runs.append(torch.stack([start, end], dim=-1))
     return torch.stack(runs, dim=1)
+
+
+def _row_queries(coords: torch.Tensor, spec: GridSpec, lo_off: int, hi_off: int):
+    """Per-particle inclusive stencil-row cell-id ranges, (N, num_rows)
+    each; rows whose lead coordinates leave the grid get (lo_off, hi_off)."""
+    res = np.asarray(spec.res)
+    dev = coords.device
+    lead = coords[:, : spec.dim - 1]
+    z = coords[:, spec.dim - 1]
+    z_lo = torch.clamp(z - 1, min=0)
+    z_hi = torch.clamp(z + 1, max=int(res[-1]) - 1)
+    res_lead = torch.tensor(res[:-1], dtype=torch.int32, device=dev)
+    strides_lead = torch.tensor(spec.strides[:-1], dtype=torch.int32, device=dev)
+    lo, hi = [], []
+    for o in _row_offsets(spec):
+        nb = lead + torch.tensor(o, dtype=torch.int32, device=dev)
+        valid = torch.all((nb >= 0) & (nb < res_lead), dim=-1)
+        base = torch.sum(nb * strides_lead, dim=-1, dtype=torch.int32)
+        lo.append(torch.where(valid, base + z_lo, lo_off))
+        hi.append(torch.where(valid, base + z_hi, hi_off))
+    return torch.stack(lo, dim=1), torch.stack(hi, dim=1)
+
+
+def cell_target_ranges(coords: torch.Tensor, spec: GridSpec) -> torch.Tensor:
+    """(N, num_rows, 2) int32 inclusive [c_lo, c_hi] cell-id ranges: j is a
+    stencil candidate of i in row r iff c_lo <= id_j <= c_hi.  Rows outside
+    the grid get the empty range [0, -1]."""
+    lo, hi = _row_queries(coords, spec, 0, -1)
+    return torch.stack([lo, hi], dim=-1).to(torch.int32)
+
+
+def block_window_bounds(
+    sorted_ids: torch.Tensor,
+    coords: torch.Tensor,
+    spec: GridSpec,
+    block_size: int,
+    ids_i: torch.Tensor | None = None,
+    bounds: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(block, row) candidate windows [start, end) of the linear layout,
+    each (num_blocks, num_rows) int32, in j-array (sorted) coordinates.
+
+    A block is ``block_size`` consecutive rows of the i side (``coords``,
+    with ids ``ids_i``; by default the first rows of ``sorted_ids``).  Its
+    window in row r runs from the first j with id >= min c_lo to past the
+    last j with id <= max c_hi, the extremes over the block's active rows
+    whose stencil row stays in the grid (an empty block gives start >=
+    end).  With ``bounds`` (the CSR bounds of ``sorted_ids``) the two ends
+    are read out of it, bounds[min c_lo] and bounds[max c_hi + 1], instead
+    of two searchsorteds: the same numbers.
+    """
+    n = coords.shape[0]
+    nc = spec.num_cells
+    num_blocks = -(-n // block_size)
+    q_lo, q_hi = _row_queries(coords, spec, nc, -1)
+    if ids_i is None:
+        ids_i = sorted_ids[:n]
+    inactive = (ids_i >= nc)[:, None]
+    q_lo = torch.where(inactive, nc, q_lo)
+    q_hi = torch.where(inactive, -1, q_hi)
+    pad = num_blocks * block_size - n
+    if pad:
+        q_lo = torch.cat([q_lo, q_lo.new_full((pad, spec.num_rows), nc)])
+        q_hi = torch.cat([q_hi, q_hi.new_full((pad, spec.num_rows), -1)])
+    lo_min = q_lo.reshape(num_blocks, block_size, -1).amin(dim=1)
+    hi_max = q_hi.reshape(num_blocks, block_size, -1).amax(dim=1)
+    if bounds is not None:
+        return bounds[lo_min.long()], bounds[(hi_max + 1).long()]
+    starts = torch.searchsorted(sorted_ids, lo_min.to(sorted_ids.dtype).contiguous())
+    ends = torch.searchsorted(sorted_ids, (hi_max + 1).to(sorted_ids.dtype).contiguous())
+    return starts.to(torch.int32), ends.to(torch.int32)

@@ -29,6 +29,11 @@ rows of the mode's consumer family are computed (fluid rows for
 ``density`` and ``force``, boundary rows for ``bvol`` and ``reaction``,
 both for ``force_react``); other rows are 0.
 
+The ``*_linear`` versions (``density`` and ``force``) are the plain
+versions of the linear-layout sweep kernel: the same pair set and pair
+arithmetic, with the candidates drawn from per-block windows and an id
+test (:func:`candidates`).
+
 Inputs are float4-style packs (:func:`pack4`, :func:`pack_aux`), (N, 4) f32:
 
 - ``pos`` = [x, y, z or 0, c] with c = effm (density and the gradient
@@ -47,13 +52,23 @@ import torch
 
 from tisph_tpu_torch.config import SolverParams
 from tisph_tpu_torch.models.state import MATERIAL_BOUNDARY, MATERIAL_FLUID
-from tisph_tpu_torch.ops.grid import GridSpec, coords_from_ids, stencil_runs
+from tisph_tpu_torch.ops.grid import (
+    GridSpec,
+    block_window_bounds,
+    cell_target_ranges,
+    coords_from_ids,
+    stencil_runs,
+)
 from tisph_tpu_torch.ops.kernels import cubic_kernel_sigma
 
 # Candidate pairs per chunk of rows i: bounds the plain sweep's transient
 # memory (~40 tensors of this length in the force mode) so 195k particles
 # fit on a card or a host.
 _PAIR_BUDGET = 1 << 22
+
+# i rows per block of the linear layout: SweepConfig.block_size's default,
+# the block of tisph_tpu's linear TPU kernel and one CTA of the CUDA one
+LINEAR_BLOCK = 128
 
 # consumer family (row materials) of each mode
 _FAMILY = {
@@ -81,10 +96,61 @@ def pack_aux(p_rho2: torch.Tensor, flm: torch.Tensor, mass: torch.Tensor) -> tor
     return torch.stack([p_rho2, flm, mass, torch.zeros_like(mass)], dim=1)
 
 
+def candidates(ids, bounds, rows_i, spec: GridSpec, layout: str = "seg"):
+    """Yields the candidate pairs of the rows ``rows_i`` (int64) as chunks
+    ``(i, j)`` of about ``_PAIR_BUDGET`` pairs.
+
+    - ``seg``: every j of i's stencil runs (``grid.stencil_runs``);
+    - ``linear``: every j of i's block window in each stencil row
+      (``grid.block_window_bounds`` over blocks of ``LINEAR_BLOCK`` i rows,
+      windows read out of ``bounds``) whose id lies in i's range of that
+      row (``grid.cell_target_ranges``), as ``tisph_tpu``'s linear TPU
+      kernel tests it (ops/pallas/sweeps.py:483).
+
+    Both give the same pair set; i's cell is decoded from its sort-time id.
+    """
+    dev = ids.device
+    rows = spec.num_rows
+    coords_i = coords_from_ids(ids[rows_i], spec)
+    if layout == "seg":
+        runs = stencil_runs(coords_i, bounds, spec).long()
+        starts, ends = runs[..., 0], runs[..., 1]
+    elif layout == "linear":
+        w_lo, w_hi = block_window_bounds(ids, coords_from_ids(ids, spec), spec,
+                                         LINEAR_BLOCK, bounds=bounds)
+        blk = torch.div(rows_i, LINEAR_BLOCK, rounding_mode="floor")
+        starts, ends = w_lo.long()[blk], w_hi.long()[blk]
+        ranges = cell_target_ranges(coords_i, spec).reshape(-1, 2)
+    else:
+        raise ValueError(f"unknown layout {layout!r}")
+    lens = torch.clamp(ends - starts, min=0).reshape(-1)  # per (i, stencil row)
+    starts = starts.reshape(-1)
+    # chunks of whole rows i holding about _PAIR_BUDGET candidate pairs
+    per_i = torch.cumsum(lens.reshape(-1, rows).sum(1), 0)
+    cuts = torch.searchsorted(
+        per_i, torch.arange(1, int(per_i[-1]) // _PAIR_BUDGET + 1, device=dev)
+        * _PAIR_BUDGET).tolist()
+    for c0, c1 in zip([0] + cuts, cuts + [rows_i.numel()]):
+        if c0 >= c1:
+            continue
+        # every j of every run of rows c0..c1, without padding
+        ln = lens[c0 * rows:c1 * rows]
+        run = torch.repeat_interleave(torch.arange(ln.numel(), device=dev), ln)
+        first = torch.cumsum(ln, 0) - ln
+        j = starts[c0 * rows:c1 * rows][run] + (torch.arange(run.numel(), device=dev) - first[run])
+        i = rows_i[c0 + torch.div(run, rows, rounding_mode="floor")]
+        if layout == "linear":
+            rng = ranges[c0 * rows + run]
+            idj = ids[j]
+            keep = torch.nonzero((idj >= rng[:, 0]) & (idj <= rng[:, 1])).squeeze(1)
+            i, j = i[keep], j[keep]
+        yield i, j
+
+
 def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
-           spec: GridSpec, params: SolverParams) -> torch.Tensor:
+           spec: GridSpec, params: SolverParams, layout: str = "seg") -> torch.Tensor:
     n = pos.shape[0]
-    dim, rows = spec.dim, spec.num_rows
+    dim = spec.dim
     h = params.support_length
     k_sig = cubic_kernel_sigma(dim, h)
     grad = mode in _GRAD
@@ -97,29 +163,12 @@ def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
     if rows_i.numel() == 0:
         return acc if grad else acc[:, 0]
 
-    runs = stencil_runs(coords_from_ids(ids[rows_i], spec), bounds, spec).long()
-    lens = (runs[..., 1] - runs[..., 0]).reshape(-1)      # per (i, stencil row)
-    starts = runs[..., 0].reshape(-1)
-    # chunks of whole rows i holding about _PAIR_BUDGET candidate pairs
-    per_i = torch.cumsum(lens.reshape(-1, rows).sum(1), 0)
-    cuts = torch.searchsorted(
-        per_i, torch.arange(1, int(per_i[-1]) // _PAIR_BUDGET + 1, device=pos.device)
-        * _PAIR_BUDGET).tolist()
     # q >= 1 gives exactly 0 in every term (spline clamps), so pairs past
     # r^2 = h^2 (with a margin that keeps every q < 1 pair) change no sum;
     # dropping them first saves ~85% of the math.
     r2_keep = 1.0001 * h * h
 
-    for c0, c1 in zip([0] + cuts, cuts + [rows_i.numel()]):
-        if c0 >= c1:
-            continue
-        # every j of every run of rows c0..c1, without padding
-        ln = lens[c0 * rows:c1 * rows]
-        run = torch.repeat_interleave(torch.arange(ln.numel(), device=pos.device), ln)
-        first = torch.cumsum(ln, 0) - ln
-        j = starts[c0 * rows:c1 * rows][run] + (
-            torch.arange(run.numel(), device=pos.device) - first[run])
-        i = rows_i[c0 + torch.div(run, rows, rounding_mode="floor")]
+    for i, j in candidates(ids, bounds, rows_i, spec, layout):
         pi, pj = pos.index_select(0, i), pos.index_select(0, j)
         dx = [pi[:, a] - pj[:, a] for a in range(dim)]
         r2 = dx[0] * dx[0]
@@ -209,3 +258,17 @@ def reaction_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
     """(N, dim) fluid -> boundary reaction force on boundary rows, 0
     elsewhere.  ``pos`` c column = effm (rho0 V on boundary rows)."""
     return _sweep("reaction", pos, vel, aux, ids, bounds, material, spec, params)
+
+
+def density_sweep_linear(pos, ids, bounds, material, spec: GridSpec, params: SolverParams,
+                         fast_math: bool = True) -> torch.Tensor:
+    """``density_sweep`` over the linear layout's block windows: (N,)
+    density on fluid rows, 0 elsewhere."""
+    return _sweep("density", pos, None, None, ids, bounds, material, spec, params, "linear")
+
+
+def force_sweep_linear(pos, vel, aux, ids, bounds, material, spec: GridSpec,
+                       params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+    """``force_sweep`` over the linear layout's block windows: (N, dim)
+    acceleration on fluid rows, 0 elsewhere."""
+    return _sweep("force", pos, vel, aux, ids, bounds, material, spec, params, "linear")

@@ -1,0 +1,80 @@
+"""Paired benchmark of two checkouts on one GPU.
+
+Runs ``python -m tisph_tpu_torch.bench`` on each scene in each checkout,
+in the order parent, change, change, parent, ``--rounds`` times over, so
+that both versions share the card and the host's load in turns: the host
+clock's spread between runs is wider than most changes (PERF.md section
+2).  Prints every bench line tagged with its checkout and scene, then, as
+its last line, one JSON object of medians per checkout and scene:
+``value`` (the bench's faster cadence) and ``r1_pps`` (R=1).
+
+Each checkout runs its own sources and builds its own kernels under its
+own ``build/``.  A parent checkout is a commit unpacked into a directory
+that ``.gitignore`` lists, e.g. ``mkdir -p build/parent && git archive
+<commit> | tar -x -C build/parent``.  Needs a CUDA device, as the bench
+does; a failed bench run raises.
+
+Usage: python -m tisph_tpu_torch.paired_bench --parent build/parent
+           [--change .] [--rounds 2] [--steps 300]
+           [--scene scenes/demo_3d.json --scene scenes/bench_3d_rigid.json]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+_SCENES = ("scenes/demo_3d.json", "scenes/bench_3d_rigid.json")
+_ORDER = ("parent", "change", "change", "parent")
+
+
+def _bench(root: str, scene: str, steps: int) -> dict:
+    """One bench run in the checkout at ``root``; its JSON line."""
+    env = dict(os.environ, PYTHONPATH=root)
+    proc = subprocess.run(
+        [sys.executable, "-m", "tisph_tpu_torch.bench", "--scene", scene,
+         "--steps", str(steps)],
+        cwd=root, env=env, capture_output=True, text=True,
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(f"bench in {root} on {scene} exited {proc.returncode}:\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--parent", required=True, help="root of the parent checkout")
+    ap.add_argument("--change", default=".", help="root of the changed checkout")
+    ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--steps", type=int, default=300)
+    ap.add_argument("--scene", action="append", help="relative to each checkout's root")
+    args = ap.parse_args(argv)
+    roots = {"parent": os.path.abspath(args.parent), "change": os.path.abspath(args.change)}
+    scenes = args.scene or list(_SCENES)
+
+    runs: dict[tuple[str, str], list[dict]] = {}
+    for _ in range(args.rounds):
+        for label in _ORDER:
+            for scene in scenes:
+                line = _bench(roots[label], scene, args.steps)
+                print(label, scene, json.dumps(line), flush=True)
+                runs.setdefault((label, scene), []).append(line)
+    medians = {
+        f"{label} {scene}": {
+            "value": statistics.median(r["value"] for r in lines),
+            "r1_pps": statistics.median(r["r1_pps"] for r in lines),
+            "runs": len(lines),
+        }
+        for (label, scene), lines in runs.items()
+    }
+    print(json.dumps({"medians": medians}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

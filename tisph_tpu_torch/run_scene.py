@@ -6,7 +6,10 @@ with a dynamic rigid body (``"isDynamic": true``) runs the coupled solver
 
 Usage:
     python -m tisph_tpu_torch.run_scene scenes/demo_3d.json --steps 100 \
-        --substeps 5 --resort 2 --metrics-every 10 [--out DIR] [--device cuda]
+        --substeps 5 --resort 2 --metrics-every 10 [--out DIR] [--device cuda] \
+        [--layout seg|linear]
+
+``--layout linear`` runs the linear layout's sweeps, at ``--resort 1`` only.
 
 ``--out`` writes one ``frame_NNNNNN.npz`` per frame with the keys of
 ``state_to_host`` (readable by ``tisph_tpu.render.export.load_frame``).
@@ -43,6 +46,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--metrics-every", type=int, default=10)
     ap.add_argument("--out", default=None, help="npz frame directory")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--layout", choices=("seg", "linear"), default="seg",
+                    help="the sweeps' layout (linear: --resort 1 only)")
     args = ap.parse_args(argv)
 
     device = torch.device(args.device)
@@ -50,12 +55,13 @@ def main(argv: list[str] | None = None) -> int:
     print(f"scene: dim={scene.dim} domain={scene.domain_start}->{scene.domain_end} "
           f"r={scene.particle_radius}")
     solver, state, rigid = tt.make_solver(scene, tt.build_state(scene, device=device),
-                                          device=device, resort_every=args.resort)
+                                          device=device, resort_every=args.resort,
+                                          layout=args.layout)
     if rigid is not None:
         print(f"dynamic rigid bodies: {rigid.num_bodies}")
     print(f"particles: {state.num_active} (capacity {state.capacity}) "
           f"grid: res={solver.spec.res} dt={solver.params.dt} R={args.resort} "
-          f"device={device}")
+          f"layout={args.layout} device={device}")
     if args.out:
         os.makedirs(args.out, exist_ok=True)
 
