@@ -51,12 +51,16 @@ Phases, each of which raises on failure (nothing is caught):
    one step queued behind the device spin must return without a host
    wait; the launch counters prove that every substep ran the linear
    kernel's density and force modes and the bounds kernel, and never the
-   seg sweeps; no NaN, CFL < 1; on the evolved state the linear kernel
-   against its plain version and against the seg kernel at phase 4's
-   tolerances, fast_math off and on, its block windows against
-   grid.block_window_bounds exactly, its candidates per block, and the
-   times of both kernels and the plain version; the golden trajectories
-   through layout="linear", fast_math off and on.
+   seg sweeps; no NaN, CFL < 1; then, on three states (the evolved one,
+   demo_3d's dense start state, and a lattice at 0.63 of the radius spacing
+   whose largest block stream fills the kernel's shared-memory chunk many
+   times over), the linear kernel against its plain version at phase 4's
+   tolerances and against the seg kernel (density bitwise equal, force at
+   the same tolerance), fast_math off and on, its block windows against
+   grid.block_window_bounds exactly, and its candidates per block beside
+   the chunk capacity; the times of both kernels and the plain version on
+   the evolved state and of both kernels on the dense start state; the
+   golden trajectories through layout="linear", fast_math off and on.
 
 Every kernel's entry in the JSON line has a bound: the larger of the bytes
 it must move (each input read once, each output written once) over 3.35
@@ -75,6 +79,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -123,6 +128,25 @@ GOLDEN = {
                          "velocity": [1.0, 0.0, 0.0], "density": 1000.0,
                          "color": [50, 100, 200]}],
     }, 30),
+}
+
+# 20^3 fluid particles at 0.63 of the radius spacing over 3^3 cells, up to
+# 343 to a cell (4 times demo_3d's start): a block of 128 rows has windows
+# of about 1,000 j in each of its 9 stencil rows.  Not denser: the f32 sums
+# of the kernel and of the plain version, taken in different orders, part
+# by about 1e-7 sqrt(pairs inside h) of max|dv|, and the tolerance is 5e-6:
+# this state's force read 2.8e-6 to 3.2e-6 of max|dv| against the plain
+# version on an H100 (its index_add_ sums in a varying order), a lattice at
+# half the radius spacing 4.8e-6
+MANY_CHUNKS = {
+    "configuration": {
+        "dim": 3, "domainStart": [0.0, 0.0, 0.0], "domainEnd": [1.0, 1.0, 1.0],
+        "particleRadius": 0.01, "density0": 1000,
+        "gravitation": [0.0, -9.81, 0.0], "c_s": 50.0,
+    },
+    "fluidBlocks": [{"start": [0.4, 0.4, 0.4], "end": [0.52, 0.52, 0.52],
+                     "velocity": [0.5, -1.0, 0.25], "density": 1000.0,
+                     "color": [50, 100, 200], "spacing": 0.0063}],
 }
 
 TOL = {  # (density and bvol rtol, force atol after scaling by max|force|)
@@ -356,12 +380,22 @@ def check_coupling_sweeps(label: str, solver, inp) -> dict[str, float]:
     return errs
 
 
-def check_linear_sweeps(label: str, solver, inp) -> dict[str, float]:
+def linear_chunks() -> dict[str, int]:
+    """The linear kernel's chunk capacities, j per shared-memory chunk in
+    its density and force modes, read from its source."""
+    with open(os.path.join(HERE, "tisph_tpu_torch", "csrc", "sweeps_linear.cu")) as f:
+        src = f.read()
+    return {m: int(re.search(rf"constexpr int kChunk{m.capitalize()} = (\d+);", src).group(1))
+            for m in ("density", "force")}
+
+
+def check_linear_sweeps(label: str, solver, inp, min_chunks: int = 0) -> dict[str, float]:
     """The linear kernel against its plain version and against the seg
     kernel (the same function) at both fast_math settings, at phase 4's
-    tolerances; its block windows against grid.block_window_bounds
-    exactly.  Returns the max abs error against the plain version at
-    fast_math on, per mode."""
+    tolerances, its density bitwise equal to the seg kernel's; its block
+    windows against grid.block_window_bounds exactly; the largest block
+    stream must fill at least ``min_chunks`` chunks.  Returns the max abs
+    error against the plain version at fast_math on, per mode."""
     from tisph_tpu_torch.ops import grid, neighbors
     from tisph_tpu_torch.ops.cuda import sweeps
 
@@ -402,6 +436,10 @@ def check_linear_sweeps(label: str, solver, inp) -> dict[str, float]:
                     raise AssertionError(f"{label} linear {mode} vs {ref_name} fast={fast}: {tol}")
                 if fast and ref_name == "plain":
                     errs[mode] = err
+        # the same terms in the same order as the seg kernel's
+        if not torch.equal(got["density"], seg["density"]):
+            raise AssertionError(f"{label} linear density fast={fast}: not bitwise equal to "
+                                 "the seg kernel's")
     lo, hi = grid.block_window_bounds(ids, grid.coords_from_ids(ids, spec), spec,
                                       neighbors.LINEAR_BLOCK)
     if not torch.equal(windows, torch.stack([lo, hi], dim=-1)):
@@ -411,10 +449,18 @@ def check_linear_sweeps(label: str, solver, inp) -> dict[str, float]:
     per_block = (hi - lo).clamp(min=0).sum(dim=1).double()
     runs = grid.stencil_runs(grid.coords_from_ids(ids[fl], spec), bounds, spec).double()
     per_row = (runs[..., 1] - runs[..., 0]).sum(dim=1)
-    print(f"  {label}: block windows equal block_window_bounds ({lo.numel()} windows); "
+    chunks = linear_chunks()
+    largest = float(per_block.max())
+    print(f"  {label}: density bitwise equal to the seg kernel's; block windows equal "
+          f"block_window_bounds ({lo.numel()} windows); "
           f"candidates per block of 128 rows: mean {float(per_block.mean()):.1f}, max "
           f"{float(per_block.max()):.0f}, total {float(per_block.sum()):.0f}; per fluid row "
-          f"of the seg kernel: mean {float(per_row.mean()):.1f}, total {float(per_row.sum()):.0f}")
+          f"of the seg kernel: mean {float(per_row.mean()):.1f}, total {float(per_row.sum()):.0f}; "
+          f"largest block stream {largest:.0f} j = " + ", ".join(
+              f"{largest / c:.2f} chunks of {c} ({m})" for m, c in chunks.items()))
+    if largest < min_chunks * max(chunks.values()):
+        raise AssertionError(f"{label}: largest block stream {largest:.0f} j fills fewer "
+                             f"than {min_chunks} chunks of {max(chunks.values())}")
     return errs
 
 
@@ -831,6 +877,32 @@ def main() -> int:
                           lambda: neighbors.force_sweep(*l_f), 20, 2),
     })
     bound |= {f"linear.{m}": sweep_bound(m, l_inp, l_solver) for m in ("density", "force")}
+
+    print("  linear kernel checks on demo_3d's dense start state:")
+    s_inp = sweep_inputs(l_solver, l_solver.bind(tt.build_state(scene, device=DEVICE)))
+    check_linear_sweeps("demo_3d+0", l_solver, s_inp, min_chunks=2)
+    s_d = (s_inp["pos"], s_inp["ids"], s_inp["bounds"], s_inp["st"].material,
+           l_solver.spec, l_solver.params)
+    s_f = (s_inp["pos"], s_inp["vel"], s_inp["aux"], *s_d[1:])
+    for name, fn in (
+            ("linear.density", lambda: cuda_sweeps.density_sweep_linear(*s_d)),
+            ("linear.force", lambda: cuda_sweeps.force_sweep_linear(*s_f)),
+            ("seg density@lin", lambda: cuda_sweeps.density_sweep(*s_d)),
+            ("seg force@lin", lambda: cuda_sweeps.force_sweep(*s_f))):
+        print(f"  time {name:<17} on the dense start state: kernel "
+              f"{cuda_ms(fn, 20):.4f} / {cuda_ms(fn, 20):.4f} ms")
+
+    print("  linear kernel checks on a lattice at 0.63 of the radius spacing:")
+    m_scene = tt.scene_from_dict(MANY_CHUNKS)
+    m_solver = tt.WCSPH(m_scene, device=DEVICE, layout="linear")
+    m_state = m_solver.bind(tt.build_state(m_scene, device=DEVICE))
+    # seeded velocities, so the viscosity terms of the force are not all 0
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    m_state = dataclasses.replace(m_state, v=m_state.v + 0.5 * torch.randn(
+        m_state.v.shape, generator=gen).to(DEVICE))
+    check_linear_sweeps("dense_lattice", m_solver, sweep_inputs(m_solver, m_state),
+                        min_chunks=8)
+
     for name, (raw, steps) in GOLDEN.items():
         for fast in (False, True):
             if not golden_check(tt, name, raw, steps, fast_math=fast, layout="linear")["ok"]:

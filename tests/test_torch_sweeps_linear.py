@@ -6,7 +6,10 @@ a 3D scene with boundary blocks, the evolved clustered state of
 tests/test_pallas.py::test_linear_density_matches_bruteforce_mid_collapse,
 and JAX's i side that is a row slice of the j array (``ipack``, the
 sharded caller's), which computes those rows of the port's full sweep.
-The plain linear and seg sweeps agree on each state.
+The plain linear and seg sweeps agree on each state.  On the same states
+the invariant the CUDA kernel indexes by: every stencil run of a fluid row
+lies inside its block's window of that stencil row, and the runs hold
+exactly the linear layout's candidates.
 
 Tolerances, the JAX suite's for the same sums taken in another order:
 density rtol 2e-5, force scaled by its largest component atol 5e-6.  The
@@ -40,9 +43,10 @@ RTOL, FORCE_ATOL = 2e-5, 5e-6
 BLOCK, TILE = 128, 128
 
 
-def _raw(dim, radius=0.04, boundary=False):
+def _raw(dim, radius=0.04, boundary=False, spacing=None):
     """test_pallas._scene(dim, radius), or with boundary blocks its
-    test_linear_sweeps_with_boundary_particles scene."""
+    test_linear_sweeps_with_boundary_particles scene; ``spacing``: the
+    fluid lattice's, the radius by default."""
     raw = {
         "configuration": {
             "dim": dim, "domainStart": [0.0] * dim, "domainEnd": [1.0] * dim,
@@ -55,6 +59,8 @@ def _raw(dim, radius=0.04, boundary=False):
     if boundary:
         raw["boundaryBlocks"] = [{"start": [0.3, 0.05, 0.3], "end": [0.7, 0.2, 0.7]}]
         raw["fluidBlocks"][0] |= {"start": [0.25, 0.22, 0.25], "end": [0.6, 0.55, 0.6]}
+    if spacing is not None:
+        raw["fluidBlocks"][0]["spacing"] = spacing
     return raw
 
 
@@ -67,6 +73,19 @@ def _state(raw, cap, evolve=0):
     for _ in range(evolve):
         state = solver.step(state)
     return state, solver.spec, solver.params
+
+
+def _port_sorted(st_j, spec_j):
+    """The sorted JAX state ``st_j`` as a port state with its ids, CSR
+    bounds and grid spec."""
+    n = st_j.capacity
+    port = pad_state_capacity(pt.state_from_host(jax_to_host(st_j), "cpu"), n)
+    spec = grid.make_grid_spec(spec_j.dim, spec_j.domain_start, spec_j.domain_end,
+                               spec_j.cell_size)
+    assert (spec.res, spec.strides) == (spec_j.res, spec_j.strides)
+    st, ids, perm = grid.sort_state_by_cell(port, spec)
+    assert torch.equal(perm, torch.arange(n))  # already sorted
+    return st, ids, grid.csr_bounds(ids, spec), spec
 
 
 def _compare(raw, state, spec_j, params_j, window, i_off=0, n_i=None):
@@ -90,14 +109,8 @@ def _compare(raw, state, spec_j, params_j, window, i_off=0, n_i=None):
     assert int(need_i) <= window
     sliced = (i_off, n_i) != (0, n)
 
-    port = pad_state_capacity(pt.state_from_host(jax_to_host(st_j), "cpu"), n)
-    spec = grid.make_grid_spec(spec_j.dim, spec_j.domain_start, spec_j.domain_end,
-                               spec_j.cell_size)
-    assert (spec.res, spec.strides) == (spec_j.res, spec_j.strides)
+    st, ids, bounds, spec = _port_sorted(st_j, spec_j)
     params = pt.SolverParams.from_scene(pt.scene_from_dict(raw))
-    st, ids, perm = grid.sort_state_by_cell(port, spec)
-    assert torch.equal(perm, torch.arange(n))  # already sorted
-    bounds = grid.csr_bounds(ids, spec)
     fl = st.fluid_mask
     flm = fl.to(torch.float32) * st.mass
     pos = neighbors.pack4(st.x, flm + st.boundary_mask.to(torch.float32)
@@ -167,6 +180,41 @@ def test_plain_linear_sweeps_match_linear_kernel_row_slice():
     _compare(raw, state, spec, params, window=1152, i_off=165, n_i=512)
 
 
+@pytest.mark.parametrize("case", ["2d", "3d", "3d_boundary", "3d_mid_collapse", "3d_dense"])
+def test_stencil_runs_lie_inside_block_windows(case):
+    """What the CUDA kernel indexes by: the candidates of a fluid row in a
+    stencil row are its contiguous run of the sorted array
+    (``grid.stencil_runs``), and the run lies inside the window of the
+    row's block (``grid.block_window_bounds``), so the kernel reads it out
+    of the staged window with no id test.  Every state has an inactive
+    tail; the dense lattice's windows are several thousand j long."""
+    raw, cap, evolve = {
+        "2d": (_raw(2), 256, 0),
+        "3d": (_raw(3), 2048, 0),
+        "3d_boundary": (_raw(3, boundary=True), 2048, 0),
+        "3d_mid_collapse": (_raw(3, radius=0.045), 1536, 12),
+        "3d_dense": (_raw(3, spacing=0.0252), 4224, 0),
+    }[case]
+    state, spec_j, _ = _state(raw, cap, evolve=evolve)
+    st, ids, bounds, spec = _port_sorted(jgrid.sort_state_by_cell(state, spec_j)[0], spec_j)
+    assert not st.active_mask.all()
+    assert st.boundary_mask.any() == (case == "3d_boundary")
+    rows = torch.nonzero(st.fluid_mask).squeeze(1)
+    coords = grid.coords_from_ids(ids, spec)
+    runs = grid.stencil_runs(coords[rows], bounds, spec)
+    run_lo, run_hi = runs[..., 0], runs[..., 1]
+    w_lo, w_hi = grid.block_window_bounds(ids, coords, spec, BLOCK, bounds=bounds)
+    blk = torch.div(rows, BLOCK, rounding_mode="floor")
+    inside = (w_lo[blk] <= run_lo) & (run_hi <= w_hi[blk])
+    assert (inside | (run_hi <= run_lo)).all()
+    assert (run_hi > run_lo).any(dim=1).all()  # every fluid row has its own cell's run
+    n_cand = sum(i.numel() for i, _ in neighbors.candidates(ids, bounds, rows, spec,
+                                                            layout="linear"))
+    assert int((run_hi - run_lo).clamp(min=0).sum()) == n_cand
+    if case == "3d_dense":
+        assert int((w_hi - w_lo).clamp(min=0).sum(dim=1).max()) > 4096
+
+
 def test_linear_wrappers_take_plain_versions_on_cpu():
     raw = _raw(2, boundary=False)
     scene = pt.scene_from_dict(raw)
@@ -216,11 +264,16 @@ def _cuda_inputs(raw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dim,boundary", [(2, False), (3, False), (3, True)])
-def test_linear_kernel_matches_plain_on_cuda(dim, boundary):
+@pytest.mark.parametrize("dim,boundary,spacing", [(2, False, None), (3, False, None),
+                                                  (3, True, None), (3, False, 0.0252)])
+def test_linear_kernel_matches_plain_on_cuda(dim, boundary, spacing):
+    """The last case is a lattice 4 times denser than radius spacing: its
+    blocks' windows, several thousand j in all, fill the kernel's
+    shared-memory chunk many times over."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the linear sweep kernel has no CPU mode")
-    st, ids, bounds, spec, params, pos, vel, aux = _cuda_inputs(_raw(dim, boundary=boundary))
+    st, ids, bounds, spec, params, pos, vel, aux = _cuda_inputs(
+        _raw(dim, boundary=boundary, spacing=spacing))
     fl = st.fluid_mask
     mat = st.material
     want_rho = neighbors.density_sweep_linear(pos, ids, bounds, mat, spec, params)
@@ -237,8 +290,10 @@ def test_linear_kernel_matches_plain_on_cuda(dim, boundary):
         scale = want_dv[fl].abs().max()
         torch.testing.assert_close(dv[fl] / scale, want_dv[fl] / scale, rtol=0, atol=atol)
         assert torch.equal(dv[~fl], torch.zeros_like(dv[~fl]))
-        # the same function as the seg kernel
+        # the same function as the seg kernel, its terms in the same order
         seg = cuda_sweeps.density_sweep(pos, ids, bounds, mat, spec, params, fast)
-        torch.testing.assert_close(rho[fl], seg[fl], rtol=RTOL, atol=0)
+        assert torch.equal(rho, seg)
     lo, hi = grid.block_window_bounds(ids, grid.coords_from_ids(ids, spec), spec, 128)
     assert torch.equal(windows, torch.stack([lo, hi], dim=-1))
+    if spacing is not None:
+        assert int((hi - lo).clamp(min=0).sum(dim=1).max()) > 4096

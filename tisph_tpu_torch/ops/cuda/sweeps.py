@@ -107,6 +107,8 @@ def _launch_linear(mode: str, pos, vel, aux, ids, bounds, material, spec: GridSp
     _check(name, spec, ids, bounds, material,
            {"pos": pos} | ({"vel": vel, "aux": aux} if grad else {}))
     n, dim = ids.shape[0], spec.dim
+    if n * spec.num_rows >= 2**31:  # a block's windows as one stream of int positions
+        raise ValueError(f"{name}: {n} rows x {spec.num_rows} stencil rows must fit in int32")
     if windows is not None:
         shape = (-(-n // neighbors.LINEAR_BLOCK), spec.num_rows, 2)
         if (windows.device != ids.device or windows.dtype != torch.int32
