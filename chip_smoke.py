@@ -24,7 +24,10 @@ Phases, each of which raises on failure (nothing is caught):
    CFL < 1, and the launch counters prove that every substep ran the
    density and force kernels and every rebuild the bounds kernel; then the
    sweep checks of phase 4 again on the evolved state, and kernel times
-   against the plain versions;
+   against the plain versions there and of both sweeps on the dense start
+   state; beside each time the state's candidates per consumer row, its
+   pairs inside h per row, their ratio, and the launch shape the wrapper
+   chose (threads per row, CTAs);
 6. the golden trajectories of tests/golden_{2d,3d}_dam_break.npz at R=1,
    fast_math off and on, at the tolerances of tests/test_golden.py;
 7. the rigid main path: scenes/bench_3d_rigid.json (60,858 particles, a
@@ -91,11 +94,13 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEMO_3D = os.path.join(HERE, "scenes", "demo_3d.json")
 RIGID_3D = os.path.join(HERE, "scenes", "bench_3d_rigid.json")
+LARGE_3D = os.path.join(HERE, "scenes", "bench_3d_1m.json")
 DEVICE = "cuda"
 STEPS_R2, STEPS_R1 = 200, 50
 RIGID_R2, RIGID_R1 = 1500, 100
 BUOYANCY_STEPS = 2000
 LINEAR_STEPS = 100
+LARGE_STEPS = 20
 SPIN_CYCLES = 2_000_000_000  # about a second at the H100's clocks
 
 # tests/test_rigid_dynamics.py::test_buoyancy's pool and box
@@ -298,15 +303,23 @@ def check_sweeps(label: str, solver, inp) -> dict[str, float]:
     errs = {}
     for fast in (False, True):
         rtol, atol_f = TOL[fast]
-        got = {
-            "density": sweeps.density_sweep(inp["pos"], ids, bounds, mat, spec, params, fast),
-            "bvol": sweeps.bvol_sweep(inp["pos_b"], ids, bounds, mat, spec, params, fast),
-            "force": sweeps.force_sweep(inp["pos"], inp["vel"], inp["aux"], ids, bounds,
-                                        mat, spec, params, fast),
-        }
+
+        def run():
+            return {
+                "density": sweeps.density_sweep(inp["pos"], ids, bounds, mat, spec, params,
+                                                fast),
+                "bvol": sweeps.bvol_sweep(inp["pos_b"], ids, bounds, mat, spec, params, fast),
+                "force": sweeps.force_sweep(inp["pos"], inp["vel"], inp["aux"], ids, bounds,
+                                            mat, spec, params, fast),
+            }
+
+        got, again = run(), run()
         torch.cuda.synchronize()
         for mode, rows in (("density", fl), ("bvol", bd), ("force", fl)):
             g, r = got[mode], ref[mode]
+            if not torch.equal(g, again[mode]):
+                raise AssertionError(f"{label} {mode} fast={fast}: two calls on the same "
+                                     "input differ")
             if not torch.isfinite(g).all():
                 raise AssertionError(f"{label} {mode} fast={fast}: non-finite output")
             if not torch.equal(g[~rows], torch.zeros_like(g[~rows])):
@@ -348,12 +361,15 @@ def check_coupling_sweeps(label: str, solver, inp) -> dict[str, float]:
     errs = {}
     for fast in (False, True):
         atol = TOL[fast][1]
-        got = {"force_react": sweeps.force_react_sweep(*args, fast),
-               "reaction": sweeps.reaction_sweep(*args, fast)}
+        got, again = ({"force_react": sweeps.force_react_sweep(*args, fast),
+                       "reaction": sweeps.reaction_sweep(*args, fast)} for _ in range(2))
         torch.cuda.synchronize()
         for mode, fams in (("force_react", (("fluid", fl), ("boundary", bd))),
                            ("reaction", (("boundary", bd),))):
             g, r = got[mode], ref[mode]
+            if not torch.equal(g, again[mode]):
+                raise AssertionError(f"{label} {mode} fast={fast}: two calls on the same "
+                                     "input differ")
             fam = torch.zeros_like(fl)
             for _, rows in fams:
                 fam = fam | rows
@@ -392,8 +408,9 @@ def linear_chunks() -> dict[str, int]:
 def check_linear_sweeps(label: str, solver, inp, min_chunks: int = 0) -> dict[str, float]:
     """The linear kernel against its plain version and against the seg
     kernel (the same function) at both fast_math settings, at phase 4's
-    tolerances, its density bitwise equal to the seg kernel's; its block
-    windows against grid.block_window_bounds exactly; the largest block
+    tolerances, its density bitwise equal to the seg kernel's where that
+    runs one thread per row (its sums in j order too); its block windows
+    against grid.block_window_bounds exactly; the largest block
     stream must fill at least ``min_chunks`` chunks.  Returns the max abs
     error against the plain version at fast_math on, per mode."""
     from tisph_tpu_torch.ops import grid, neighbors
@@ -408,6 +425,7 @@ def check_linear_sweeps(label: str, solver, inp, min_chunks: int = 0) -> dict[st
              "force": neighbors.force_sweep_linear(*f_args)}
     windows = torch.empty((-(-ids.shape[0] // neighbors.LINEAR_BLOCK), spec.num_rows, 2),
                           dtype=torch.int32, device=DEVICE)
+    seg_lanes = sweeps.launch_shape("density", ids.shape[0])[0]
     errs = {}
     for fast in (False, True):
         rtol, atol_f = TOL[fast]
@@ -436,8 +454,8 @@ def check_linear_sweeps(label: str, solver, inp, min_chunks: int = 0) -> dict[st
                     raise AssertionError(f"{label} linear {mode} vs {ref_name} fast={fast}: {tol}")
                 if fast and ref_name == "plain":
                     errs[mode] = err
-        # the same terms in the same order as the seg kernel's
-        if not torch.equal(got["density"], seg["density"]):
+        # the same terms in the same order as the seg kernel's one-lane walk
+        if seg_lanes == 1 and not torch.equal(got["density"], seg["density"]):
             raise AssertionError(f"{label} linear density fast={fast}: not bitwise equal to "
                                  "the seg kernel's")
     lo, hi = grid.block_window_bounds(ids, grid.coords_from_ids(ids, spec), spec,
@@ -451,7 +469,9 @@ def check_linear_sweeps(label: str, solver, inp, min_chunks: int = 0) -> dict[st
     per_row = (runs[..., 1] - runs[..., 0]).sum(dim=1)
     chunks = linear_chunks()
     largest = float(per_block.max())
-    print(f"  {label}: density bitwise equal to the seg kernel's; block windows equal "
+    print(f"  {label}: density " + ("bitwise equal to the seg kernel's" if seg_lanes == 1 else
+          f"within rtol of the seg kernel's ({seg_lanes} lanes per row there)")
+          + "; block windows equal "
           f"block_window_bounds ({lo.numel()} windows); "
           f"candidates per block of 128 rows: mean {float(per_block.mean()):.1f}, max "
           f"{float(per_block.max()):.0f}, total {float(per_block.sum()):.0f}; per fluid row "
@@ -478,32 +498,49 @@ def pairs_inside_h(inp, solver, rows, cols) -> int:
     return int(total)
 
 
-def sweep_bound(mode: str, inp, solver) -> tuple[float, str]:
+def sweep_bound(mode: str, inp, solver, seg: bool = True) -> tuple[float, str]:
     """(bound ms, "bytes" or "operations") of one sweep call on ``inp``:
     bytes = the packs it reads (pos; vel and aux in the gradient modes),
     ids, material, the CSR bounds and its output; operations = its pairs
     inside h times FLOPS_PER_PAIR (the reaction rows of force_react at the
-    reaction's count)."""
+    reaction's count).  Prints beside it what the walk meets on this state:
+    the candidates per consumer row (the j of its stencil runs), the pairs
+    inside h per row (those that carry weight in this mode) and their
+    ratio, and, for a seg sweep, the launch shape the wrapper chooses."""
+    from tisph_tpu_torch.ops import grid
+    from tisph_tpu_torch.ops.cuda import sweeps
+
     st = inp["st"]
     n, dim, nc = st.capacity, solver.spec.dim, solver.spec.num_cells
     fl, bd = st.fluid_mask, st.boundary_mask
     act = st.active_mask
     grad = mode in ("force", "force_react", "reaction")
     nbytes = n * (16 + 4 + 4) + (nc + 1) * 4 + (2 * n * 16 + n * dim * 4 if grad else n * 4)
-    if mode == "density":
-        flops = FLOPS_PER_PAIR["density"] * pairs_inside_h(inp, solver, fl, act)
-    elif mode == "bvol":  # only boundary j carry weight
-        flops = FLOPS_PER_PAIR["bvol"] * pairs_inside_h(inp, solver, bd, bd)
-    elif mode == "force":
-        flops = FLOPS_PER_PAIR["force"] * pairs_inside_h(inp, solver, fl, act)
-    elif mode == "reaction":  # only fluid j carry weight
-        flops = FLOPS_PER_PAIR["reaction"] * pairs_inside_h(inp, solver, bd, fl)
-    else:
-        flops = (FLOPS_PER_PAIR["force"] * pairs_inside_h(inp, solver, fl, act)
-                 + FLOPS_PER_PAIR["reaction"] * pairs_inside_h(inp, solver, bd, fl))
+    # (consumer rows, the j that carry weight, operations per pair)
+    terms = {
+        "density": [(fl, act, FLOPS_PER_PAIR["density"])],
+        "bvol": [(bd, bd, FLOPS_PER_PAIR["bvol"])],  # only boundary j carry weight
+        "force": [(fl, act, FLOPS_PER_PAIR["force"])],
+        "reaction": [(bd, fl, FLOPS_PER_PAIR["reaction"])],  # only fluid j carry weight
+        "force_react": [(fl, act, FLOPS_PER_PAIR["force"]),
+                        (bd, fl, FLOPS_PER_PAIR["reaction"])],
+    }[mode]
+    pairs = [pairs_inside_h(inp, solver, rows, cols) for rows, cols, _ in terms]
+    flops = sum(k * f for k, (_, _, f) in zip(pairs, terms))
+    rows = terms[0][0] if len(terms) == 1 else terms[0][0] | terms[1][0]
+    n_rows = int(rows.sum())
+    runs = grid.stencil_runs(grid.coords_from_ids(inp["ids"][rows], solver.spec),
+                             inp["bounds"], solver.spec).long()
+    cand = int((runs[..., 1] - runs[..., 0]).clamp(min=0).sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    shape = ""
+    if seg:
+        lanes, ctas = sweeps.launch_shape(mode, n)
+        shape = f"; launch: {lanes} thread(s) per row, {ctas} CTAs of 128 for {n} rows"
     print(f"  bound {mode:<12} {nbytes / 1e6:.3f} MB -> {t_bytes * 1e3:.5f} ms, "
-          f"{flops / 1e9:.4f} GFLOP -> {t_ops * 1e3:.5f} ms")
+          f"{flops / 1e9:.4f} GFLOP -> {t_ops * 1e3:.5f} ms; {n_rows} consumer rows, "
+          f"{cand / max(n_rows, 1):.1f} candidates and {sum(pairs) / max(n_rows, 1):.1f} pairs "
+          f"inside h per row ({sum(pairs) / max(cand, 1):.3f} of the candidates){shape}")
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -653,7 +690,8 @@ def main() -> int:
     g_solver = tt.WCSPH(g_scene, device=DEVICE)
     g_inp = sweep_inputs(g_solver, g_solver.bind(tt.build_state(g_scene, device=DEVICE)))
     check_sweeps("golden_3d", g_solver, g_inp)
-    check_sweeps("demo_3d", solver, sweep_inputs(solver, state))
+    d_inp = sweep_inputs(solver, state)  # demo_3d's dense start state, timed in phase 5
+    check_sweeps("demo_3d", solver, d_inp)
 
     phase(f"5 main path: demo_3d, {STEPS_R2} steps at R=2, {STEPS_R1} at R=1")
     n = state.num_active
@@ -729,6 +767,15 @@ def main() -> int:
     bound = {"csr_bounds": ((ids.numel() + sp.num_cells + 1) * 4 / HBM_BYTES_PER_S * 1e3,
                             "bytes")}
     bound |= {f"sweep.{m}": sweep_bound(m, inp, solver) for m in ("density", "force")}
+    print("  the same sweeps on demo_3d's dense start state:")
+    d_args = (d_inp["pos"], d_inp["ids"], d_inp["bounds"], d_inp["st"].material, sp, pr)
+    d_f = (d_inp["pos"], d_inp["vel"], d_inp["aux"], *d_args[1:])
+    for name, fn in (("sweep.density", lambda: cuda_sweeps.density_sweep(*d_args)),
+                     ("sweep.force", lambda: cuda_sweeps.force_sweep(*d_f))):
+        print(f"  time {name:<17} on the dense start state: kernel "
+              f"{cuda_ms(fn, 20):.4f} / {cuda_ms(fn, 20):.4f} ms")
+    for m in ("density", "force"):
+        sweep_bound(m, d_inp, solver)
 
     phase("6 golden trajectories (R=1)")
     for name, (raw, steps) in GOLDEN.items():
@@ -807,6 +854,7 @@ def main() -> int:
     r_args = (r_inp["pos"], r_inp["vel"], r_inp["aux"], r_ids, r_bnd,
               r_st.material, r_solver.spec, r_solver.params)
     r_bvol = (r_inp["pos_b"], r_ids, r_bnd, r_st.material, r_solver.spec, r_solver.params)
+    r_dens = (r_inp["pos"], *r_bvol[1:])
     times |= time_against_plain({
         "sweep.bvol": (lambda: cuda_sweeps.bvol_sweep(*r_bvol),
                        lambda: neighbors.bvol_sweep(*r_bvol), 50, 5),
@@ -814,6 +862,10 @@ def main() -> int:
                               lambda: neighbors.force_react_sweep(*r_args), 20, 2),
         "sweep.reaction": (lambda: cuda_sweeps.reaction_sweep(*r_args),
                            lambda: neighbors.reaction_sweep(*r_args), 20, 2),
+        # this path's density launch (printed only; the kernels line has
+        # demo_3d's)
+        "density@rigid": (lambda: cuda_sweeps.density_sweep(*r_dens),
+                          lambda: neighbors.density_sweep(*r_dens), 20, 2),
         # what the boundary family and fast_math cost force_react on this
         # state (printed only; not in the kernels line)
         "force@rigid": (lambda: cuda_sweeps.force_sweep(*r_args),
@@ -823,6 +875,8 @@ def main() -> int:
     })
     bound |= {f"sweep.{m}": sweep_bound(m, r_inp, r_solver)
               for m in ("bvol", "force_react", "reaction")}
+    for m in ("density", "force"):
+        sweep_bound(m, r_inp, r_solver)
 
     phase(f"8 buoyancy: test_buoyancy's box in a pool, {BUOYANCY_STEPS} steps at R=1")
     with tempfile.TemporaryDirectory() as tmp:
@@ -876,7 +930,8 @@ def main() -> int:
         "seg force@lin": (lambda: cuda_sweeps.force_sweep(*l_f),
                           lambda: neighbors.force_sweep(*l_f), 20, 2),
     })
-    bound |= {f"linear.{m}": sweep_bound(m, l_inp, l_solver) for m in ("density", "force")}
+    bound |= {f"linear.{m}": sweep_bound(m, l_inp, l_solver, seg=False)
+              for m in ("density", "force")}
 
     print("  linear kernel checks on demo_3d's dense start state:")
     s_inp = sweep_inputs(l_solver, l_solver.bind(tt.build_state(scene, device=DEVICE)))
@@ -908,6 +963,64 @@ def main() -> int:
             if not golden_check(tt, name, raw, steps, fast_math=fast, layout="linear")["ok"]:
                 raise AssertionError(f"golden {name} layout=linear fast_math={fast} outside "
                                      "the test_golden tolerances")
+
+    phase(f"10 large launch: bench_3d_1m, {LARGE_STEPS} steps at R=2")
+    b_scene = tt.load_scene(LARGE_3D)
+    b_solver = tt.WCSPH(b_scene, device=DEVICE, resort_every=2)
+    b_state = b_solver.bind(tt.build_state(b_scene, device=DEVICE))
+    b_inp = sweep_inputs(b_solver, b_state)
+    b_n = b_state.capacity
+    b_shapes = {m: cuda_sweeps.launch_shape(m, b_n) for m in ("density", "force")}
+    print(f"  {b_state.num_active} particles, capacity {b_n}; launch shapes {b_shapes}")
+    if any(lanes != 1 for lanes, _ in b_shapes.values()):
+        raise AssertionError(f"{b_n} rows should launch one thread per row: {b_shapes}")
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    b_state = b_solver.rollout(b_state, LARGE_STEPS)
+    torch.cuda.synchronize()
+    bwall = time.perf_counter() - t0
+    b_launches = {k: f.launches for k, f in kernels.items()}
+    b_want = {k: 0 for k in kernels} | {"csr_bounds": -(-LARGE_STEPS // 2),
+                                        "sweep.density": LARGE_STEPS,
+                                        "sweep.force": LARGE_STEPS}
+    if b_launches != b_want:
+        raise AssertionError(f"bench_3d_1m launch counts {b_launches}, expected {b_want}")
+    m = b_solver.metrics(b_state)
+    print(f"  launches: {b_launches}")
+    print(f"  metrics: {m}")
+    if m["nan_count"] != 0 or not math.isfinite(m["max_velocity"]) or m["cfl"] >= 1.0:
+        raise AssertionError(f"bench_3d_1m unhealthy: {m}")
+    print(f"  {b_state.num_active} particles: R=2 "
+          f"{b_state.num_active * LARGE_STEPS / bwall:.6e} particle-steps/s "
+          f"({bwall * 1e3 / LARGE_STEPS:.4f} ms/step, the first steps from the dense start "
+          f"state) on {card_line}")
+    del b_state
+    print("  sweep checks on bench_3d_1m's dense start state (one thread per row):")
+    check_sweeps("1m+0", b_solver, b_inp)
+    b_d = (b_inp["pos"], b_inp["ids"], b_inp["bounds"], b_inp["st"].material,
+           b_solver.spec, b_solver.params)
+    b_f = (b_inp["pos"], b_inp["vel"], b_inp["aux"], *b_d[1:])
+    b_fl = b_inp["st"].fluid_mask
+    for fast in (False, True):
+        a_rho = cuda_sweeps.density_sweep(*b_d, fast)
+        c_rho = cuda_sweeps.density_sweep_linear(*b_d, fast)
+        a_dv = cuda_sweeps.force_sweep(*b_f, fast)
+        c_dv = cuda_sweeps.force_sweep_linear(*b_f, fast)
+        torch.cuda.synchronize()
+        if not torch.equal(c_rho, a_rho):
+            raise AssertionError(f"1m+0 linear density fast={fast}: not bitwise equal to the "
+                                 "seg kernel's one-lane walk")
+        rel = float((c_dv - a_dv).abs().max()) / float(a_dv[b_fl].abs().max())
+        print(f"  1m+0 fast_math={int(fast)}: linear density bitwise equal to the seg "
+              f"kernel's; force max|err|/max|ref| = {rel:.3e} (atol {TOL[fast][1]})")
+        if not rel <= TOL[fast][1]:
+            raise AssertionError(f"1m+0 linear force vs seg fast={fast}: {rel:.3e}")
+    for name, fn in (("sweep.density", lambda: cuda_sweeps.density_sweep(*b_d)),
+                     ("sweep.force", lambda: cuda_sweeps.force_sweep(*b_f)),
+                     ("linear.density", lambda: cuda_sweeps.density_sweep_linear(*b_d)),
+                     ("linear.force", lambda: cuda_sweeps.force_sweep_linear(*b_f))):
+        print(f"  time {name:<17} on bench_3d_1m's dense start state: kernel "
+              f"{cuda_ms(fn, 10):.4f} / {cuda_ms(fn, 10):.4f} ms")
 
     src = {"csr_bounds": ("tisph_tpu_torch/csrc/bounds.cu", "tisph_tpu/ops/pallas/bounds.py:43")}
     for k in kernels:

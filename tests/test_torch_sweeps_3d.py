@@ -7,8 +7,8 @@ import pytest
 import torch
 
 from test_torch_sweeps import (
-    CASES,
-    IDS,
+    CASES_3D,
+    IDS_3D,
     check_coupling_sweeps_match_seg_kernel,
     check_plain_sweeps_match_seg_kernel,
 )
@@ -16,10 +16,14 @@ from test_torch_sweeps import (
 torch.set_num_threads(2)
 
 
-@pytest.mark.parametrize("dim,boundary", CASES[2:], ids=IDS[2:])
-def test_plain_sweeps_match_seg_kernel_3d(dim, boundary):
-    check_plain_sweeps_match_seg_kernel(dim, boundary)
+@pytest.mark.parametrize("dim,boundary,tag", CASES_3D, ids=IDS_3D)
+def test_plain_sweeps_match_seg_kernel_3d(dim, boundary, tag):
+    check_plain_sweeps_match_seg_kernel(dim, boundary, tag)
 
 
 def test_coupling_sweeps_match_seg_kernel_3d():
     check_coupling_sweeps_match_seg_kernel(3)
+
+
+def test_coupling_sweeps_match_seg_kernel_ragged_3d():
+    check_coupling_sweeps_match_seg_kernel(3, ragged=True)

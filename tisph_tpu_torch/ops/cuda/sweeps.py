@@ -16,6 +16,12 @@ The plain versions are the functions of the same names in
 ``ops.neighbors``, with the same signatures and pack layouts: a CPU tensor
 goes there, a CUDA tensor launches the kernel or raises.  Each wrapper
 counts its launches in ``<wrapper>.launches``.
+
+How many threads of ``csrc/sweeps.cu`` share a row is a launch rule of
+the row count (``launch_shape``), read by no caller but the launch: a
+small launch gives a row 4 or 8 lanes (and the gradient modes the
+two-stage walk), a large one one thread, whose sums are in j order.
+Either way the same input gives bitwise the same output.
 """
 
 from __future__ import annotations
@@ -73,6 +79,35 @@ def _phys_args(grad: bool, spec: GridSpec, params: SolverParams) -> tuple[float,
             h * params.surface_tension, *g)
 
 
+_THREADS = 128  # per CTA of csrc/sweeps.cu, whatever the lanes per row
+# (rows below, threads per row) of csrc/sweeps.cu, by mode; one thread per
+# row from that many rows up, where the rows alone fill the SMs.  Measured
+# on an H100 at 60,864 to 1,000,000 rows (csrc/sweeps.cu's header; PERF.md):
+# the gradient modes' two-stage walk stops paying on a dense lattice
+# between 220,000 and 350,000 rows, density's lanes between 500,000 and
+# 740,000.  bvol and reaction sum on boundary rows only, a small share of
+# most launches.
+_LANES = {
+    "density": (600_000, 4),
+    "force": (300_000, 4),
+    "bvol": (600_000, 8),
+    "force_react": (300_000, 4),
+    "reaction": (300_000, 8),
+}
+
+
+def launch_shape(mode: str, n: int) -> tuple[int, int]:
+    """(threads per row, CTAs) of the seg sweep kernel's launch on ``n``
+    rows in ``mode``: small launches give a row several lanes, which share
+    its candidates and add their partial sums in a fixed order (and, in the
+    gradient modes, queue the pairs inside h); with one thread per row the
+    sums are in j order."""
+    below, lanes = _LANES[mode]
+    if n >= below:
+        lanes = 1
+    return lanes, -(-n // (_THREADS // lanes))
+
+
 def _ptr(t):
     return t.data_ptr() if t is not None else None
 
@@ -89,8 +124,9 @@ def _launch(mode: str, pos, vel, aux, ids, bounds, material,
                       dtype=torch.float32, device=ids.device)
     with torch.cuda.device(ids.device):
         err = build.load().tisph_sweep(
-            _MODES[mode], dim, int(fast_math), pos.data_ptr(), _ptr(vel), _ptr(aux),
-            ids.data_ptr(), bounds.data_ptr(), material.data_ptr(), out.data_ptr(), n,
+            _MODES[mode], dim, int(fast_math), launch_shape(mode, n)[0], pos.data_ptr(),
+            _ptr(vel), _ptr(aux), ids.data_ptr(), bounds.data_ptr(), material.data_ptr(),
+            out.data_ptr(), n,
             *_grid_args(spec), *_phys_args(mode in _GRAD, spec, params),
             torch.cuda.current_stream().cuda_stream,
         )
