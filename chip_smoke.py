@@ -7,8 +7,17 @@ Phases, each of which raises on failure (nothing is caught):
 
 1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
 2. build: compiles tisph_tpu_torch/csrc/*.cu with nvcc for sm_90a;
-3. bounds kernel vs its plain version (torch.searchsorted): exact
-   equality on demo_3d's sorted ids, an all-sentinel and a one-particle case;
+3. the rebuild kernel (csrc/bounds.cu through ops.cuda.bounds.sort_and_bound:
+   after the cell sort, every state field in sorted order and the CSR
+   bounds in one launch) vs its plain version (grid.sort_state_by_cell
+   then grid.csr_bounds): every field, the sorted ids, the permutation and
+   the bounds bitwise equal on demo_3d's start state (an inactive tail),
+   bench_3d_1m's, bench_3d_rigid's, the 2D golden scene (13 words a row),
+   demo_3d with 1,504 inactive rows, all rows inactive, one particle and
+   a cell of 10,000 particles (more ids than a bounds CTA holds); the same
+   on phase 5's evolved state and on phase 7's and phase 10's; and the
+   bounds-only launch (csr_bounds_sorted) vs torch.searchsorted on
+   demo_3d's sorted ids, an all-sentinel and a one-particle case;
 4. sweep kernel vs its plain version (ops.neighbors), modes density, force
    and bvol, on the 3D golden scene (boundary particles) and on demo_3d:
    - fast_math off: density and bvol rtol 2e-5, force / max|force| atol
@@ -22,7 +31,12 @@ Phases, each of which raises on failure (nothing is caught):
    then 50 at R=1; one R=2 group queued behind a device-side spin must
    return before the spin ends (no host wait in the step); no NaN,
    CFL < 1, and the launch counters prove that every substep ran the
-   density and force kernels and every rebuild the bounds kernel; then the
+   density and force kernels and every rebuild the rebuild kernel; 20
+   more steps at R=2 through rollout are bitwise equal to the same 20
+   steps built from the plain rebuild (sort_state_by_cell, csr_bounds,
+   _group_cache, _apply); the rebuild's times (kernel, plain version,
+   bound, and the library calls of the same work: torch.searchsorted and
+   the nine index_selects) on four states; then the
    sweep checks of phase 4 again on the evolved state, and kernel times
    against the plain versions there and of both sweeps on the dense start
    state; beside each time the state's candidates per consumer row, its
@@ -37,7 +51,7 @@ Phases, each of which raises on failure (nothing is caught):
    one coupled R=2 group must queue without a host wait, as in phase 5;
    the launch counters prove that every substep ran the bvol, density and
    force_react kernels (and never force or reaction) and every rebuild the
-   bounds kernel; no NaN, CFL < 1, body shape drift max | |x_p - com| - d0 |
+   rebuild kernel; no NaN, CFL < 1, body shape drift max | |x_p - com| - d0 |
    < 1e-4, the sphere's com_y below its start; then, on the final state
    with its volumes from a fresh bvol pass and the sphere in the water,
    every sweep mode kernel vs plain at fast_math off and on: bvol, density
@@ -53,7 +67,7 @@ Phases, each of which raises on failure (nothing is caught):
    WCSPH(device="cuda", layout="linear").bind -> rollout, 100 steps at R=1;
    one step queued behind the device spin must return without a host
    wait; the launch counters prove that every substep ran the linear
-   kernel's density and force modes and the bounds kernel, and never the
+   kernel's density and force modes and the rebuild kernel, and never the
    seg sweeps; no NaN, CFL < 1; then, on three states (the evolved one,
    demo_3d's dense start state, and a lattice at 0.63 of the radius spacing
    whose largest block stream fills the kernel's shared-memory chunk many
@@ -69,8 +83,10 @@ Every kernel's entry in the JSON line has a bound: the larger of the bytes
 it must move (each input read once, each output written once) over 3.35
 TB/s and its f32 operations (pairs inside h on this run's state, times the
 operations per pair counted from the CUDA source) over 67 TFLOP/s, the
-H100 SXM's published peaks; and, for the bounds kernel, the time of
-torch.searchsorted on the same inputs (no PyTorch call computes a sweep).
+H100 SXM's published peaks; and, for the bounds-only launch, the time of
+torch.searchsorted on the same inputs, for the rebuild that of
+torch.searchsorted plus one index_select per field (no PyTorch call
+computes a sweep).
 
 The last two lines of standard output are the JSON kernel summary and
 {"ok": true, "device": {...}}; any failure exits nonzero before them.
@@ -101,6 +117,7 @@ RIGID_R2, RIGID_R1 = 1500, 100
 BUOYANCY_STEPS = 2000
 LINEAR_STEPS = 100
 LARGE_STEPS = 20
+BITWISE_STEPS = 20
 SPIN_CYCLES = 2_000_000_000  # about a second at the H100's clocks
 
 # tests/test_rigid_dynamics.py::test_buoyancy's pool and box
@@ -621,6 +638,120 @@ def golden_check(tt, name: str, raw: dict, steps: int, fast_math: bool,
     return {"ok": one_to_one and same_mat and worst <= 1.0, "worst": worst}
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """The tensor's words as int32, so that equality is bitwise."""
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def check_rebuild(label: str, state, spec, min_largest: int = 0) -> float:
+    """The rebuild kernel (sort_and_bound) against its plain version
+    (sort_state_by_cell, csr_bounds) on ``state``: every field, the sorted
+    ids, the permutation and the bounds must be equal bit for bit, and the
+    largest cell must hold at least ``min_largest`` ids.  Returns the max
+    abs difference (0.0)."""
+    from tisph_tpu_torch.ops import grid as gridops
+    from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
+
+    before = cuda_bounds.sort_and_bound.launches
+    st, ids, perm, bounds = cuda_bounds.sort_and_bound(state, spec)
+    p_st, p_ids, p_perm = gridops.sort_state_by_cell(state, spec)
+    p_bounds = gridops.csr_bounds(p_ids, spec)
+    torch.cuda.synchronize()
+    if cuda_bounds.sort_and_bound.launches != before + 1:
+        raise AssertionError(f"rebuild {label}: the kernel did not launch once")
+    pairs = [("ids", ids, p_ids), ("perm", perm, p_perm), ("bounds", bounds, p_bounds)]
+    pairs += [(k, getattr(st, k), getattr(p_st, k)) for k in gridops.state_fields(st)]
+    err = 0.0
+    for name, got, want in pairs:
+        if got.dtype != want.dtype or got.shape != want.shape or not torch.equal(
+                _bits(got), _bits(want)):
+            raise AssertionError(f"rebuild {label}: {name} differs from the plain version")
+        if got.numel():
+            err = max(err, float((got.double() - want.double()).abs().max()))
+    n, nc = state.capacity, spec.num_cells
+    active = int(state.active_mask.sum())
+    words = sum(getattr(st, k)[:1].numel() for k in gridops.state_fields(st))
+    largest = int(torch.diff(bounds[:-1]).max()) if nc > 1 else int(bounds[-1])
+    print(f"  rebuild {label}: {n} rows ({active} active, {n - active} "
+          f"inactive), {words} words a row, {nc + 1} cells, largest cell {largest} ids "
+          f"(a bounds CTA holds {cuda_bounds.ITEMS_PER_CTA}): every field, ids, perm and "
+          "bounds bitwise equal")
+    if largest < min_largest:
+        raise AssertionError(f"rebuild {label}: largest cell {largest} < {min_largest} ids")
+    return err
+
+
+def rebuild_bound(state, spec) -> tuple[float, str]:
+    """The rebuild pass's least time: each row's words read and written
+    once, its perm (8 B) and id (4 B) read, the bounds written, over the
+    card's memory rate (its work is integer compares)."""
+    from tisph_tpu_torch.ops import grid as gridops
+
+    words = sum(getattr(state, k)[:1].numel() for k in gridops.state_fields(state))
+    nbytes = state.capacity * (2 * 4 * words + 8 + 4) + (spec.num_cells + 1) * 4
+    return nbytes / HBM_BYTES_PER_S * 1e3, "bytes"
+
+
+def rebuild_times(label: str, state, spec, reps: int = 100) -> dict[str, float]:
+    """Device times of the rebuild pass after the sort on ``state``: the
+    kernel (gather_and_bound), its plain version (gather_state, csr_bounds),
+    the library calls of the same work (torch.searchsorted, then one
+    index_select per field), the bounds-only launch, and the whole rebuild
+    with the cell ids and the sort (sort_and_bound, and the plain
+    sort_state_by_cell plus csr_bounds); beside them the bytes' bound."""
+    from tisph_tpu_torch.ops import grid as gridops
+    from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
+
+    ids = gridops.flat_cell_ids(gridops.cell_coords(state.x, spec), state.material, spec)
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    names = gridops.state_fields(state)
+    queries = torch.arange(spec.num_cells + 1, dtype=torch.int32, device=DEVICE)
+    fields = [getattr(state, k) for k in names]
+    t = time_against_plain({
+        f"rebuild@{label}": (lambda: cuda_bounds.gather_and_bound(state, sorted_ids, perm, spec),
+                             lambda: (gridops.gather_state(state, perm),
+                                      gridops.csr_bounds(sorted_ids, spec)), reps, reps),
+        f"bounds@{label}": (lambda: cuda_bounds.csr_bounds_sorted(sorted_ids, spec),
+                            lambda: gridops.csr_bounds(sorted_ids, spec), reps, reps),
+        f"sort+rebuild@{label}": (lambda: cuda_bounds.sort_and_bound(state, spec),
+                                  lambda: (gridops.csr_bounds(
+                                      gridops.sort_state_by_cell(state, spec)[1], spec)),
+                                  reps, reps),
+    })
+    search = cuda_ms(lambda: torch.searchsorted(sorted_ids, queries, out_int32=True), reps)
+    selects = cuda_ms(lambda: [f.index_select(0, perm) for f in fields], reps)
+    library = cuda_ms(lambda: (torch.searchsorted(sorted_ids, queries, out_int32=True),
+                               [f.index_select(0, perm) for f in fields]), reps)
+    bound, _ = rebuild_bound(state, spec)
+    kern = t[f"rebuild@{label}"][0]
+    print(f"  rebuild@{label}: kernel {kern:.4f} ms, plain {t[f'rebuild@{label}'][1]:.4f} ms, "
+          f"library {library:.4f} ms (torch.searchsorted {search:.4f} + {len(fields)} "
+          f"index_selects {selects:.4f}), bound {bound:.5f} ms by bytes "
+          f"({bound / kern:.3f} of it); bounds-only launch {t[f'bounds@{label}'][0]:.4f} ms")
+    return {"ms": kern, "plain_ms": t[f"rebuild@{label}"][1], "library_ms": library,
+            "searchsorted_ms": search, "index_selects_ms": selects,
+            "bounds_ms": t[f"bounds@{label}"][0], "bounds_plain_ms": t[f"bounds@{label}"][1],
+            "bound_ms": bound}
+
+
+def plain_rebuild_rollout(solver, state, steps: int):
+    """``steps`` substeps in groups of ``solver.resort_every``, each group
+    built from the plain rebuild (sort_state_by_cell, csr_bounds) and the
+    solver's own _group_cache and _apply: what rollout does, with the
+    rebuild kernel's plain version in its place."""
+    from tisph_tpu_torch.ops import grid as gridops
+
+    done = 0
+    while done < steps:
+        state, ids, _ = gridops.sort_state_by_cell(state, solver.spec)
+        cache = solver._group_cache(state, ids, gridops.csr_bounds(ids, solver.spec))
+        k = min(solver.resort_every, steps - done)
+        for _ in range(k):
+            state = solver._apply(state, cache)
+        done += k
+    return state
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs "
@@ -635,6 +766,7 @@ def main() -> int:
     from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 
     kernels = {
+        "rebuild": cuda_bounds.sort_and_bound,
         "csr_bounds": cuda_bounds.csr_bounds_sorted,
         "sweep.density": cuda_sweeps.density_sweep,
         "sweep.force": cuda_sweeps.force_sweep,
@@ -664,11 +796,34 @@ def main() -> int:
     build.load()
     print(f"  {path.name}: nvcc {secs:.2f} s")
 
-    phase("3 bounds kernel vs torch.searchsorted")
+    phase("3 rebuild kernel vs sort_state_by_cell + csr_bounds, bounds-only vs searchsorted")
     scene = tt.load_scene(DEMO_3D)
     solver = tt.WCSPH(scene, device=DEVICE, resort_every=2)
     state = solver.bind(tt.build_state(scene, device=DEVICE))
     spec = solver.spec
+    rebuild_err = check_rebuild("demo_3d+0", state, spec)
+    for path in (LARGE_3D, RIGID_3D):
+        sc = tt.load_scene(path)
+        sp = tt.WCSPH(sc, device=DEVICE).spec
+        label = os.path.basename(path)[:-5] + "+0"
+        rebuild_err = max(rebuild_err, check_rebuild(label, tt.build_state(sc, device=DEVICE), sp))
+    g2_scene = tt.scene_from_dict(GOLDEN["2d_dam_break"][0])
+    rebuild_err = max(rebuild_err, check_rebuild(
+        "golden_2d", tt.build_state(g2_scene, device=DEVICE), tt.WCSPH(g2_scene).spec))
+    padded = tt.build_state(scene, device=DEVICE, extra_capacity=1500)
+    rebuild_err = max(rebuild_err, check_rebuild("demo_3d+1504 inactive", padded, spec))
+    dead = dataclasses.replace(state, material=torch.full_like(state.material, -1))
+    rebuild_err = max(rebuild_err, check_rebuild("all inactive", dead, spec))
+    one = tt.SimState(**{k: getattr(state, k)[:1].clone() for k in gridops.state_fields(state)},
+                      num_active=1)
+    rebuild_err = max(rebuild_err, check_rebuild("one particle", one, spec))
+    # 10,000 particles in one cell (the cell size is 4 radii), the rest as they are
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    crowd = 0.5 + 0.015 * torch.rand((10_000, 3), generator=gen).to(DEVICE)
+    x = torch.cat([crowd, state.x[10_000:]])
+    rebuild_err = max(rebuild_err, check_rebuild(
+        "crowded cell", dataclasses.replace(state, x=x), spec,
+        min_largest=10_000))
     _, ids, _ = gridops.sort_state_by_cell(state, spec)
     cases = {
         "demo_3d": ids,
@@ -695,6 +850,7 @@ def main() -> int:
 
     phase(f"5 main path: demo_3d, {STEPS_R2} steps at R=2, {STEPS_R1} at R=1")
     n = state.num_active
+    d_start = state  # demo_3d's start state, for the rebuild's times
     state = solver.rollout(state, 2)  # warm-up, outside the counted run
     assert_no_host_wait("demo_3d, one R=2 group", lambda: solver.rollout(state, 2))
     reset_counts(kernels)
@@ -710,11 +866,11 @@ def main() -> int:
     wall1 = time.perf_counter() - t0
     launches = {k: f.launches for k, f in kernels.items()}
     groups = -(-STEPS_R2 // 2)
-    zero = {"sweep.bvol": 0, "sweep.force_react": 0, "sweep.reaction": 0,
+    zero = {"csr_bounds": 0, "sweep.bvol": 0, "sweep.force_react": 0, "sweep.reaction": 0,
             "linear.density": 0, "linear.force": 0}
-    want_r2 = {"csr_bounds": groups, "sweep.density": STEPS_R2, "sweep.force": STEPS_R2} | zero
+    want_r2 = {"rebuild": groups, "sweep.density": STEPS_R2, "sweep.force": STEPS_R2} | zero
     total = STEPS_R2 + STEPS_R1
-    want = {"csr_bounds": groups + STEPS_R1, "sweep.density": total,
+    want = {"rebuild": groups + STEPS_R1, "sweep.density": total,
             "sweep.force": total} | zero
     if after_r2 != want_r2 or launches != want:
         raise AssertionError(f"launch counts {after_r2} then {launches}, "
@@ -728,6 +884,23 @@ def main() -> int:
     print(f"  {n} particles: R=2 {pps2:.6e} particle-steps/s "
           f"({wall2 * 1e3 / STEPS_R2:.4f} ms/step), R=1 {pps1:.6e} particle-steps/s "
           f"({wall1 * 1e3 / STEPS_R1:.4f} ms/step) on {card_line}")
+
+    evolved = f"demo_3d+{STEPS_R2 + STEPS_R1 + 2}"
+    rebuild_err = max(rebuild_err, check_rebuild(evolved, state, spec))
+    solver.resort_every = 2
+    through_kernel = solver.rollout(state, BITWISE_STEPS)
+    through_plain = plain_rebuild_rollout(solver, state, BITWISE_STEPS)
+    torch.cuda.synchronize()
+    for k in gridops.state_fields(state):
+        if not torch.equal(_bits(getattr(through_kernel, k)), _bits(getattr(through_plain, k))):
+            raise AssertionError(f"{BITWISE_STEPS} steps at R=2 through the rebuild kernel and "
+                                 f"through its plain version differ in {k}")
+    print(f"  {BITWISE_STEPS} steps at R=2 from {evolved} through rollout (the rebuild kernel) "
+          "and through sort_state_by_cell + csr_bounds + _group_cache + _apply: every field "
+          "bitwise equal")
+    del through_kernel, through_plain
+    rebuild = {evolved: rebuild_times(evolved, state, spec),
+               "demo_3d+0": rebuild_times("demo_3d+0", d_start, spec)}
 
     # The boundary-volume mode runs at bind on static boundaries; demo_3d has
     # none, so its launch is checked on the golden 3D scene's bind (the
@@ -758,14 +931,17 @@ def main() -> int:
                                           mat, sp, pr), 20, 2),
     }
     times = time_against_plain(timing)
+    times["rebuild"] = (rebuild[evolved]["ms"], rebuild[evolved]["plain_ms"])
     queries = torch.arange(sp.num_cells + 1, dtype=torch.int32, device=DEVICE)
     library = {"csr_bounds": cuda_ms(lambda: torch.searchsorted(ids, queries, out_int32=True),
-                                     200)}
+                                     200),
+               "rebuild": rebuild[evolved]["library_ms"]}
     print(f"  time csr_bounds as one torch.searchsorted call: {library['csr_bounds']:.4f} ms")
     # the bounds kernel reads the ids and writes the bounds; its searches
     # are integer compares, far below the bytes' time
     bound = {"csr_bounds": ((ids.numel() + sp.num_cells + 1) * 4 / HBM_BYTES_PER_S * 1e3,
-                            "bytes")}
+                            "bytes"),
+             "rebuild": rebuild_bound(state, sp)}
     bound |= {f"sweep.{m}": sweep_bound(m, inp, solver) for m in ("density", "force")}
     print("  the same sweeps on demo_3d's dense start state:")
     d_args = (d_inp["pos"], d_inp["ids"], d_inp["bounds"], d_inp["st"].material, sp, pr)
@@ -817,7 +993,7 @@ def main() -> int:
     rwall1 = time.perf_counter() - t0
     r_launches = {k: f.launches for k, f in kernels.items()}
     r_steps = RIGID_R2 + RIGID_R1
-    r_want = {"csr_bounds": -(-RIGID_R2 // 2) + RIGID_R1, "sweep.density": r_steps,
+    r_want = {"rebuild": -(-RIGID_R2 // 2) + RIGID_R1, "csr_bounds": 0, "sweep.density": r_steps,
               "sweep.force": 0, "sweep.bvol": r_steps, "sweep.force_react": r_steps,
               "sweep.reaction": 0, "linear.density": 0, "linear.force": 0}
     if r_launches != r_want:
@@ -840,6 +1016,9 @@ def main() -> int:
           f"({rwall2 * 1e3 / RIGID_R2:.4f} ms/step), R=1 {rpps1:.6e} particle-steps/s "
           f"({rwall1 * 1e3 / RIGID_R1:.4f} ms/step) on {card_line}")
 
+    r_label = f"bench_3d_rigid+{RIGID_R2 + RIGID_R1 + 2}"
+    rebuild_err = max(rebuild_err, check_rebuild(r_label, r_state, r_solver.spec))
+    rebuild[r_label] = rebuild_times(r_label, r_state, r_solver.spec)
     print("  sweep checks on the final bench_3d_rigid state (volumes from a fresh bvol pass):")
     r_inp = sweep_inputs(r_solver, r_state, per_step=True)
     # every mode this path runs, at this path's shapes: bvol, density and
@@ -898,7 +1077,7 @@ def main() -> int:
     torch.cuda.synchronize()
     lwall = time.perf_counter() - t0
     l_launches = {k: f.launches for k, f in kernels.items()}
-    l_want = {k: 0 for k in kernels} | {"csr_bounds": LINEAR_STEPS,
+    l_want = {k: 0 for k in kernels} | {"rebuild": LINEAR_STEPS,
                                         "linear.density": LINEAR_STEPS,
                                         "linear.force": LINEAR_STEPS}
     if l_launches != l_want:
@@ -980,7 +1159,7 @@ def main() -> int:
     torch.cuda.synchronize()
     bwall = time.perf_counter() - t0
     b_launches = {k: f.launches for k, f in kernels.items()}
-    b_want = {k: 0 for k in kernels} | {"csr_bounds": -(-LARGE_STEPS // 2),
+    b_want = {k: 0 for k in kernels} | {"rebuild": -(-LARGE_STEPS // 2),
                                         "sweep.density": LARGE_STEPS,
                                         "sweep.force": LARGE_STEPS}
     if b_launches != b_want:
@@ -994,6 +1173,10 @@ def main() -> int:
           f"{b_state.num_active * LARGE_STEPS / bwall:.6e} particle-steps/s "
           f"({bwall * 1e3 / LARGE_STEPS:.4f} ms/step, the first steps from the dense start "
           f"state) on {card_line}")
+    rebuild_err = max(rebuild_err, check_rebuild(f"bench_3d_1m+{LARGE_STEPS}", b_state,
+                                                 b_solver.spec))
+    rebuild[f"bench_3d_1m+{LARGE_STEPS}"] = rebuild_times(f"bench_3d_1m+{LARGE_STEPS}",
+                                                          b_state, b_solver.spec, reps=20)
     del b_state
     print("  sweep checks on bench_3d_1m's dense start state (one thread per row):")
     check_sweeps("1m+0", b_solver, b_inp)
@@ -1022,16 +1205,21 @@ def main() -> int:
         print(f"  time {name:<17} on bench_3d_1m's dense start state: kernel "
               f"{cuda_ms(fn, 10):.4f} / {cuda_ms(fn, 10):.4f} ms")
 
-    src = {"csr_bounds": ("tisph_tpu_torch/csrc/bounds.cu", "tisph_tpu/ops/pallas/bounds.py:43")}
+    src = {k: ("tisph_tpu_torch/csrc/bounds.cu", "tisph_tpu/ops/pallas/bounds.py:43")
+           for k in ("rebuild", "csr_bounds")}
     for k in kernels:
         if k.startswith("sweep."):
             src[k] = ("tisph_tpu_torch/csrc/sweeps.cu", "tisph_tpu/ops/pallas/sweeps.py:787")
         elif k.startswith("linear."):
             src[k] = ("tisph_tpu_torch/csrc/sweeps_linear.cu",
                       "tisph_tpu/ops/pallas/sweeps.py:384")
-    err_of = {"csr_bounds": float(bounds_err)}
+    err_of = {"rebuild": rebuild_err, "csr_bounds": float(bounds_err)}
     err_of |= {f"sweep.{m}": e for m, e in errs.items()}
     err_of |= {f"linear.{m}": e for m, e in lin_errs.items()}
+    print("  the rebuild pass after the sort, ms (kernel, plain, library, bound):")
+    for label, r in rebuild.items():
+        print(f"    {label:<22} {r['ms']:.4f} {r['plain_ms']:.4f} {r['library_ms']:.4f} "
+              f"{r['bound_ms']:.5f}")
     summary = {"kernels": [
         {"name": k, "route": "cuda", "source": src[k][0], "replaces": src[k][1],
          "launches": launches[k], "max_abs_err": err_of[k],

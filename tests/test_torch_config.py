@@ -1,7 +1,7 @@
 """Port config parity: every scene file parses to the same field values as
-tisph_tpu.config (rigid bodies included), the compat presets resolve to
-equal SolverParams, and scenes with emitters are refused (not silently
-dropped)."""
+tisph_tpu.config (rigid bodies included) with the same domain_size, the
+compat presets resolve to equal SolverParams, and scenes with emitters
+are refused (not silently dropped)."""
 
 import dataclasses
 import glob
@@ -48,6 +48,14 @@ def test_scene_fields_match_jax(path):
             pt.load_scene(path)
         return
     _fields_match(pt.load_scene(path), tt.load_scene(path))
+
+
+@pytest.mark.parametrize("path", [p for p in SCENES if not _unsupported(_raw(p))],
+                         ids=os.path.basename)
+def test_domain_size_matches_jax(path):
+    got, ref = pt.load_scene(path).domain_size, tt.load_scene(path).domain_size
+    assert type(got) is tuple and len(got) == len(ref)
+    assert got == ref
 
 
 @pytest.mark.parametrize("compat", COMPAT)

@@ -11,6 +11,7 @@ mirrors the ``tisph_tpu`` module of the same path):
 - ``ops``                kernels, EOS, grid, per-particle phases, plain sweeps
 - ``ops.cuda``           kernel wrappers and the nvcc build
 - ``csrc``               the CUDA sources
+- ``render``             frame export (``FrameExporter``, ``load_frame``)
 - ``run_scene``, ``bench``  entry points (``python -m tisph_tpu_torch.<name>``)
 """
 

@@ -111,6 +111,10 @@ class SceneConfig:
     def particle_volume0(self) -> float:
         return 0.8 * self.particle_diameter**self.dim
 
+    @property
+    def domain_size(self) -> tuple[float, ...]:
+        return tuple(e - s for s, e in zip(self.domain_start, self.domain_end))
+
 
 @dataclasses.dataclass(frozen=True)
 class SolverParams:

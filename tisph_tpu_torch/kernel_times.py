@@ -1,5 +1,6 @@
-"""Times of the seg sweep kernel (csrc/sweeps.cu) on the states it is
-tuned on, for one checkout or for two in turns.
+"""Times of the seg sweep kernel (csrc/sweeps.cu) and of the R-group
+rebuild on the states they are tuned on, for one checkout or for two in
+turns.
 
 The states: demo_3d's dense start state and its state after 252 steps (200
 at R=2, 52 at R=1), bench_3d_1m's dense start state and its state after
@@ -8,6 +9,12 @@ sphere in the water, boundary volumes from a fresh bvol pass).  On each,
 every mode that scene's step launches (all five on bench_3d_rigid) is
 called through its public wrapper (``ops.cuda.sweeps``), whose signature
 no redesign changes, and timed with CUDA events behind a device-side spin.
+So is the rebuild of that state: ``rebuild`` is the pass after the cell
+sort (with ``ops.cuda.bounds.gather_and_bound``, the rebuild kernel; in
+a checkout without it, one ``index_select`` per field and the bounds
+kernel ``csr_bounds_sorted``), ``sort+rebuild`` the whole rebuild with the
+cell ids and the sort (``sort_and_bound``; without it
+``grid.sort_state_by_cell`` and ``csr_bounds_sorted``).
 Prints one JSON object: ``card`` and ``ms`` {"<state> <mode>": mean ms}.
 
 With ``--parent DIR`` (a commit unpacked into a directory that
@@ -52,13 +59,38 @@ def _cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _rebuilds(state, spec) -> dict:
+    """{"rebuild": fn, "sort+rebuild": fn} on ``state`` with the
+    importable package's rebuild (see the module's docstring)."""
+    from tisph_tpu_torch.ops import grid
+    from tisph_tpu_torch.ops.cuda import bounds
+
+    ids = grid.flat_cell_ids(grid.cell_coords(state.x, spec), state.material, spec)
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    if hasattr(bounds, "sort_and_bound"):
+        return {"rebuild": lambda: bounds.gather_and_bound(state, sorted_ids, perm, spec),
+                "sort+rebuild": lambda: bounds.sort_and_bound(state, spec)}
+    fields = [getattr(state, f.name) for f in dataclasses.fields(state)
+              if isinstance(getattr(state, f.name), torch.Tensor)]
+
+    def sort_rebuild():
+        st, ids, perm = grid.sort_state_by_cell(state, spec)
+        return st, bounds.csr_bounds_sorted(ids, spec)
+
+    return {"rebuild": lambda: ([f.index_select(0, perm) for f in fields],
+                                bounds.csr_bounds_sorted(sorted_ids, spec)),
+            "sort+rebuild": sort_rebuild}
+
+
 def _inputs(solver, state, per_step: bool = False) -> dict:
     """The sorted state and the packs of one substep's sweeps, density from
-    the kernel (the plain version is too slow at 1,000,000 dense rows)."""
+    the kernel (the plain version is too slow at 1,000,000 dense rows), and
+    the rebuild calls on ``state``."""
     from tisph_tpu_torch.ops import forces, grid, neighbors
     from tisph_tpu_torch.ops.cuda import sweeps
 
     spec, params = solver.spec, solver.params
+    rebuilds = _rebuilds(state, spec)
     st, ids, _ = grid.sort_state_by_cell(state, spec)
     tail = (ids, grid.csr_bounds(ids, spec), st.material, spec, params)
     bd = st.boundary_mask.to(torch.float32)
@@ -73,7 +105,7 @@ def _inputs(solver, state, per_step: bool = False) -> dict:
     rho, p = forces.compute_pressures(torch.where(st.fluid_mask, rho, st.density), params)
     aux = neighbors.pack_aux(p / torch.clamp(rho * rho, min=1e-12), flm, st.mass)
     return {"pos": pos, "pos_b": pos_b, "vel": neighbors.pack4(st.v, rho), "aux": aux,
-            "tail": tail}
+            "tail": tail, "rebuilds": rebuilds}
 
 
 def measure() -> dict:
@@ -116,6 +148,8 @@ def measure() -> dict:
         reps = 10 if "1m" in label else 20
         for mode, fn in calls.items():
             ms[f"{label} {mode}"] = (_cuda_ms(fn, reps) + _cuda_ms(fn, reps)) / 2
+        for mode, fn in inp["rebuilds"].items():  # short launches: more of them
+            ms[f"{label} {mode}"] = (_cuda_ms(fn, 100) + _cuda_ms(fn, 100)) / 2
     return ms
 
 

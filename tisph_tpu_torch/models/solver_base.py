@@ -26,10 +26,7 @@ class SolverBase:
     """Static configuration (SolverParams, GridSpec, device, R) plus the
     step; all simulation state lives in :class:`SimState`."""
 
-    # "static": the Akinci boundary volumes are computed once at bind
-    # (boundary particles never move); "per_step": every substep on current
-    # positions, as the reference does (sph_basev2.py:212), which moving
-    # bodies need.  Fixed by the solver class.
+    # the default of ``boundary_mode`` (see __init__)
     boundary_mode = "static"
     # sweep layouts the solver runs (see __init__)
     layouts = ("seg", "linear")
@@ -42,6 +39,7 @@ class SolverBase:
         resort_every: int = 1,
         fast_math: bool = True,
         layout: str = "seg",
+        boundary_mode: str | None = None,
     ):
         """``resort_every``: substeps per neighbour-structure rebuild (R).
         ``fast_math``: approximate reciprocals on the gradient sweeps'
@@ -51,7 +49,17 @@ class SolverBase:
         row over its own stencil runs (csrc/sweeps.cu), or ``"linear"``,
         blocks of 128 rows over shared windows (csrc/sweeps_linear.cu),
         which runs at R = 1 only, as ``tisph_tpu`` applies R > 1 only on the
-        seg layout."""
+        seg layout.
+        ``boundary_mode``: ``"static"`` computes the Akinci boundary volumes
+        once at bind (boundary particles never move); ``"per_step"`` every
+        substep on current positions, as the reference does
+        (sph_basev2.py:212), which moving bodies need.  None takes the
+        class's default."""
+        if boundary_mode is None:
+            boundary_mode = type(self).boundary_mode
+        if boundary_mode not in ("static", "per_step"):
+            raise ValueError(f"unknown boundary_mode {boundary_mode!r}")
+        self.boundary_mode = boundary_mode
         if layout not in self.layouts:
             raise ValueError(f"{type(self).__name__} runs the layouts {self.layouts}, "
                              f"not {layout!r}")
@@ -100,8 +108,7 @@ class SolverBase:
         if not bool(state.boundary_mask.any()):
             return state
         spec, params = self.spec, self.params
-        st, ids, perm = gridops.sort_state_by_cell(state, spec)
-        bounds = cuda_bounds.csr_bounds_sorted(ids, spec)
+        st, ids, perm, bounds = cuda_bounds.sort_and_bound(state, spec)
         bd = st.boundary_mask
         pos = pack4(st.x, bd.to(torch.float32))
         delta = cuda_sweeps.bvol_sweep(pos, ids, bounds, st.material, spec, params,

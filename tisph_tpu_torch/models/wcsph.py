@@ -4,8 +4,10 @@ One R-group, as ``tisph_tpu``'s seg rollout runs it
 (``WCSPH._seg_build`` and ``_seg_apply_pack``), without the TPU's pack
 and block plan:
 
-- ``_build``, once per group: stable sort by cell, CSR bounds (bounds
-  kernel), and the group-constant mass coefficients;
+- ``_build``, once per group: stable sort by cell, then one launch of the
+  rebuild kernel for every field in sorted order and the CSR bounds
+  (``ops.cuda.bounds.sort_and_bound``), and the group-constant mass
+  coefficients (``_group_cache``);
 - ``_apply``, every substep: under ``boundary_mode="per_step"`` the bvol
   sweep on current positions and the refresh of V and effm on boundary
   rows -> density sweep (kept on fluid rows) -> Tait EOS -> force sweep
@@ -32,7 +34,6 @@ import torch
 from tisph_tpu_torch.models.solver_base import SolverBase
 from tisph_tpu_torch.models.state import SimState
 from tisph_tpu_torch.ops import forces as F
-from tisph_tpu_torch.ops import grid as gridops
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.neighbors import pack4, pack_aux
@@ -51,12 +52,16 @@ class GroupCache(NamedTuple):
 
 class WCSPH(SolverBase):
     def _build(self, state: SimState) -> tuple[SimState, GroupCache]:
-        state, ids, _ = gridops.sort_state_by_cell(state, self.spec)
-        bounds = cuda_bounds.csr_bounds_sorted(ids, self.spec)
+        state, ids, _, bounds = cuda_bounds.sort_and_bound(state, self.spec)
+        return state, self._group_cache(state, ids, bounds)
+
+    def _group_cache(self, state: SimState, ids: torch.Tensor,
+                     bounds: torch.Tensor) -> GroupCache:
+        """The group's cache from the sorted state, its ids and bounds."""
         fluid, boundary = state.fluid_mask, state.boundary_mask
         flm = fluid.to(torch.float32) * state.mass
         effm = flm + boundary.to(torch.float32) * (self.params.density0 * state.volume)
-        return state, GroupCache(ids, bounds, fluid, boundary, effm, flm)
+        return GroupCache(ids, bounds, fluid, boundary, effm, flm)
 
     def _apply(self, state: SimState, cache: GroupCache, with_reactions: bool = False):
         """One substep; with ``with_reactions`` returns ``(state,

@@ -35,6 +35,11 @@ class WCSPHRigid(WCSPH):
     # kernel has no force_react mode: a dynamic scene refuses "linear"
     layouts = ("seg",)
 
+    def __init__(self, scene: SceneConfig, **kw):
+        super().__init__(scene, **kw)
+        if self.boundary_mode != "per_step":
+            raise ValueError("dynamic rigid bodies need boundary_mode='per_step'")
+
     def init_rigid(self, state: SimState) -> RigidState:
         """Bodies at rest, mass and COM from ``state``'s particles."""
         return make_rigid_state(state, self.scene)

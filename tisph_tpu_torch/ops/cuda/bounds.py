@@ -1,18 +1,142 @@
-"""CSR cell bounds: the CUDA kernel ``csrc/bounds.cu`` and its dispatch.
+"""The R-group rebuild: the CUDA kernel ``csrc/bounds.cu`` and its dispatch.
 
-Replaces ``tisph_tpu/ops/pallas/bounds.py::_bounds_kernel`` (launched by
-``csr_bounds_sorted`` there, called from ``grid.csr_bounds_fast``).  The
-plain version is ``ops.grid.csr_bounds`` (``torch.searchsorted``), with
-the same signature: a CPU tensor goes there, a CUDA tensor launches the
-kernel or raises.
+The kernel replaces ``tisph_tpu/ops/pallas/bounds.py::_bounds_kernel``
+(the CSR cell bounds, launched by ``csr_bounds_sorted`` there and called
+from ``grid.csr_bounds_fast``) and, in the same launch, the row gather of
+``tisph_tpu.ops.grid.sort_state_by_cell``: after the cell sort, one launch
+writes the bounds and every state field in sorted order.
+
+- :func:`sort_and_bound` is the rebuild of ``WCSPH._build``: cell ids,
+  ``torch.sort``, then the kernel.  Its plain version is
+  ``grid.sort_state_by_cell`` then ``grid.csr_bounds``.
+- :func:`gather_and_bound` is the kernel's part alone, on a sort already
+  made.
+- :func:`csr_bounds_sorted` is the counterpart of the JAX function of that
+  name: the same kernel with no field to gather; plain version
+  ``grid.csr_bounds`` (``torch.searchsorted``).
+
+A CPU tensor goes to the plain version, a CUDA tensor launches the kernel
+or raises.  ``sort_and_bound.launches`` counts the rebuild's launches and
+``csr_bounds_sorted.launches`` the bounds-only ones.
 """
 
 from __future__ import annotations
 
+import array
+import dataclasses
+
 import torch
 
+from tisph_tpu_torch.models.state import SimState
+from tisph_tpu_torch.ops import grid as gridops
 from tisph_tpu_torch.ops.cuda import build
-from tisph_tpu_torch.ops.grid import GridSpec, csr_bounds
+from tisph_tpu_torch.ops.grid import GridSpec
+
+# merged positions (cells + ids) per bounds CTA of csrc/bounds.cu; a
+# multiple of 4, and its window of ids (4 B each) stays in the 48 KB of
+# shared memory a launch gets without asking
+ITEMS_PER_CTA = 2048
+_MAX_FIELDS, _MAX_WIDTH = 9, 3  # the kernel's field table
+
+
+def _check_ids(name: str, sorted_ids: torch.Tensor, spec: GridSpec) -> None:
+    if sorted_ids.dtype != torch.int32 or sorted_ids.dim() != 1:
+        raise ValueError(f"{name}: need (N,) int32 ids, got "
+                         f"{tuple(sorted_ids.shape)} {sorted_ids.dtype}")
+    if not sorted_ids.is_contiguous() or sorted_ids.data_ptr() % 16:
+        raise ValueError(f"{name}: ids must be contiguous and 16-byte aligned")
+    if sorted_ids.shape[0] + spec.num_cells + 1 >= 2**31:
+        raise ValueError(f"{name}: ids plus cells must fit in int32")
+
+
+def _width(t: torch.Tensor) -> int:
+    return t.shape[1] if t.dim() == 2 else 1
+
+
+def _check_fields(state: SimState) -> list[str]:
+    """The fields the kernel gathers; raises on one it does not take (one
+    test per field on the host's launch path, the message only on a
+    fault)."""
+    names = gridops.state_fields(state)
+    n, dev = state.capacity, state.device
+    if len(names) > _MAX_FIELDS:
+        raise ValueError(f"sort_and_bound: {len(names)} fields, the kernel takes {_MAX_FIELDS}")
+    for name in names:
+        t = getattr(state, name)
+        if (t.element_size() != 4 or not t.is_contiguous() or t.device != dev
+                or t.shape[0] != n or t.dim() > 2 or _width(t) > _MAX_WIDTH):
+            if t.element_size() != 4:
+                why = f"is {t.dtype}, not 4 bytes wide"
+            elif not t.is_contiguous():
+                why = "must be contiguous"
+            else:
+                why = f"must be (N,) or (N, <= 3) on {dev}, got {tuple(t.shape)} on {t.device}"
+            raise ValueError(f"sort_and_bound: field {name!r} {why}")
+    return names
+
+
+def _launch(name: str, sorted_ids, perm, spec: GridSpec, src=(), dst=()) -> torch.Tensor:
+    """One launch of csrc/bounds.cu: the bounds of ``sorted_ids`` and, for
+    each (src, dst) pair, dst[k] = src[perm[k]]; returns the bounds.  The
+    field table goes to C as one int64 array: every src pointer, every dst
+    pointer, every width."""
+    out = torch.empty((spec.num_cells + 1,), dtype=torch.int32, device=sorted_ids.device)
+    table = array.array("q", [t.data_ptr() for t in src] + [t.data_ptr() for t in dst]
+                        + [_width(t) for t in src])
+    with torch.cuda.device(sorted_ids.device):
+        err = build.load().tisph_rebuild(
+            sorted_ids.data_ptr(), perm.data_ptr() if perm is not None else None,
+            sorted_ids.shape[0], spec.num_cells, out.data_ptr(), ITEMS_PER_CTA, len(src),
+            table.buffer_info()[0], torch.cuda.current_stream().cuda_stream,
+        )
+    build.check(err, name)
+    return out
+
+
+def gather_and_bound(state: SimState, sorted_ids: torch.Tensor, perm: torch.Tensor,
+                     spec: GridSpec) -> tuple[SimState, torch.Tensor]:
+    """(state reordered by ``perm``, bounds of ``sorted_ids``): the rebuild
+    after the sort.  ``sorted_ids`` (N,) int32 ascending with the inactive
+    tail = ``spec.num_cells``, ``perm`` (N,) int64, the sort's
+    permutation.  Every field must be 4 bytes wide and contiguous."""
+    names = _check_fields(state)
+    dev = state.device
+    if dev.type == "cpu":
+        return gridops.gather_state(state, perm), gridops.csr_bounds(sorted_ids, spec)
+    if dev.type != "cuda":
+        raise ValueError(f"sort_and_bound: unsupported device {dev}")
+    _check_ids("sort_and_bound", sorted_ids, spec)
+    n = state.capacity
+    if (sorted_ids.shape[0] != n or perm.dtype != torch.int64 or tuple(perm.shape) != (n,)
+            or not perm.is_contiguous() or sorted_ids.device != dev or perm.device != dev):
+        raise ValueError(f"sort_and_bound: need ({n},) int32 ids and int64 perm on {dev}")
+    src = [getattr(state, k) for k in names]
+    dst = [torch.empty_like(t) for t in src]
+    bounds = _launch("sort_and_bound", sorted_ids, perm, spec, src, dst)
+    sort_and_bound.launches += 1
+    return dataclasses.replace(state, **dict(zip(names, dst))), bounds
+
+
+def sort_and_bound(state: SimState, spec: GridSpec
+                   ) -> tuple[SimState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(sorted_state, sorted_ids, perm, bounds) of the rebuild: a stable
+    sort of the rows by cell id, every field in that order, and the CSR
+    bounds (``bounds[c]`` = first sorted index with id >= c).  On the CPU
+    ``grid.sort_state_by_cell`` then ``grid.csr_bounds``; on a CUDA state
+    the cell ids, ``torch.sort`` and one launch of the kernel."""
+    if state.device.type == "cpu":
+        _check_fields(state)
+        st, ids, perm = gridops.sort_state_by_cell(state, spec)
+        return st, ids, perm, gridops.csr_bounds(ids, spec)
+    if state.device.type != "cuda":
+        raise ValueError(f"sort_and_bound: unsupported device {state.device}")
+    ids = gridops.flat_cell_ids(gridops.cell_coords(state.x, spec), state.material, spec)
+    sorted_ids, perm = torch.sort(ids, stable=True)
+    st, bounds = gather_and_bound(state, sorted_ids, perm, spec)
+    return st, sorted_ids, perm, bounds
+
+
+sort_and_bound.launches = 0
 
 
 def csr_bounds_sorted(sorted_ids: torch.Tensor, spec: GridSpec) -> torch.Tensor:
@@ -20,24 +144,11 @@ def csr_bounds_sorted(sorted_ids: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     num_cells]: (num_cells + 1,) int32.  ``sorted_ids``: (N,) int32,
     ascending, inactive tail = ``spec.num_cells``."""
     if sorted_ids.device.type == "cpu":
-        return csr_bounds(sorted_ids, spec)
+        return gridops.csr_bounds(sorted_ids, spec)
     if sorted_ids.device.type != "cuda":
         raise ValueError(f"csr_bounds_sorted: unsupported device {sorted_ids.device}")
-    if sorted_ids.dtype != torch.int32 or sorted_ids.dim() != 1:
-        raise ValueError(f"csr_bounds_sorted: need (N,) int32 ids, got "
-                         f"{tuple(sorted_ids.shape)} {sorted_ids.dtype}")
-    if not sorted_ids.is_contiguous():
-        raise ValueError("csr_bounds_sorted: ids must be contiguous")
-    n = sorted_ids.shape[0]
-    if n >= 2**31 - 1 or spec.num_cells >= 2**31 - 1:
-        raise ValueError("csr_bounds_sorted: sizes must fit in int32")
-    out = torch.empty((spec.num_cells + 1,), dtype=torch.int32, device=sorted_ids.device)
-    with torch.cuda.device(sorted_ids.device):
-        err = build.load().tisph_csr_bounds(
-            sorted_ids.data_ptr(), n, spec.num_cells, out.data_ptr(),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "csr_bounds_sorted")
+    _check_ids("csr_bounds_sorted", sorted_ids, spec)
+    out = _launch("csr_bounds_sorted", sorted_ids, None, spec)
     csr_bounds_sorted.launches += 1
     return out
 

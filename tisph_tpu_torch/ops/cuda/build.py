@@ -35,7 +35,7 @@ _F = ctypes.c_float
 # C signatures of csrc/*.cu; every pointer and the stream are c_void_p so
 # ctypes never cuts a 64-bit address to a C int.
 _SIGNATURES = {
-    "tisph_csr_bounds": [_P, _I, _I, _P, _P],
+    "tisph_rebuild": [_P, _P, _I, _I, _P, _I, _I, _P, _P],
     "tisph_sweep": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                     _I, _I, _I, _I, _I,
                     _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],

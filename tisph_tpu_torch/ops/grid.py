@@ -119,12 +119,21 @@ def sort_state_by_cell(
     coords = cell_coords(state.x, spec)
     ids = flat_cell_ids(coords, state.material, spec)
     sorted_ids, perm = torch.sort(ids, stable=True)
-    out = {
-        f.name: getattr(state, f.name).index_select(0, perm)
-        for f in dataclasses.fields(state)
-        if isinstance(getattr(state, f.name), torch.Tensor)
-    }
-    return dataclasses.replace(state, **out), sorted_ids, perm
+    return gather_state(state, perm), sorted_ids, perm
+
+
+def state_fields(state: SimState) -> list[str]:
+    """Names of the state's per-particle tensor fields, in field order."""
+    return [f.name for f in dataclasses.fields(state)
+            if isinstance(getattr(state, f.name), torch.Tensor)]
+
+
+def gather_state(state: SimState, perm: torch.Tensor) -> SimState:
+    """Every per-particle field reordered by ``perm`` (row k of the result
+    is row perm[k]): one ``index_select`` per field, the plain version of
+    the rebuild kernel's gather (``ops.cuda.bounds``)."""
+    return dataclasses.replace(state, **{
+        name: getattr(state, name).index_select(0, perm) for name in state_fields(state)})
 
 
 def csr_bounds(sorted_ids: torch.Tensor, spec: GridSpec) -> torch.Tensor:

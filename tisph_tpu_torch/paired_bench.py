@@ -6,7 +6,9 @@ that both versions share the card and the host's load in turns: the host
 clock's spread between runs is wider than most changes (PERF.md section
 2).  Prints every bench line tagged with its checkout and scene, then, as
 its last line, one JSON object of medians per checkout and scene:
-``value`` (the bench's faster cadence) and ``r1_pps`` (R=1).
+``value`` (the bench's faster cadence) and ``r1_pps`` (R=1), and with
+``--profile N`` per cadence the medians of the profile's device busy ms,
+idle share and device operations per step.
 
 Each checkout runs its own sources and builds its own kernels under its
 own ``build/``.  A parent checkout is a commit unpacked into a directory
@@ -15,7 +17,7 @@ that ``.gitignore`` lists, e.g. ``mkdir -p build/parent && git archive
 does; a failed bench run raises.
 
 Usage: python -m tisph_tpu_torch.paired_bench --parent build/parent
-           [--change .] [--rounds 2] [--steps 300]
+           [--change .] [--rounds 2] [--steps 300] [--settle N] [--profile N]
            [--scene scenes/demo_3d.json --scene scenes/bench_3d_rigid.json]
 """
 
@@ -32,12 +34,15 @@ _SCENES = ("scenes/demo_3d.json", "scenes/bench_3d_rigid.json")
 _ORDER = ("parent", "change", "change", "parent")
 
 
-def _bench(root: str, scene: str, steps: int) -> dict:
+_PROFILED = ("device_busy_ms_per_step", "device_idle_share", "device_ops_per_step")
+
+
+def _bench(root: str, scene: str, steps: int, extra: list[str]) -> dict:
     """One bench run in the checkout at ``root``; its JSON line."""
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.run(
         [sys.executable, "-m", "tisph_tpu_torch.bench", "--scene", scene,
-         "--steps", str(steps)],
+         "--steps", str(steps), *extra],
         cwd=root, env=env, capture_output=True, text=True,
     )
     if proc.returncode != 0:
@@ -53,7 +58,10 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--steps", type=int, default=300)
     ap.add_argument("--scene", action="append", help="relative to each checkout's root")
+    ap.add_argument("--settle", type=int, default=0, help="passed to the bench")
+    ap.add_argument("--profile", type=int, default=0, help="passed to the bench")
     args = ap.parse_args(argv)
+    extra = ["--settle", str(args.settle), "--profile", str(args.profile)]
     roots = {"parent": os.path.abspath(args.parent), "change": os.path.abspath(args.change)}
     scenes = args.scene or list(_SCENES)
 
@@ -61,17 +69,18 @@ def main(argv: list[str] | None = None) -> int:
     for _ in range(args.rounds):
         for label in _ORDER:
             for scene in scenes:
-                line = _bench(roots[label], scene, args.steps)
+                line = _bench(roots[label], scene, args.steps, extra)
                 print(label, scene, json.dumps(line), flush=True)
                 runs.setdefault((label, scene), []).append(line)
-    medians = {
-        f"{label} {scene}": {
-            "value": statistics.median(r["value"] for r in lines),
-            "r1_pps": statistics.median(r["r1_pps"] for r in lines),
-            "runs": len(lines),
-        }
-        for (label, scene), lines in runs.items()
-    }
+    medians = {}
+    for (label, scene), lines in runs.items():
+        med = {"value": statistics.median(r["value"] for r in lines),
+               "r1_pps": statistics.median(r["r1_pps"] for r in lines),
+               "runs": len(lines)}
+        for i, prof in enumerate(lines[0].get("profile", [])):
+            med[f"R={prof['resort_every']}"] = {
+                k: statistics.median(r["profile"][i][k] for r in lines) for k in _PROFILED}
+        medians[f"{label} {scene}"] = med
     print(json.dumps({"medians": medians}))
     return 0
 
