@@ -77,7 +77,34 @@ Phases, each of which raises on failure (nothing is caught):
    grid.block_window_bounds exactly, and its candidates per block beside
    the chunk capacity; the times of both kernels and the plain version on
    the evolved state and of both kernels on the dense start state; the
-   golden trajectories through layout="linear", fast_math off and on.
+   golden trajectories through layout="linear", fast_math off and on;
+10. a large launch: bench_3d_1m (1,000,000 particles) 20 steps at R=2,
+   kernel A at one thread per row against its plain version and kernel C;
+11. the emitter path: scenes/bench_3d_mesh_500k.json (520,000 fluid
+   particles, the Dragon mesh's boundary particles and an emitter of one
+   batch every 100 steps into a pool of 50,000) through load_scene ->
+   build_state -> WCSPH(device="cuda", resort_every=2).bind ->
+   rollout_emit, 600 steps at R=2 then 100 at R=1: 7 emissions, 6 of them
+   after their group's rebuild; the launch counters prove bvol once at
+   bind, density and force every substep, the rebuild once per group and
+   at bind, force_react and reaction never; emitted and num_active equal
+   the host's count of the cadence, the emitted rows are fluid with
+   object_id 10,000, no NaN, CFL < 1; one R=2 group that emits must queue
+   without a host wait; then, on a state captured right after an emission
+   on a group's second substep: the sweep kernels with the group's
+   sort-time material against their plain versions at phase 4's
+   tolerances, fast_math off and on (the emitted rows outside every
+   family: exactly 0), and one step through _apply against the same step
+   with the plain sweeps: the emitted rows keep their density and
+   emission velocity exactly and move by dt v in both;
+12. checkpoint on the card: phase 11's bound solver runs its start state
+   200 steps at R=2 with the emitter, and 100 steps, save_npz, load_npz to
+   the card and 100 more (emissions at steps 0 and 100): the two end
+   states and emitter counters bitwise equal;
+13. the legacy V1 solver (WCSPHLegacy) on scenes/demo_2d.json: 20 steps on
+   the card against 20 on the CPU (x atol 1e-5, rows matched by a tag in
+   color[:, 0]), then 500 steps on the card: no NaN, CFL < 1, fluid inside
+   the padded box, and the rebuild kernel launched once a step.
 
 Every kernel's entry in the JSON line has a bound: the larger of the bytes
 it must move (each input read once, each output written once) over 3.35
@@ -109,6 +136,8 @@ import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 DEMO_3D = os.path.join(HERE, "scenes", "demo_3d.json")
+DEMO_2D = os.path.join(HERE, "scenes", "demo_2d.json")
+EMIT_3D = os.path.join(HERE, "scenes", "bench_3d_mesh_500k.json")
 RIGID_3D = os.path.join(HERE, "scenes", "bench_3d_rigid.json")
 LARGE_3D = os.path.join(HERE, "scenes", "bench_3d_1m.json")
 DEVICE = "cuda"
@@ -117,6 +146,9 @@ RIGID_R2, RIGID_R1 = 1500, 100
 BUOYANCY_STEPS = 2000
 LINEAR_STEPS = 100
 LARGE_STEPS = 20
+EMIT_R2, EMIT_R1 = 600, 100
+CKPT_STEPS = 200
+LEGACY_CHECK, LEGACY_STEPS = 20, 500
 BITWISE_STEPS = 20
 SPIN_CYCLES = 2_000_000_000  # about a second at the H100's clocks
 
@@ -752,6 +784,56 @@ def plain_rebuild_rollout(solver, state, steps: int):
     return state
 
 
+def group_inputs(solver, state, cache):
+    """The sweep packs of ``solver._apply``'s density and force calls on
+    ``state`` inside the R-group of ``cache``, whose sort-time ids, bounds
+    and material the sweeps take (density from the plain version): the
+    counterpart of sweep_inputs for a state that an emitter changed after
+    the group's rebuild.  ``st`` carries the sort-time material, so a
+    checker's family rows are the rebuild's."""
+    from tisph_tpu_torch.ops import forces as F
+    from tisph_tpu_torch.ops import neighbors
+
+    spec, params = solver.spec, solver.params
+    ids, bounds = cache.ids, cache.bounds
+    pos = neighbors.pack4(state.x, cache.effm)
+    rho = neighbors.density_sweep(pos, ids, bounds, cache.material, spec, params)
+    rho, p = F.compute_pressures(torch.where(cache.fluid, rho, state.density), params)
+    p_rho2 = p / torch.clamp(rho * rho, min=1e-12)
+    return {
+        "st": dataclasses.replace(state, material=cache.material), "ids": ids, "bounds": bounds,
+        "pos": pos, "pos_b": neighbors.pack4(state.x, cache.boundary.to(torch.float32)),
+        "vel": neighbors.pack4(state.v, rho),
+        "aux": neighbors.pack_aux(p_rho2, cache.flm, state.mass),
+    }
+
+
+def emission_cadence(es, num_active: int, capacity: int, steps: int) -> tuple[int, int]:
+    """(num_active, emitted) after ``steps`` more solver steps of the
+    emitter ``es``, counted on the host from its parameters: a batch fires
+    on a due step when the pool holds it and the quota allows it."""
+    b, emitted = es.batch_size, es.emitted
+    for step in range(es.step, es.step + steps):
+        if (step % es.interval == 0 and num_active + b <= capacity
+                and (es.max_particles <= 0 or emitted + b <= es.max_particles)):
+            num_active, emitted = num_active + b, emitted + b
+    return num_active, emitted
+
+
+def plain_apply(solver, state, cache):
+    """``solver._apply`` with the plain sweeps (ops.neighbors) in the place
+    of the kernels: the same code path, the kernels' plain versions."""
+    from unittest import mock
+
+    from tisph_tpu_torch.ops import neighbors
+    from tisph_tpu_torch.ops.cuda import sweeps
+
+    with mock.patch.multiple(sweeps, density_sweep=neighbors.density_sweep,
+                             force_sweep=neighbors.force_sweep,
+                             bvol_sweep=neighbors.bvol_sweep):
+        return solver._apply(state, cache)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs "
@@ -1204,6 +1286,195 @@ def main() -> int:
                      ("linear.force", lambda: cuda_sweeps.force_sweep_linear(*b_f))):
         print(f"  time {name:<17} on bench_3d_1m's dense start state: kernel "
               f"{cuda_ms(fn, 10):.4f} / {cuda_ms(fn, 10):.4f} ms")
+
+    phase(f"11 emitter path: bench_3d_mesh_500k, {EMIT_R2} steps at R=2, {EMIT_R1} at R=1")
+    from tisph_tpu_torch import checkpoint
+    from tisph_tpu_torch.geometry.emitter import EMITTER_OBJECT_ID, maybe_emit
+
+    e_scene = tt.load_scene(EMIT_3D)
+    e_solver = tt.WCSPH(e_scene, device=DEVICE, resort_every=2)
+    reset_counts(kernels)
+    e_start = e_solver.bind(tt.build_state(e_scene, device=DEVICE))
+    e_bind = {k: f.launches for k, f in kernels.items()}
+    if e_bind != {k: 0 for k in kernels} | {"rebuild": 1, "sweep.bvol": 1}:
+        raise AssertionError(f"emitter scene bind launched {e_bind}: want the rebuild and bvol "
+                             "once each")
+    ems0 = [tt.make_emitter_state(em, e_scene, DEVICE) for em in e_scene.emitters]
+    es0 = ems0[0]
+    en0, ecap = e_start.num_active, e_start.capacity
+    print(f"  {en0} particles ({int(e_start.fluid_mask.sum())} fluid, "
+          f"{int(e_start.boundary_mask.sum())} boundary) capacity {ecap}, grid {e_solver.spec.res}; "
+          f"emitter batch {es0.batch_size} every {es0.interval} steps, quota "
+          f"{es0.max_particles}")
+    t0 = time.perf_counter()
+    e_state, ems = e_solver.rollout_emit(e_start, ems0, EMIT_R2)
+    torch.cuda.synchronize()
+    ewall = time.perf_counter() - t0
+    e_solver.resort_every = 1
+    e_state, ems = e_solver.rollout_emit(e_state, ems, EMIT_R1)
+    torch.cuda.synchronize()
+    e_launches = {k: f.launches for k, f in kernels.items()}
+    e_steps = EMIT_R2 + EMIT_R1
+    e_want = {k: 0 for k in kernels} | {
+        "rebuild": 1 + -(-EMIT_R2 // 2) + EMIT_R1, "sweep.bvol": 1,
+        "sweep.density": e_steps, "sweep.force": e_steps}
+    if e_launches != e_want:
+        raise AssertionError(f"emitter path launch counts {e_launches}, expected {e_want}")
+    want_n, want_emitted = emission_cadence(es0, en0, ecap, e_steps)
+    es = ems[0]
+    emitted_rows = (e_state.object_id == EMITTER_OBJECT_ID)
+    m = e_solver.metrics(e_state)
+    print(f"  launches: {e_launches}")
+    print(f"  metrics: {m}")
+    print(f"  emitted {es.emitted} in {es.emitted // es0.batch_size} batches, num_active "
+          f"{e_state.num_active} (host cadence: {want_emitted}, {want_n}); emitted rows fluid "
+          f"with object_id {EMITTER_OBJECT_ID}: {int((emitted_rows & e_state.fluid_mask).sum())}")
+    if (es.emitted, e_state.num_active, es.step) != (want_emitted, want_n, e_steps):
+        raise AssertionError(f"emission: emitted {es.emitted}, num_active {e_state.num_active}, "
+                             f"step {es.step}; the cadence says {want_emitted}, {want_n}, "
+                             f"{e_steps}")
+    if want_emitted != 7 * es0.batch_size:
+        raise AssertionError(f"{want_emitted} emitted, want 7 batches")
+    if int((emitted_rows & e_state.fluid_mask).sum()) != es.emitted or int(
+            emitted_rows.sum()) != es.emitted:
+        raise AssertionError("the emitted rows are not all fluid rows of the emitter's id")
+    if m["nan_count"] != 0 or not math.isfinite(m["max_velocity"]) or m["cfl"] >= 1.0:
+        raise AssertionError(f"emitter path unhealthy: {m}")
+    e_ms = ewall * 1e3 / EMIT_R2
+    print(f"  {en0} to {e_state.num_active} particles: R=2 emitting rollout {e_ms:.4f} ms/step "
+          f"({en0 * EMIT_R2 / ewall:.6e} particle-steps/s) on {card_line}")
+    launches = {k: launches[k] + e_launches[k] for k in kernels}
+
+    e_solver.resort_every = 2
+    if e_steps % es0.interval:
+        raise AssertionError("the host-wait group must start on an emitting step")
+    assert_no_host_wait("bench_3d_mesh_500k, one R=2 group that emits",
+                        lambda: e_solver.rollout_emit(e_state, ems, 2))
+
+    # a group built one substep before an emission: build, a substep that
+    # does not emit (step 699), then the emission of step 700 on the second
+    vol0 = e_scene.particle_volume0
+    g_state, cache = e_solver._build(e_state)
+    g_state, es_a = maybe_emit(g_state, dataclasses.replace(es, step=es.step - 1), vol0)
+    if es_a.emitted != es.emitted:
+        raise AssertionError("the first substep of the captured group emitted")
+    g_state = e_solver._apply(g_state, cache)
+    na_before = g_state.num_active
+    g_state, es_b = maybe_emit(g_state, es_a, vol0)
+    new = slice(na_before, g_state.num_active)
+    if es_b.emitted != es.emitted + es0.batch_size:
+        raise AssertionError("the second substep of the captured group did not emit")
+    print(f"  captured state: rows {new.start}:{new.stop} emitted on the group's second "
+          "substep, after its rebuild; sweeps with the sort-time material:")
+    g_inp = group_inputs(e_solver, g_state, cache)
+    e_errs = check_sweeps("emit_mid", e_solver, g_inp)
+    kern = e_solver._apply(g_state, cache)
+    plain = plain_apply(e_solver, g_state, cache)
+    torch.cuda.synchronize()
+    b = es0.batch_size
+    ballistic = {"v": es.velocity.expand(b, 3), "density": es.density.expand(b),
+                 "x": g_state.x[new] + e_solver.params.dt * g_state.v[new]}
+    for name, out in (("kernel", kern), ("plain", plain)):
+        for k, want in ballistic.items():
+            if not torch.equal(getattr(out, k)[new], want):
+                raise AssertionError(f"{name} step: the emitted rows' {k} is not ballistic")
+    fl = cache.fluid
+    dv_ref = neighbors.force_sweep(g_inp["pos"], g_inp["vel"], g_inp["aux"], cache.ids,
+                                   cache.bounds, cache.material, e_solver.spec, e_solver.params)
+    dv_max = float(dv_ref[fl].abs().max())
+    v_err = float((kern.v - plain.v)[fl].abs().max())
+    # the force tolerance at fast_math on, through dt and the clamp's 1 + c_f
+    v_tol = TOL[True][1] * dv_max * e_solver.params.dt * (1 + e_solver.params.collision_factor)
+    rho_err = float(((kern.density - plain.density)[fl].abs() / plain.density[fl]).max())
+    x_err = float((kern.x - plain.x).abs().max())
+    print(f"  one _apply step, kernel vs plain sweeps: emitted rows' x, v, density bitwise "
+          f"equal and ballistic; fluid rows max|dv| {dv_max:.4e}, v max|err| {v_err:.3e} "
+          f"(tol {v_tol:.3e}), density max rel err {rho_err:.3e} (rtol {TOL[True][0]}), "
+          f"x max|err| {x_err:.3e} (atol 1e-6)")
+    if not (v_err <= v_tol and rho_err <= TOL[True][0] and x_err <= 1e-6):
+        raise AssertionError("the step through the kernels and through the plain sweeps differ")
+    errs["density"] = max(errs["density"], e_errs["density"])
+    errs["force"] = max(errs["force"], e_errs["force"])
+    del g_state, g_inp, kern, plain, dv_ref, cache
+
+    phase(f"12 checkpoint on the card: {CKPT_STEPS} steps at R=2 against "
+          f"{CKPT_STEPS // 2} + save_npz + load_npz + {CKPT_STEPS // 2}")
+    e_solver.resort_every = 2
+    reset_counts(kernels)
+    ck_a, ck_ems_a = e_solver.rollout_emit(e_start, ems0, CKPT_STEPS)
+    half, ck_half = e_solver.rollout_emit(e_start, ems0, CKPT_STEPS // 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ck.npz")
+        checkpoint.save_npz(half, path, emitters=ck_half)
+        loaded, ck_loaded = checkpoint.load_npz(path, with_emitters=True, device=DEVICE)
+    ck_b, ck_ems_b = e_solver.rollout_emit(loaded, ck_loaded, CKPT_STEPS // 2)
+    torch.cuda.synchronize()
+    c_launches = {k: f.launches for k, f in kernels.items()}
+    c_want = {k: 0 for k in kernels} | {"rebuild": CKPT_STEPS, "sweep.density": 2 * CKPT_STEPS,
+                                        "sweep.force": 2 * CKPT_STEPS}
+    if c_launches != c_want:
+        raise AssertionError(f"checkpoint launch counts {c_launches}, expected {c_want}")
+    ea_, eb_ = ck_ems_a[0], ck_ems_b[0]
+    if (ea_.step, ea_.emitted, ck_a.num_active) != (eb_.step, eb_.emitted, ck_b.num_active):
+        raise AssertionError("resumed run's emitter or particle count differs")
+    if ea_.emitted != 2 * es0.batch_size:
+        raise AssertionError(f"{ea_.emitted} emitted in {CKPT_STEPS} steps, want 2 batches")
+    for k in gridops.state_fields(ck_a):
+        if not torch.equal(_bits(getattr(ck_a, k)), _bits(getattr(ck_b, k))):
+            raise AssertionError(f"the resumed run differs from the uninterrupted one in {k}")
+    print(f"  {ck_a.num_active} particles, {ea_.emitted} emitted: every field of the resumed "
+          "run bitwise equal to the uninterrupted run's, emitter counters equal; "
+          f"launches {c_launches}")
+    launches = {k: launches[k] + c_launches[k] for k in kernels}
+    del e_start, e_state, ck_a, ck_b, half, loaded
+
+    phase(f"13 legacy V1 solver: demo_2d, {LEGACY_CHECK} steps card vs CPU, then "
+          f"{LEGACY_STEPS} on the card")
+    l2_scene = tt.load_scene(DEMO_2D)
+    starts = {}
+    for dev in ("cpu", DEVICE):
+        st = tt.build_state(l2_scene, device=dev)
+        tag = torch.arange(st.capacity, dtype=torch.float32, device=dev)
+        starts[dev] = dataclasses.replace(st, color=torch.cat([tag[:, None], st.color[:, 1:]], 1))
+    cpu_solver = tt.WCSPHLegacy(l2_scene, device="cpu")
+    leg = tt.WCSPHLegacy(l2_scene, device=DEVICE)
+    ref = cpu_solver.rollout(cpu_solver.bind(starts["cpu"]), LEGACY_CHECK)
+    leg_state = leg.bind(starts[DEVICE])
+    reset_counts(kernels)
+    got = leg.rollout(leg_state, LEGACY_CHECK)
+    torch.cuda.synchronize()
+
+    def by_tag(st):
+        order = torch.argsort(st.color[:st.num_active, 0])
+        return st.x[:st.num_active][order].cpu()
+
+    x_err = float((by_tag(got) - by_tag(ref)).abs().max())
+    print(f"  {got.num_active} particles, {LEGACY_CHECK} steps: card vs CPU x max|err| "
+          f"{x_err:.3e} (atol 1e-5)")
+    if not x_err <= 1e-5:
+        raise AssertionError(f"legacy on the card differs from the CPU: {x_err:.3e}")
+    t0 = time.perf_counter()
+    got = leg.rollout(got, LEGACY_STEPS)
+    torch.cuda.synchronize()
+    lwall = time.perf_counter() - t0
+    leg_launches = {k: f.launches for k, f in kernels.items()}
+    leg_want = {k: 0 for k in kernels} | {"rebuild": LEGACY_CHECK + LEGACY_STEPS}
+    if leg_launches != leg_want:
+        raise AssertionError(f"legacy launch counts {leg_launches}, expected {leg_want}")
+    m = leg.metrics(got)
+    lo, hi = (torch.tensor(v, device=DEVICE) for v in
+              ([s + l2_scene.padding for s in l2_scene.domain_start],
+               [e - l2_scene.padding for e in l2_scene.domain_end]))
+    fx = got.x[got.fluid_mask]
+    inside = bool(((fx >= lo - 1e-6) & (fx <= hi + 1e-6)).all())
+    print(f"  launches: {leg_launches}")
+    print(f"  metrics after {LEGACY_CHECK + LEGACY_STEPS} steps: {m}; fluid inside the padded "
+          f"box: {inside}; {lwall * 1e3 / LEGACY_STEPS:.4f} ms/step on {card_line}")
+    if m["nan_count"] != 0 or not math.isfinite(m["max_velocity"]) or m["cfl"] >= 1.0:
+        raise AssertionError(f"legacy path unhealthy: {m}")
+    if not inside:
+        raise AssertionError("legacy fluid left the padded box")
+    launches = {k: launches[k] + leg_launches[k] for k in kernels}
 
     src = {k: ("tisph_tpu_torch/csrc/bounds.cu", "tisph_tpu/ops/pallas/bounds.py:43")
            for k in ("rebuild", "csr_bounds")}

@@ -1,7 +1,6 @@
 """Port config parity: every scene file parses to the same field values as
-tisph_tpu.config (rigid bodies included) with the same domain_size, the
-compat presets resolve to equal SolverParams, and scenes with emitters
-are refused (not silently dropped)."""
+tisph_tpu.config (rigid bodies and emitters included) with the same
+domain_size, and the compat presets resolve to equal SolverParams."""
 
 import dataclasses
 import glob
@@ -28,30 +27,19 @@ def _raw(path):
         return json.load(f)
 
 
-def _unsupported(raw):
-    return bool(raw.get("emitters"))
-
-
 def _fields_match(got, ref):
-    """The port's SceneConfig equals tisph_tpu's field by field (the port
-    has no ``emitters`` field: it refuses scenes that have any)."""
-    ref = dataclasses.asdict(ref)
-    assert ref.pop("emitters") == ()
-    assert dataclasses.asdict(got) == ref
+    """The port's SceneConfig equals tisph_tpu's field by field."""
+    assert dataclasses.asdict(got) == dataclasses.asdict(ref)
 
 
 @pytest.mark.parametrize("path", SCENES, ids=os.path.basename)
 def test_scene_fields_match_jax(path):
-    raw = _raw(path)
-    if _unsupported(raw):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.load_scene(path)
-        return
     _fields_match(pt.load_scene(path), tt.load_scene(path))
+    if _raw(path).get("emitters"):
+        assert pt.load_scene(path).emitters
 
 
-@pytest.mark.parametrize("path", [p for p in SCENES if not _unsupported(_raw(p))],
-                         ids=os.path.basename)
+@pytest.mark.parametrize("path", SCENES, ids=os.path.basename)
 def test_domain_size_matches_jax(path):
     got, ref = pt.load_scene(path).domain_size, tt.load_scene(path).domain_size
     assert type(got) is tuple and len(got) == len(ref)
@@ -59,8 +47,7 @@ def test_domain_size_matches_jax(path):
 
 
 @pytest.mark.parametrize("compat", COMPAT)
-@pytest.mark.parametrize("path", [p for p in SCENES if not _unsupported(_raw(p))],
-                         ids=os.path.basename)
+@pytest.mark.parametrize("path", SCENES, ids=os.path.basename)
 def test_solver_params_match_jax(path, compat):
     ref = SolverParams.from_scene(tt.load_scene(path), compat)
     got = PtSolverParams.from_scene(pt.load_scene(path), compat)
@@ -75,17 +62,22 @@ def test_unknown_compat_rejected():
 
 
 @pytest.mark.parametrize("key", ["rigidBodies", "emitters"])
-def test_unported_bodies_raise(key):
-    """Emitters are still refused; rigid bodies, a later slice that is now
-    ported, parse to tisph_tpu's fields instead (a minimal entry with
-    every default, and a static obstacle with every key)."""
+def test_bodies_and_emitters_match_jax(key):
+    """Rigid bodies and emitters parse to tisph_tpu's fields: a minimal
+    entry with every default, then a static obstacle with every key, or an
+    emitter with every key in a 3-element domain."""
     raw = {"configuration": {"dim": 2}, "fluidBlocks": [],
            key: [{"geometryFile": "x.obj", "start": [0, 0], "end": [1, 1]}]}
-    if key == "emitters":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pt.scene_from_dict(raw)
-        return
     _fields_match(pt.scene_from_dict(raw), tt.scene_from_dict(raw))
+    if key == "emitters":
+        raw = {"configuration": {"dim": 3, "particleRadius": 0.02}, "fluidBlocks": [],
+               key: [{"start": [0.1, 0.8, 0.2], "end": [0.3, 0.8001, 0.4],
+                      "velocity": [0, -2, 0], "interval": 0, "density": 900,
+                      "color": [10, 20, 30], "maxParticles": 120}]}
+        got = pt.scene_from_dict(raw)
+        _fields_match(got, tt.scene_from_dict(raw))
+        assert got.emitters[0].max_particles == 120 and got.emitters[0].color[0] < 1
+        return
     raw = {"configuration": {"dim": 3, "particleRadius": 0.02}, "fluidBlocks": [],
            key: [{"geometryFile": "assets/sphere.obj", "scale": [0.1, 0.2, 0.3],
                   "translation": [0.5, 0.4, 0.5], "rotationAngle": 30,

@@ -78,3 +78,16 @@ def test_build_state_rigid_scene_matches_jax():
     for k in FIELDS:  # whole capacity, padding included
         np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(ref, k)),
                                       err_msg=k)
+
+
+@pytest.mark.parametrize("name", sorted(f for f in os.listdir(SCENES) if f.endswith(".json")))
+def test_build_state_matches_jax_on_every_scene(name):
+    """Capacity (the emitters' pool included), num_active and every field
+    over the whole capacity equal tisph_tpu's build_state."""
+    path = os.path.join(SCENES, name)
+    got = pt.build_state(pt.load_scene(path), device="cpu")
+    ref = jax.device_get(tt.build_state(tt.load_scene(path)))
+    assert (got.num_active, got.capacity) == (int(ref.num_active), ref.capacity)
+    for k in FIELDS:
+        np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(ref, k)),
+                                      err_msg=k)

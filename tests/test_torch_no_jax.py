@@ -1,7 +1,8 @@
 """The PyTorch port imports neither jax nor the JAX package: run_scene on
 the CPU, a fluid scene with a boundary block (on the seg and the linear
-layout) and a scene with a dynamic mesh body (voxelizer and coupled
-solver), in a fresh interpreter, leaves both out of sys.modules (tisph_tpu/__init__.py imports jax and every
+layout, and on the legacy solver with --bpa), a scene with a dynamic mesh
+body (voxelizer and coupled solver) and a scene with an emitter (with
+--checkpoint, then --resume), in a fresh interpreter, leaves both out of sys.modules (tisph_tpu/__init__.py imports jax and every
 solver, so importing any tisph_tpu module would pull jax in)."""
 
 import json
@@ -18,16 +19,23 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CODE = r"""
 import json, sys
 import tisph_tpu_torch as tt
-from tisph_tpu_torch import bench, paired_bench, run_scene
+from tisph_tpu_torch import bench, bench_ladder, checkpoint, paired_bench, run_scene
 import chip_smoke
 
-for path in sys.argv[1:]:
+for path in sys.argv[1:4]:
     rc = run_scene.main([path, "--steps", "2", "--substeps", "2", "--resort", "2",
                          "--metrics-every", "1", "--device", "cpu"])
     assert rc == 0, rc
 rc = run_scene.main([sys.argv[1], "--steps", "2", "--substeps", "2", "--resort", "1",
                      "--layout", "linear", "--metrics-every", "1", "--device", "cpu"])
 assert rc == 0, rc
+rc = run_scene.main([sys.argv[1], "--steps", "1", "--substeps", "2", "--solver", "legacy",
+                     "--bpa", "--out", sys.argv[4], "--metrics-every", "1", "--device", "cpu"])
+assert rc == 0, rc
+for extra in (["--checkpoint", sys.argv[5]], ["--resume", sys.argv[5]]):
+    rc = run_scene.main([sys.argv[3], "--steps", "2", "--substeps", "3", "--resort", "2",
+                         "--metrics-every", "1", "--device", "cpu"] + extra)
+    assert rc == 0, rc
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tisph_tpu"))
 print(json.dumps(bad))
@@ -60,9 +68,14 @@ def test_port_imports_no_jax(tmp_path):
     path.write_text(json.dumps(scene))
     rigid_path = tmp_path / "rigid.json"
     rigid_path.write_text(json.dumps(rigid))
+    emit = dict(scene, emitters=[{"start": [0.6, 0.8], "end": [0.7, 0.8001],
+                                  "velocity": [0.0, -1.0], "interval": 3, "maxParticles": 20}])
+    emit_path = tmp_path / "emit.json"
+    emit_path.write_text(json.dumps(emit))
     env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")
     proc = subprocess.run(
-        [sys.executable, "-c", _CODE, str(path), str(rigid_path)],
+        [sys.executable, "-c", _CODE, str(path), str(rigid_path), str(emit_path),
+         str(tmp_path), str(tmp_path / "ck.npz")],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr

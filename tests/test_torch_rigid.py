@@ -217,7 +217,7 @@ def test_step_coupled_is_one_rebuilt_substep(tmp_path):
                                     resort_every=2)
     assert type(made) is pt.WCSPHRigid and made.resort_every == 2
     assert torch.equal(st2.x, state.x) and torch.equal(rg2.com, rg.com)
-    sc, rc = pt.advance(made, st2, rg2, 1)
+    sc, rc, _ = pt.advance(made, st2, rg2, 1)
     assert torch.equal(sc.x, sb.x) and torch.equal(rc.com, rb.com)
 
 

@@ -6,20 +6,29 @@ package is the reference it is tested against.  Module tree (each module
 mirrors the ``tisph_tpu`` module of the same path):
 
 - ``config``             scene schema, SolverParams
-- ``geometry``           lattice sampler, meshes, voxelizer, ``build_state``
-- ``models``             SimState, SolverBase, WCSPH, rigid bodies, WCSPHRigid
+- ``geometry``           lattice sampler, meshes, voxelizer, ``build_state``,
+                         emitters
+- ``checkpoint``         npz checkpoints, the files of ``tisph_tpu.checkpoint``
+- ``models``             SimState, SolverBase, WCSPH, rigid bodies, WCSPHRigid,
+                         WCSPHLegacy (the reference's V1 physics)
 - ``ops``                kernels, EOS, grid, per-particle phases, plain sweeps
 - ``ops.cuda``           kernel wrappers and the nvcc build
 - ``csrc``               the CUDA sources
-- ``render``             frame export (``FrameExporter``, ``load_frame``)
-- ``run_scene``, ``bench``  entry points (``python -m tisph_tpu_torch.<name>``)
+- ``render``             frame export (``FrameExporter``, ``load_frame``), 2D
+                         ball pivoting (``bpa2d``)
+- ``utils``              union-find clustering, wireframe lines
+- ``native``             the C++ host library of clustering and 2D BPA (ctypes)
+- ``run_scene``, ``bench``, ``bench_ladder``  entry points
+                         (``python -m tisph_tpu_torch.<name>``)
 """
 
 from tisph_tpu_torch.config import SceneConfig, SolverParams, load_scene, scene_from_dict
 from tisph_tpu_torch.geometry.builder import build_state
+from tisph_tpu_torch.geometry.emitter import EmitterState, make_emitter_state
 from tisph_tpu_torch.models.rigid import RigidState, rigid_from_host, rigid_to_host
 from tisph_tpu_torch.models.state import SimState, state_from_host, state_to_host
 from tisph_tpu_torch.models.wcsph import WCSPH
+from tisph_tpu_torch.models.wcsph_legacy import WCSPHLegacy
 from tisph_tpu_torch.models.wcsph_rigid import WCSPHRigid, advance, make_solver
 
 __all__ = [
@@ -28,10 +37,13 @@ __all__ = [
     "load_scene",
     "scene_from_dict",
     "build_state",
+    "EmitterState",
+    "make_emitter_state",
     "SimState",
     "state_from_host",
     "state_to_host",
     "WCSPH",
+    "WCSPHLegacy",
     "RigidState",
     "rigid_from_host",
     "rigid_to_host",

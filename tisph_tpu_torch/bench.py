@@ -9,8 +9,8 @@ the cadence it ran at.  Both cadences start from the same bound state:
 the dam break's early transient thins the fluid, so a cadence measured
 after the other would see cheaper steps.  A scene with a dynamic rigid
 body times the coupled solver's ``rollout_coupled`` (``WCSPHRigid``), as
-the ladder's ``3d_rigid_coupled`` cell does.  Needs a CUDA device: there
-is no CPU measurement.
+the ladder's ``3d_rigid_coupled`` cell does, and a scene with emitters
+times ``rollout_emit``.  Needs a CUDA device: there is no CPU measurement.
 
 ``--layout linear`` runs the linear layout's sweeps (``WCSPH(layout=
 "linear")``), which rebuild every substep: it measures and reports R=1
@@ -44,15 +44,15 @@ _SCENE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
                       "scenes", "demo_3d.json")
 
 
-def _measure(solver, state, rigid, steps: int, resort: int):
-    """Warm rollout of ``steps`` at R = ``resort`` from ``state`` and
-    ``rigid`` (None without dynamic bodies; rollouts modify neither); pps,
-    or None on NaN."""
+def _measure(solver, state, rigid, ems, steps: int, resort: int):
+    """Warm rollout of ``steps`` at R = ``resort`` from ``state``,
+    ``rigid`` and the emitters ``ems`` (None without dynamic bodies or
+    emitters; rollouts modify none of them); pps, or None on NaN."""
     solver.resort_every = resort
-    state, rigid = tt.advance(solver, state, rigid, resort)  # warm-up: caches, allocator
+    state, rigid, ems = tt.advance(solver, state, rigid, resort, ems)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    state, rigid = tt.advance(solver, state, rigid, steps)
+    state, rigid, ems = tt.advance(solver, state, rigid, steps, ems)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if solver.metrics(state)["nan_count"]:
@@ -60,18 +60,18 @@ def _measure(solver, state, rigid, steps: int, resort: int):
     return state.num_active * steps / wall
 
 
-def _profile(solver, state, rigid, steps: int, resort: int, top: int = 8) -> dict:
+def _profile(solver, state, rigid, ems, steps: int, resort: int, top: int = 8) -> dict:
     """``torch.profiler`` over ``steps`` warm steps at R = ``resort``, per
     step: device busy is the sum of the device operations' durations (one
     stream, so they do not overlap), the idle share is 1 - busy / wall."""
     from torch.profiler import ProfilerActivity, profile
 
     solver.resort_every = resort
-    state, rigid = tt.advance(solver, state, rigid, resort)
+    state, rigid, ems = tt.advance(solver, state, rigid, resort, ems)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tt.advance(solver, state, rigid, steps)
+        tt.advance(solver, state, rigid, steps, ems)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     by_name: dict[str, float] = collections.defaultdict(float)
@@ -111,23 +111,25 @@ def main(argv: list[str] | None = None) -> int:
     scene = tt.load_scene(args.scene)
     solver, state, rigid = tt.make_solver(scene, tt.build_state(scene, device="cuda"),
                                           device="cuda", layout=args.layout)
+    ems = [tt.make_emitter_state(em, scene, "cuda") for em in scene.emitters] or None
     cadences = (2, 1) if args.layout == "seg" else (1,)
     if args.settle:
         solver.resort_every = cadences[0]
-        state, rigid = tt.advance(solver, state, rigid, args.settle)
+        state, rigid, ems = tt.advance(solver, state, rigid, args.settle, ems)
     n = state.num_active
 
-    pps = _measure(solver, state, rigid, args.steps, cadences[0])
+    pps = _measure(solver, state, rigid, ems, args.steps, cadences[0])
     if pps is None:
         print(json.dumps({"metric": "particle-steps/sec", "value": 0.0,
                           "unit": "particle-steps/sec", "error": "NaN during benchmark"}))
         return 1
     resort, r1_pps = cadences[0], pps
     if args.layout == "seg":
-        r1_pps = _measure(solver, state, rigid, args.steps, 1)
+        r1_pps = _measure(solver, state, rigid, ems, args.steps, 1)
         if r1_pps is not None and r1_pps > pps:
             pps, resort = r1_pps, 1
-    what = "dam break with a dynamic rigid body" if rigid is not None else "dam break"
+    what = ("dam break with a dynamic rigid body" if rigid is not None
+            else "dam break with emitters" if ems else "dam break")
     line = {
         "metric": f"particle-steps/sec ({scene.dim}D {what}, {n // 1000}k particles)",
         "value": round(pps, 1),
@@ -138,7 +140,8 @@ def main(argv: list[str] | None = None) -> int:
         "device": torch.cuda.get_device_name(0),
     }
     if args.profile:
-        line["profile"] = [_profile(solver, state, rigid, args.profile, r) for r in cadences]
+        line["profile"] = [_profile(solver, state, rigid, ems, args.profile, r)
+                           for r in cadences]
     print(json.dumps(line))
     return 0
 

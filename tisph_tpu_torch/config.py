@@ -2,9 +2,7 @@
 
 The same JSON scene schema as ``tisph_tpu.config`` (the reference's
 data/scenes/*.json), parsed to the same field values, and the same three
-``compat`` presets for :class:`SolverParams`.  Emitters are a later
-slice of the port: a scene that declares them is refused instead of run
-without them.
+``compat`` presets for :class:`SolverParams`.
 """
 
 from __future__ import annotations
@@ -65,6 +63,22 @@ class RigidBody:
 
 
 @dataclasses.dataclass(frozen=True)
+class Emitter:
+    """Inflow emitter (``emitters`` entry): every ``interval`` solver steps
+    it activates a lattice-sampled batch of fluid particles over
+    ``[start, end]`` with ``velocity``, drawn from the pre-allocated
+    inactive pool (``geometry.emitter``)."""
+
+    start: tuple[float, ...]
+    end: tuple[float, ...]
+    velocity: tuple[float, ...]
+    interval: int = 50
+    density: float = _DEFAULT_DENSITY0
+    color: tuple[float, float, float] = (0.2, 0.4, 0.8)
+    max_particles: int = 0  # 0 => until the pool is exhausted
+
+
+@dataclasses.dataclass(frozen=True)
 class SceneConfig:
     """Parsed scene: domain, discretisation and bodies.
 
@@ -82,6 +96,7 @@ class SceneConfig:
     fluid_blocks: tuple[FluidBlock, ...] = ()
     rigid_bodies: tuple[RigidBody, ...] = ()
     boundary_blocks: tuple[BoundaryBlock, ...] = ()
+    emitters: tuple[Emitter, ...] = ()
     # Keys the reference parses but ignores; honored under compat="config".
     stiffness_B: float | None = None
     gamma: float | None = None
@@ -190,16 +205,7 @@ def _color(v: Any) -> tuple[float, float, float]:
 
 
 def scene_from_dict(raw: dict[str, Any], base_dir: str = ".") -> SceneConfig:
-    """Build a :class:`SceneConfig` from the reference JSON schema dict.
-
-    Raises NotImplementedError for scenes with emitters: that slice is not
-    ported yet (ROADMAP.md, queue 1, item 12).
-    """
-    if raw.get("emitters"):
-        raise NotImplementedError(
-            "emitters are not ported to tisph_tpu_torch yet "
-            "(ROADMAP.md, queue 1, item 12: emitters)"
-        )
+    """Build a :class:`SceneConfig` from the reference JSON schema dict."""
     cfg = raw.get("configuration", {})
     # dim defaults to the length of domainStart; 2D scenes may declare a
     # 3-vector domain, which is truncated.
@@ -257,6 +263,21 @@ def scene_from_dict(raw: dict[str, Any], base_dir: str = ".") -> SceneConfig:
             )
         )
 
+    emitters = []
+    for em in raw.get("emitters", []) or []:
+        d = min(dim, len(em["start"]))
+        emitters.append(
+            Emitter(
+                start=_tup(em["start"][:d], d),
+                end=_tup(em["end"][:d], d),
+                velocity=_tup(em.get("velocity"), d),
+                interval=int(em.get("interval", 50)),
+                density=float(em.get("density", _DEFAULT_DENSITY0)),
+                color=_color(em.get("color")),
+                max_particles=int(em.get("maxParticles", 0)),
+            )
+        )
+
     grav = cfg.get("gravitation")
     if grav is None:
         grav = [0.0, -9.81, 0.0]
@@ -271,6 +292,7 @@ def scene_from_dict(raw: dict[str, Any], base_dir: str = ".") -> SceneConfig:
         fluid_blocks=tuple(fluid_blocks),
         rigid_bodies=tuple(rigid_bodies),
         boundary_blocks=tuple(boundary_blocks),
+        emitters=tuple(emitters),
         stiffness_B=float(cfg["B"]) if "B" in cfg else None,
         gamma=float(cfg["gamma"]) if "gamma" in cfg else None,
         dt=float(cfg["dt"]) if "dt" in cfg else None,

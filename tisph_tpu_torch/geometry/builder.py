@@ -102,6 +102,8 @@ def build_state(
         oid = np.zeros((0,), np.int32)
 
     n = x.shape[0]
+    # the emitters' pool: inactive tail rows that emission activates
+    pool = extra_capacity + sum(em.max_particles for em in scene.emitters if em.max_particles > 0)
     return make_state(
         positions=x,
         velocities=v,
@@ -112,5 +114,5 @@ def build_state(
         object_ids=oid,
         volume0=scene.particle_volume0,
         device=device,
-        capacity=pad_capacity(n + extra_capacity, capacity_multiple),
+        capacity=pad_capacity(n + pool, capacity_multiple),
     )

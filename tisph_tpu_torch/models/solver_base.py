@@ -6,6 +6,12 @@ neighbour structure (cell sort and CSR bounds) is rebuilt once per group
 of ``resort_every`` substeps and reused by the substeps in between, and
 the last group takes the remainder (``solver_base.py:261-326``).  With
 R = 1 every substep rebuilds, the reference's cadence.
+
+``rollout_emit`` adds the emitters with ``tisph_tpu``'s two schedules
+(``solver_base.py:338-390``): at R = 1 each step emits, then rebuilds, then
+applies; at R > 1 each group rebuilds once, then every substep emits and
+applies, so a batch emitted inside a group joins the neighbour structure
+at the next rebuild.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import dataclasses
 import torch
 
 from tisph_tpu_torch.config import SceneConfig, SolverParams
+from tisph_tpu_torch.geometry.emitter import EmitterState, maybe_emit
 from tisph_tpu_torch.models.state import SimState
 from tisph_tpu_torch.ops import grid as gridops
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
@@ -40,6 +47,7 @@ class SolverBase:
         fast_math: bool = True,
         layout: str = "seg",
         boundary_mode: str | None = None,
+        params: SolverParams | None = None,
     ):
         """``resort_every``: substeps per neighbour-structure rebuild (R).
         ``fast_math``: approximate reciprocals on the gradient sweeps'
@@ -54,7 +62,9 @@ class SolverBase:
         once at bind (boundary particles never move); ``"per_step"`` every
         substep on current positions, as the reference does
         (sph_basev2.py:212), which moving bodies need.  None takes the
-        class's default."""
+        class's default.
+        ``params``: the physics parameters; None takes
+        ``SolverParams.from_scene(scene, compat)``."""
         if boundary_mode is None:
             boundary_mode = type(self).boundary_mode
         if boundary_mode not in ("static", "per_step"):
@@ -66,7 +76,7 @@ class SolverBase:
         self.layout = layout
         self._check_resort(resort_every)
         self.scene = scene
-        self.params = SolverParams.from_scene(scene, compat)
+        self.params = params if params is not None else SolverParams.from_scene(scene, compat)
         self.device = torch.device(device)
         self.resort_every = int(resort_every)
         self.fast_math = bool(fast_math)
@@ -126,9 +136,17 @@ class SolverBase:
         raise NotImplementedError
 
     def _substep(self, carry: tuple, cache) -> tuple:
-        """One substep of the carry ``(state, ...)``; the plain solvers
-        carry the state alone."""
-        return (self._apply(carry[0], cache),)
+        """One substep of the carry ``(state, ...)``; the rest of the carry
+        passes through."""
+        return (self._apply(carry[0], cache),) + tuple(carry[1:])
+
+    def _maybe_emit(self, carry: tuple) -> tuple:
+        """One step of every emitter on the carry ``(state, emitters)``."""
+        state, ems = carry
+        ems = list(ems)
+        for k, es in enumerate(ems):
+            state, ems[k] = maybe_emit(state, es, self.scene.particle_volume0)
+        return state, ems
 
     # -- public API ------------------------------------------------------
     def step(self, state: SimState) -> SimState:
@@ -139,23 +157,40 @@ class SolverBase:
         """``num_steps`` substeps in groups of ``resort_every``."""
         return self._groups((state,), num_steps, self.resort_every, self._substep)[0]
 
-    def _groups(self, carry: tuple, num_steps: int, R: int, substep) -> tuple:
+    def rollout_emit(self, state: SimState, emitters: list[EmitterState],
+                     num_steps: int) -> tuple[SimState, list[EmitterState]]:
+        """``num_steps`` substeps with the emitters, in groups of
+        ``resort_every``; returns the state and the emitters' new states.
+        A batch emitted inside a group is fluid from then on but joins no
+        sweep until the next rebuild: it keeps its density, gets no
+        acceleration and flies at its emission velocity, as in
+        ``tisph_tpu`` (its ``keep = back_valid & fl``)."""
+        return self._groups((state, list(emitters)), num_steps, self.resort_every,
+                            self._substep, emit=self._maybe_emit)
+
+    def _groups(self, carry: tuple, num_steps: int, R: int, substep, emit=None) -> tuple:
         """Run ``num_steps`` of ``substep(carry, cache) -> carry`` in groups
         of R, rebuilding the neighbour structure of ``carry[0]`` (the
-        SimState, which the rebuild sorts) before each group."""
+        SimState, which the rebuild sorts) before each group.  ``emit(carry)
+        -> carry`` runs once per substep: before the rebuild at R = 1,
+        before each substep after it at R > 1."""
         self._check_resort(R)
         state = carry[0]
         if not self._bound:
             state = self.bind(state)
         self._check_device(state)
+        carry = (state,) + tuple(carry[1:])
         done = 0
         while done < num_steps:
-            state, cache = self._build(state)
+            if emit is not None and R == 1:
+                carry = emit(carry)
+            state, cache = self._build(carry[0])
             carry = (state,) + tuple(carry[1:])
             k = min(R, num_steps - done)
             for _ in range(k):
+                if emit is not None and R > 1:
+                    carry = emit(carry)
                 carry = substep(carry, cache)
-            state = carry[0]
             done += k
         return carry
 

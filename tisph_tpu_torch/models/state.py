@@ -4,8 +4,8 @@ The same fields, dtypes and padding convention as
 ``tisph_tpu.models.state.SimState``: every tensor has leading axis
 ``capacity``; slots past the live particles carry ``material ==
 MATERIAL_INVALID`` and are sorted into the sentinel cell, so they never
-appear as neighbours.  ``num_active`` is a plain int here (the port has no
-emitters that grow the live set on the device).
+appear as neighbours.  ``num_active`` is a plain int here: only emitters
+change it, and the host decides when they fire (``geometry.emitter``).
 
 :func:`state_to_host` and :func:`state_from_host` use the same dict of
 numpy arrays as ``tisph_tpu.models.state.state_to_host``, so a state

@@ -17,6 +17,12 @@ and block plan:
 Pair membership uses the sort-time ids and bounds of the group, and r^2
 uses current positions (``wcsph.py:160-182``): a pair is missed only when
 motion since the rebuild brought it within h from more than one cell away.
+Every sweep takes the rows' sort-time material too, so a row that an
+emitter activated inside the group (fluid now, in no cell of the rebuild)
+is in no sweep's family: it keeps its density and gets no acceleration
+while advect and the clamp, on the current fluid mask, move it at its
+emission velocity (``tisph_tpu``'s ``keep = back_valid & fl``,
+``wcsph.py:255-309``).  Without emission the two materials are equal.
 
 With ``layout="linear"`` the density and force sweeps are the linear
 layout's kernel (``WCSPH._step_fn_pallas``, ``wcsph.py:58-113``), at
@@ -44,6 +50,7 @@ class GroupCache(NamedTuple):
 
     ids: torch.Tensor       # (N,) i32 sort-time cell ids
     bounds: torch.Tensor    # (num_cells + 1,) i32 CSR bounds of ``ids``
+    material: torch.Tensor  # (N,) i32 sort-time material
     fluid: torch.Tensor     # (N,) bool
     boundary: torch.Tensor  # (N,) bool
     effm: torch.Tensor      # (N,) f32 fl * m + bd * rho0 * V (V of the rebuild)
@@ -61,7 +68,7 @@ class WCSPH(SolverBase):
         fluid, boundary = state.fluid_mask, state.boundary_mask
         flm = fluid.to(torch.float32) * state.mass
         effm = flm + boundary.to(torch.float32) * (self.params.density0 * state.volume)
-        return GroupCache(ids, bounds, fluid, boundary, effm, flm)
+        return GroupCache(ids, bounds, state.material, fluid, boundary, effm, flm)
 
     def _apply(self, state: SimState, cache: GroupCache, with_reactions: bool = False):
         """One substep; with ``with_reactions`` returns ``(state,
@@ -69,13 +76,14 @@ class WCSPH(SolverBase):
         rows (0 elsewhere), for the rigid-body integrator."""
         spec, params, fm = self.spec, self.params, self.fast_math
         ids, bounds, fluid, bd = cache.ids, cache.bounds, cache.fluid, cache.boundary
+        material = cache.material  # rows emitted since the rebuild join no sweep
 
         effm = cache.effm
         if self.boundary_mode == "per_step":
             # Akinci volumes on current positions with the group's sort-time
             # structure; the bvol pack's c column is bd, not effm
             delta = cuda_sweeps.bvol_sweep(pack4(state.x, bd.to(torch.float32)), ids, bounds,
-                                           state.material, spec, params, fm)
+                                           material, spec, params, fm)
             volume = torch.where(bd, 1.0 / torch.clamp(delta, min=1e-10), state.volume)
             # effm = rho0 V on boundary rows is also the reaction's bvol_i
             effm = cache.flm + torch.where(bd, params.density0 * volume, 0.0)
@@ -84,7 +92,7 @@ class WCSPH(SolverBase):
         linear = self.layout == "linear"
         pos = pack4(state.x, effm)
         density = cuda_sweeps.density_sweep_linear if linear else cuda_sweeps.density_sweep
-        rho = density(pos, ids, bounds, state.material, spec, params, fm)
+        rho = density(pos, ids, bounds, material, spec, params, fm)
         # boundary rows keep their stored density
         rho = torch.where(fluid, rho, state.density)
         rho = F.apply_density_mode(rho, state, params)
@@ -99,7 +107,7 @@ class WCSPH(SolverBase):
             sweep = cuda_sweeps.force_react_sweep
         else:
             sweep = cuda_sweeps.force_sweep_linear if linear else cuda_sweeps.force_sweep
-        dv = sweep(pos, vel, aux, ids, bounds, state.material, spec, params, fm)
+        dv = sweep(pos, vel, aux, ids, bounds, material, spec, params, fm)
 
         state = dataclasses.replace(state, density=rho, pressure=pressure)
         state = F.advect(state, dv, params)  # fluid rows only

@@ -23,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 
 from tisph_tpu_torch.config import SceneConfig
+from tisph_tpu_torch.geometry.emitter import EmitterState
 from tisph_tpu_torch.models.rigid import RigidState, integrate_rigid_fields, make_rigid_state
 from tisph_tpu_torch.models.state import SimState
 from tisph_tpu_torch.models.wcsph import GroupCache, WCSPH
@@ -73,8 +74,13 @@ def make_solver(scene: SceneConfig, state: SimState,
     """The solver ``scene`` runs on, bound to ``state``, as
     ``examples/run_scene.py`` dispatches: ``WCSPHRigid`` and its bodies at
     rest when any rigid body is dynamic, else ``WCSPH`` (static bodies are
-    boundary particles) and None.  ``kw`` goes to the solver."""
+    boundary particles) and None.  ``kw`` goes to the solver.  A scene with
+    a dynamic body and emitters raises: the coupled step has no emission
+    (``examples/run_scene.py`` drops the emitters of such a scene)."""
     if any(rb.is_dynamic for rb in scene.rigid_bodies):
+        if scene.emitters:
+            raise ValueError("a scene with dynamic rigid bodies and emitters is not supported: "
+                             "the coupled step does not emit")
         solver = WCSPHRigid(scene, **kw)
         state = solver.bind(state)
         return solver, state, solver.init_rigid(state)
@@ -82,10 +88,19 @@ def make_solver(scene: SceneConfig, state: SimState,
     return solver, solver.bind(state), None
 
 
-def advance(solver: WCSPH, state: SimState, rigid: RigidState | None,
-            num_steps: int) -> tuple[SimState, RigidState | None]:
-    """``num_steps`` substeps of a :func:`make_solver` solver: the coupled
-    rollout when ``rigid`` is not None, else the plain one."""
+def advance(solver: WCSPH, state: SimState, rigid: RigidState | None, num_steps: int,
+            emitters: list[EmitterState] | None = None
+            ) -> tuple[SimState, RigidState | None, list[EmitterState] | None]:
+    """``num_steps`` substeps of a :func:`make_solver` solver, returning
+    ``(state, rigid, emitters)``: the coupled rollout when ``rigid`` is
+    not None, ``rollout_emit`` when ``emitters`` is not None (the two
+    together raise: the coupled step does not emit), else the plain
+    rollout."""
+    if emitters is not None:
+        if rigid is not None:
+            raise ValueError("the coupled step does not emit: emitters with dynamic bodies")
+        state, emitters = solver.rollout_emit(state, emitters, num_steps)
+        return state, None, emitters
     if rigid is None:
-        return solver.rollout(state, num_steps), None
-    return solver.rollout_coupled(state, rigid, num_steps)
+        return solver.rollout(state, num_steps), None, None
+    return (*solver.rollout_coupled(state, rigid, num_steps), None)
