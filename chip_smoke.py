@@ -104,7 +104,34 @@ Phases, each of which raises on failure (nothing is caught):
 13. the legacy V1 solver (WCSPHLegacy) on scenes/demo_2d.json: 20 steps on
    the card against 20 on the CPU (x atol 1e-5, rows matched by a tag in
    color[:, 0]), then 500 steps on the card: no NaN, CFL < 1, fluid inside
-   the padded box, and the rebuild kernel launched once a step.
+   the padded box, and the rebuild kernel launched once a step;
+14. the 1-D sharded solver (tisph_tpu_torch.parallel.ShardedWCSPH) on
+   demo_3d, on 2 and on 4 shards that all live on the one card (so its
+   particle-steps/s is the exchange's cost, not scaling): 100 steps at R=2
+   through bind -> rollout; after 20 of them the global state against the
+   single-device WCSPH run from the same start (rows by a tag in
+   color[:, 0]; x atol 1e-5, v 5e-3, density rtol 1e-4,
+   tests/test_parallel.py:66-71); the launch counters prove a density and a
+   force launch of kernel A over its rows per shard per substep, and per
+   group a rebuild launch per shard (one for the whole array when the seam
+   guard falls back to the global sort) and a bounds launch per shard's
+   window; no NaN, CFL < 1, no halo overflow; one host wait per group with
+   the exchange resort (the guard's scalar), none with the global sort; 10
+   more steps through each resort bitwise equal; then, on shard 1 of 2 in
+   a fresh group, kernel A over the shard's rows of its window against its
+   plain version at phase 4's tolerances, with its time, the plain time
+   and its bound;
+15. the sharded coupled path: bench_3d_rigid on 2 shards of the card, 200
+   coupled steps at R=2 through rollout_coupled: after 20, the state and
+   the bodies against WCSPHRigid's (com atol 1e-6, v_com and omega 1e-4,
+   tests/test_parallel.py:438), launch counters (bvol, density and
+   force_react per shard per substep), no NaN, CFL < 1, body shape drift
+   below 1e-4, one host wait per group;
+16. phase 5's demo_3d state through validate_state, checked_step (a clean
+   step passes, a NaN velocity raises), StepTimer over five R=2 groups,
+   and the orbit viewer (matplotlib's Agg) rendering it to a PNG; where
+   matplotlib is not installed, the viewer's camera projection of the
+   state alone (every particle in front of the camera, finite).
 
 Every kernel's entry in the JSON line has a bound: the larger of the bytes
 it must move (each input read once, each output written once) over 3.35
@@ -114,6 +141,10 @@ H100 SXM's published peaks; and, for the bounds-only launch, the time of
 torch.searchsorted on the same inputs, for the rebuild that of
 torch.searchsorted plus one index_select per field (no PyTorch call
 computes a sweep).
+
+The launches in the JSON line are the sums of the main paths' runs:
+phases 5, 11, 12 and 13 with 14 and 15 for kernel A's density and force and
+kernel B, 7 and 15 for bvol and force_react, 9 for kernel C.
 
 The last two lines of standard output are the JSON kernel summary and
 {"ok": true, "device": {...}}; any failure exits nonzero before them.
@@ -150,6 +181,8 @@ EMIT_R2, EMIT_R1 = 600, 100
 CKPT_STEPS = 200
 LEGACY_CHECK, LEGACY_STEPS = 20, 500
 BITWISE_STEPS = 20
+SHARD_STEPS, SHARD_CHECK, SHARD_BITWISE = 100, 20, 10  # phase 14
+SHARD_RIGID = 200  # phase 15
 SPIN_CYCLES = 2_000_000_000  # about a second at the H100's clocks
 
 # tests/test_rigid_dynamics.py::test_buoyancy's pool and box
@@ -834,6 +867,321 @@ def plain_apply(solver, state, cache):
         return solver._apply(state, cache)
 
 
+def tagged(state):
+    """``state`` with each row's tag (its row number, exact in f32 below
+    2^24) in color[:, 0]: colour plays no part in the physics, and the tag
+    follows a row through every sort."""
+    tags = torch.arange(state.capacity, dtype=torch.float32, device=state.device)
+    return dataclasses.replace(state, color=torch.cat([tags[:, None], state.color[:, 1:]], 1))
+
+
+def hold_to_single(label: str, got, want) -> tuple[float, float, float]:
+    """A sharded run's global state against the single-device run's, live
+    rows matched by their tag: material equal, x max|err| < 1e-5, v within
+    atol 5e-3, density within rtol 1e-4 (tests/test_parallel.py:66-71);
+    returns the three errors."""
+    def by_tag(st):
+        n = st.num_active
+        order = torch.argsort(st.color[:n, 0])
+        return [getattr(st, k)[:n][order] for k in ("color", "material", "x", "v", "density")]
+
+    (gc, gm, gx, gv, gr), (wc, wm, wx, wv, wr) = by_tag(got), by_tag(want)
+    if not (torch.equal(gc[:, 0], wc[:, 0]) and torch.equal(gm, wm)):
+        raise AssertionError(f"{label}: rows or materials differ from the single-device run")
+    dx = float((gx - wx).abs().max())
+    dv = float((gv - wv).abs().max())
+    drho = float(((gr - wr).abs() / wr.abs().clamp(min=1e-30)).max())
+    print(f"  {label} vs the single-device run: x max|err| {dx:.3e} (< 1e-5), v {dv:.3e} "
+          f"(5e-3), density rel {drho:.3e} (1e-4)")
+    if not (dx < 1e-5 and dv <= 5e-3 and drho <= 1e-4):
+        raise AssertionError(f"{label}: outside tests/test_parallel.py's tolerances")
+    return dx, dv, drho
+
+
+def count_host_waits(fn) -> int:
+    """How many times ``fn()`` made the host wait for the device: torch's
+    sync debug mode warns once per synchronising call."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def shard_sweep_inputs(sh, shards, s: int):
+    """Shard s's density and force sweep inputs of one substep inside a
+    fresh R-group of the sharded solver ``sh``, as its _apply forms them:
+    the window's packs (density from the plain version), ids, bounds and
+    sort-time material, and the shard's row range."""
+    from tisph_tpu_torch.ops import forces as F
+    from tisph_tpu_torch.ops import neighbors
+
+    spec, params = sh.spec, sh.params
+    shards, caches = sh._build(shards)
+    c = caches[s]
+    pos = [neighbors.pack4(st.x, cc.effm) for st, cc in zip(shards, caches)]
+    vel, aux = [], []
+    for t, (st, cc) in enumerate(zip(shards, caches)):
+        rho = neighbors.density_sweep(sh._extend(pos, t), cc.ids, cc.bounds, cc.material, spec,
+                                      params, rows=cc.rows)
+        rho, p = F.compute_pressures(torch.where(cc.fluid, rho, st.density), params)
+        vel.append(neighbors.pack4(st.v, rho))
+        aux.append(neighbors.pack_aux(p / torch.clamp(rho * rho, min=1e-12), cc.flm, st.mass))
+    return {"pos": sh._extend(pos, s), "vel": sh._extend(vel, s), "aux": sh._extend(aux, s),
+            "ids": c.ids, "bounds": c.bounds, "material": c.material, "rows": c.rows,
+            "fluid": c.fluid, "x": sh._extend([st.x for st in shards], s)}
+
+
+def check_shard_sweeps(label: str, sh, inp) -> dict[str, tuple]:
+    """Kernel A over the shard's row range against its plain version on
+    the same rows at phase 4's tolerances (fast_math on, the main path's),
+    rows off the family exactly 0; then its time against the plain
+    version's and its bound.  Returns {mode: (max_abs_err, ms, plain_ms,
+    bound_ms, bound_by)}."""
+    from types import SimpleNamespace
+
+    from tisph_tpu_torch.ops import neighbors
+    from tisph_tpu_torch.ops.cuda import sweeps
+
+    spec, params = sh.spec, sh.params
+    row0, n = inp["rows"]
+    w = inp["ids"].shape[0]
+    fl = inp["fluid"]
+    base = (inp["ids"], inp["bounds"], inp["material"], spec, params)
+    args = {"density": (inp["pos"], *base),
+            "force": (inp["pos"], inp["vel"], inp["aux"], *base)}
+    rtol, atol_f = TOL[True]
+    out = {}
+    for mode, a in args.items():
+        kern = getattr(sweeps, f"{mode}_sweep")
+        plain = getattr(neighbors, f"{mode}_sweep")
+        got, again = kern(*a, True, rows=(row0, n)), kern(*a, True, rows=(row0, n))
+        ref = plain(*a, rows=(row0, n))
+        torch.cuda.synchronize()
+        if not torch.equal(got, again) or not torch.isfinite(got).all():
+            raise AssertionError(f"{label} {mode}: two calls differ or non-finite output")
+        if not torch.equal(got[~fl], torch.zeros_like(got[~fl])):
+            raise AssertionError(f"{label} {mode}: rows outside its family not 0")
+        err = float((got - ref).abs().max())
+        if mode == "force":
+            rel = err / float(ref[fl].abs().max())
+            ok, detail = rel <= atol_f, f"max|err|/max|ref| = {rel:.3e} (atol {atol_f})"
+        else:
+            rel = float(((got - ref)[fl].abs() / ref[fl].abs().clamp(min=1e-30)).max())
+            ok, detail = rel <= rtol, f"max rel err = {rel:.3e} (rtol {rtol})"
+        lanes, ctas = sweeps.launch_shape(mode, n)
+        print(f"  {label} {mode:<7} rows [{row0}, {row0 + n}) of a {w}-row window, "
+              f"{lanes} lane(s) per row, {ctas} CTAs: max|err|={err:.3e} {detail}")
+        if not ok:
+            raise AssertionError(f"{label} {mode}: {detail}")
+        ms, plain_ms = time_against_plain({f"{mode}@shard": (
+            lambda: kern(*a, True, rows=(row0, n)), lambda: plain(*a, rows=(row0, n)),
+            20, 2)})[f"{mode}@shard"]
+        # bound: the window's inputs read once, the rows' output written
+        # once; the pairs inside h of the shard's fluid rows
+        grad = mode == "force"
+        nbytes = (w * (16 + 4 + 4) + (spec.num_cells + 1) * 4
+                  + (2 * w * 16 + n * spec.dim * 4 if grad else n * 4))
+        rows_mask = torch.zeros(w, dtype=torch.bool, device=fl.device)
+        rows_mask[row0:row0 + n] = fl
+        pairs = pairs_inside_h({"st": SimpleNamespace(x=inp["x"]), "ids": inp["ids"],
+                                "bounds": inp["bounds"]}, sh, rows_mask, inp["material"] != -1)
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = pairs * FLOPS_PER_PAIR[mode] / F32_FLOPS
+        print(f"  bound {mode} on the shard: {nbytes / 1e6:.3f} MB -> {t_bytes * 1e3:.5f} ms, "
+              f"{pairs} pairs inside h -> {t_ops * 1e3:.5f} ms")
+        out[mode] = (err, ms, plain_ms, max(t_bytes, t_ops) * 1e3,
+                     "bytes" if t_bytes >= t_ops else "operations")
+    return out
+
+
+def sharded_demo(tt, kernels, scene, card_line: str):
+    """Phase 14: ``scene`` on 2 and 4 shards of one card; returns the launch
+    counts of both runs added and kernel A's checks on a shard's rows."""
+    from tisph_tpu_torch.ops import grid as gridops
+    from tisph_tpu_torch.parallel import ShardedWCSPH, make_mesh
+
+    print("  every shard on the one card: particle-steps/s here is what the exchange costs, "
+          "not any scaling")
+    sh_start = tagged(tt.build_state(scene, device=DEVICE))
+    ref_solver = tt.WCSPH(scene, device=DEVICE, resort_every=2)
+    ref_check = ref_solver.rollout(ref_solver.bind(sh_start), SHARD_CHECK)
+    sharded = {}
+    for d in (2, 4):
+        sh = ShardedWCSPH(scene, make_mesh(devices=[DEVICE] * d), resort_every=2)
+        shards = sh.bind(sh_start)
+        windows = [sh._window(s) for s in range(d)]
+        print(f"  {d} shards of {sh.shard_rows} rows on {[str(x) for x in sh.mesh.devices]}: "
+              f"halo {sh.halo} rows ({sh.halo_path}), exchange edge {sh.resort_edge} rows, "
+              f"windows {[b - a for a, b in windows]} rows")
+        reset_counts(kernels)
+        sh.occ_resort = 0
+        shards = sh.rollout(shards, SHARD_CHECK)
+        hold_to_single(f"{d} shards, {SHARD_CHECK} steps", sh.gather_state(shards), ref_check)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards = sh.rollout(shards, SHARD_STEPS - SHARD_CHECK)
+        torch.cuda.synchronize()
+        swall = time.perf_counter() - t0
+        s_launches = {k: f.launches for k, f in kernels.items()}
+        groups, fb = SHARD_STEPS // 2, sh.occ_resort
+        s_want = {k: 0 for k in kernels} | {
+            "rebuild": (groups - fb) * d + fb, "csr_bounds": groups * d,
+            "sweep.density": SHARD_STEPS * d, "sweep.force": SHARD_STEPS * d}
+        if s_launches != s_want:
+            raise AssertionError(f"{d} shards: launch counts {s_launches}, expected {s_want}")
+        m = sh.metrics(shards)
+        print(f"  launches: {s_launches} ({groups} groups, {fb} seam-guard fallbacks to the "
+              f"global sort: rebuild d per exchange group, 1 per fallback)")
+        print(f"  metrics: {m}")
+        if m["nan_count"] != 0 or not math.isfinite(m["max_velocity"]) or m["cfl"] >= 1.0:
+            raise AssertionError(f"{d} shards unhealthy: {m}")
+        if m["occ_halo"]:
+            raise AssertionError(f"{d} shards: a window missed a stencil (halo {sh.halo})")
+        waits = count_host_waits(lambda: sh.rollout(shards, 2))
+        sh.resort = "global"
+        g_waits = count_host_waits(lambda: sh.rollout(shards, 2))
+        sh.resort = "exchange"
+        print(f"  host waits per R=2 group: {waits} with the exchange resort (its seam guard), "
+              f"{g_waits} with the global sort")
+        if waits != 1 or g_waits != 0:
+            raise AssertionError(f"{d} shards: {waits} / {g_waits} host waits per group")
+        n14 = sum(st.num_active for st in shards)
+        spps = n14 * (SHARD_STEPS - SHARD_CHECK) / swall
+        print(f"  {n14} particles on {d} shards: {spps:.6e} particle-steps/s "
+              f"({swall * 1e3 / (SHARD_STEPS - SHARD_CHECK):.4f} ms/step) on {card_line}")
+        sh.occ_resort = 0
+        ex = sh.gather_state(sh.rollout(shards, SHARD_BITWISE))
+        ex_fb = sh.occ_resort
+        sh.resort = "global"
+        gl = sh.gather_state(sh.rollout(shards, SHARD_BITWISE))
+        sh.resort = "exchange"
+        torch.cuda.synchronize()
+        for k in gridops.state_fields(ex):
+            if not torch.equal(_bits(getattr(ex, k)), _bits(getattr(gl, k))):
+                raise AssertionError(f"{d} shards: exchange resort and global sort differ in {k}")
+        print(f"  {SHARD_BITWISE} steps through the exchange resort ({ex_fb} fallbacks) and "
+              "through the global sort: every field bitwise equal")
+        sharded[d] = (sh, shards, s_launches)
+    sh, shards, _ = sharded[2]
+    s_cap = 1  # the shard whose sweeps are checked: the second
+    shard_sweeps = check_shard_sweeps(f"2 shards, shard {s_cap}:", sh,
+                                      shard_sweep_inputs(sh, shards, s_cap))
+    return {k: sharded[2][2][k] + sharded[4][2][k] for k in kernels}, shard_sweeps
+
+
+def sharded_rigid(tt, kernels, r_scene, card_line: str):
+    """Phase 15: the coupled ``r_scene`` on 2 shards of one card; returns
+    the launch counts."""
+    from tisph_tpu_torch.parallel import ShardedWCSPH, make_mesh
+
+    r_start = tagged(tt.build_state(r_scene, device=DEVICE))
+    ref_r, ref_st, ref_rg = tt.make_solver(r_scene, r_start, device=DEVICE, resort_every=2)
+    ref_st, ref_rg = ref_r.rollout_coupled(ref_st, ref_rg, SHARD_CHECK)
+    sh = ShardedWCSPH(r_scene, make_mesh(devices=[DEVICE] * 2), resort_every=2)
+    shards = sh.bind(r_start)
+    rg = sh.init_rigid(shards)
+    sel0 = (r_start.object_id == 0) & r_start.boundary_mask
+    b_tags = r_start.color[sel0, 0]
+    b_d0 = torch.linalg.vector_norm(r_start.x[sel0] - rg.com[0], dim=1)
+    print(f"  boundary_mode {sh.boundary_mode}, {sh.shard_rows} rows a shard, halo {sh.halo} "
+          f"({sh.halo_path}), edge {sh.resort_edge}")
+    reset_counts(kernels)
+    sh.occ_resort = 0
+    shards, rg = sh.rollout_coupled(shards, rg, SHARD_CHECK)
+    hold_to_single(f"coupled, 2 shards, {SHARD_CHECK} steps", sh.gather_state(shards), ref_st)
+    body = {k: float((getattr(rg, k) - getattr(ref_rg, k)).abs().max())
+            for k in ("com", "v_com", "omega")}
+    print(f"  bodies vs WCSPHRigid: com {body['com']:.3e} (atol 1e-6), v_com "
+          f"{body['v_com']:.3e} (1e-4), omega {body['omega']:.3e} (1e-4)")
+    if not (body["com"] <= 1e-6 and body["v_com"] <= 1e-4 and body["omega"] <= 1e-4):
+        raise AssertionError(f"coupled sharded bodies differ from WCSPHRigid's: {body}")
+    t0 = time.perf_counter()
+    shards, rg = sh.rollout_coupled(shards, rg, SHARD_RIGID - SHARD_CHECK)
+    torch.cuda.synchronize()
+    cwall = time.perf_counter() - t0
+    c15 = {k: f.launches for k, f in kernels.items()}
+    groups, fb = SHARD_RIGID // 2, sh.occ_resort
+    c_want = {k: 0 for k in kernels} | {
+        "rebuild": (groups - fb) * 2 + fb, "csr_bounds": groups * 2,
+        "sweep.bvol": SHARD_RIGID * 2, "sweep.density": SHARD_RIGID * 2,
+        "sweep.force_react": SHARD_RIGID * 2}
+    if c15 != c_want:
+        raise AssertionError(f"coupled sharded launch counts {c15}, expected {c_want}")
+    whole = sh.gather_state(shards)
+    m = sh.metrics(shards)
+    drift = body_drift(whole, rg, b_tags, b_d0)
+    print(f"  launches: {c15} ({fb} fallbacks)")
+    print(f"  metrics: {m}; body shape drift {drift:.3e} (< 1e-4), com {rg.com[0].tolist()}")
+    if m["nan_count"] != 0 or m["cfl"] >= 1.0 or m["occ_halo"] or not drift < 1e-4:
+        raise AssertionError(f"coupled sharded run unhealthy: {m}, drift {drift}")
+    c_waits = count_host_waits(lambda: sh.rollout_coupled(shards, rg, 2))
+    print(f"  host waits per coupled R=2 group: {c_waits}; {whole.num_active} particles: "
+          f"{whole.num_active * (SHARD_RIGID - SHARD_CHECK) / cwall:.6e} particle-steps/s "
+          f"({cwall * 1e3 / (SHARD_RIGID - SHARD_CHECK):.4f} ms/step) on {card_line}")
+    if c_waits != 1:
+        raise AssertionError(f"coupled sharded group: {c_waits} host waits")
+    return c15
+
+
+def viewers_and_utils(solver, scene, state):
+    """Phase 16: validate_state, checked_step, StepTimer and the orbit
+    viewer on ``solver``'s ``state``."""
+    import tisph_tpu_torch as tt
+    from tisph_tpu_torch.render.orbit import OrbitViewer, scene_camera
+    from tisph_tpu_torch.utils import debug, profiling
+
+    probs = debug.validate_state(state, solver.params, strict=True)
+    checked = debug.checked_step(solver.step, solver.params)
+    after = checked(state)
+    bad = dataclasses.replace(state, v=state.v.clone())
+    bad.v[5, 0] = float("nan")
+    try:
+        checked(bad)
+    except RuntimeError as e:
+        caught = str(e)
+    else:
+        raise AssertionError("checked_step let a non-finite velocity through")
+    timer = profiling.StepTimer()
+    st16 = after
+    for _ in range(5):
+        with timer("rollout, one R=2 group", result=st16):
+            st16 = solver.rollout(st16, 2)
+    print(f"  validate_state: {probs}; checked_step: clean step passed, NaN step raised "
+          f"{caught!r}")
+    print("  StepTimer: " + timer.report())
+    try:
+        import matplotlib  # noqa: F401  (the viewer's canvas)
+    except ImportError:
+        # this machine has no matplotlib: the orbit view's camera pipeline
+        # runs on the state's host copy without a canvas
+        x = tt.state_to_host(st16)["x"]
+        xy, z, vis = scene_camera(scene).project(x)
+        print(f"  matplotlib is not installed here, so no PNG: the orbit camera projected "
+              f"{int(vis.sum())} of {len(x)} particles in front of it, depth "
+              f"{float(z[vis].min()):.4f}-{float(z[vis].max()):.4f}")
+        if not (vis.all() and np.isfinite(xy).all()):
+            raise AssertionError("the orbit camera lost particles of the state")
+        return
+    viewer = OrbitViewer(scene, interactive=False)
+    viewer.show(st16)
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "orbit.png")
+        viewer.savefig(png)
+        size = os.path.getsize(png)
+    viewer.close()
+    print(f"  OrbitViewer (Agg): {st16.num_active} particles rendered to a {size}-byte PNG")
+    if size < 10_000:
+        raise AssertionError(f"the orbit view PNG is {size} bytes")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs "
@@ -1475,6 +1823,17 @@ def main() -> int:
     if not inside:
         raise AssertionError("legacy fluid left the padded box")
     launches = {k: launches[k] + leg_launches[k] for k in kernels}
+
+    phase(f"14 sharded demo_3d: {SHARD_STEPS} steps at R=2 on 2 and 4 shards of one card")
+    s14, shard_sweeps = sharded_demo(tt, kernels, scene, card_line)
+    phase(f"15 sharded bench_3d_rigid: {SHARD_RIGID} coupled steps at R=2 on 2 shards")
+    s15 = sharded_rigid(tt, kernels, r_scene, card_line)
+    launches = {k: launches[k] + s14[k] + s15[k] for k in kernels}
+    phase("16 viewers and utilities on the card: phase 5's demo_3d state")
+    viewers_and_utils(solver, scene, state)
+    print("  kernel A over a shard's rows (phase 14), ms (kernel, plain, bound):")
+    for mode, (err, ms, pms, bms, by) in shard_sweeps.items():
+        print(f"    {mode:<8} {ms:.4f} {pms:.4f} {bms:.5f} ({by}); max|err| {err:.3e}")
 
     src = {k: ("tisph_tpu_torch/csrc/bounds.cu", "tisph_tpu/ops/pallas/bounds.py:43")
            for k in ("rebuild", "csr_bounds")}

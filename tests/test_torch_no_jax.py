@@ -2,8 +2,12 @@
 the CPU, a fluid scene with a boundary block (on the seg and the linear
 layout, and on the legacy solver with --bpa), a scene with a dynamic mesh
 body (voxelizer and coupled solver) and a scene with an emitter (with
---checkpoint, then --resume), in a fresh interpreter, leaves both out of sys.modules (tisph_tpu/__init__.py imports jax and every
-solver, so importing any tisph_tpu module would pull jax in)."""
+--checkpoint, then --resume); run_sharded on two CPU shards with each of
+the three scenes (the plain, coupled and emitting sharded paths); the
+viewers, the GIF assembler, the 3D BPA guards, the debug and profiling
+utilities and the demo, in a fresh interpreter, leave both out of
+sys.modules (tisph_tpu/__init__.py imports jax and every solver, so
+importing any tisph_tpu module would pull jax in)."""
 
 import json
 import os
@@ -18,8 +22,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _CODE = r"""
 import json, sys
+import matplotlib
+matplotlib.use("Agg")
 import tisph_tpu_torch as tt
-from tisph_tpu_torch import bench, bench_ladder, checkpoint, paired_bench, run_scene
+from tisph_tpu_torch import (bench, bench_ladder, checkpoint, demo, paired_bench, run_scene,
+                             run_sharded)
+from tisph_tpu_torch.parallel import ShardedWCSPH, make_mesh
+from tisph_tpu_torch.render import bpa3d, orbit, video, viewer
+from tisph_tpu_torch.utils import debug, profiling
 import chip_smoke
 
 for path in sys.argv[1:4]:
@@ -36,6 +46,18 @@ for extra in (["--checkpoint", sys.argv[5]], ["--resume", sys.argv[5]]):
     rc = run_scene.main([sys.argv[3], "--steps", "2", "--substeps", "3", "--resort", "2",
                          "--metrics-every", "1", "--device", "cpu"] + extra)
     assert rc == 0, rc
+for path in sys.argv[1:4]:
+    rc = run_sharded.main([path, "--devices", "cpu,cpu", "--steps", "2", "--resort", "2"])
+    assert rc == 0, rc
+sc = tt.load_scene(sys.argv[1])
+solver = tt.WCSPH(sc, device="cpu")
+st = debug.checked_step(solver.step, solver.params)(solver.bind(tt.build_state(sc, device="cpu")))
+assert debug.validate_state(st, solver.params) == []
+v = orbit.OrbitViewer(tt.load_scene(sys.argv[2]), interactive=False)
+v.show(tt.build_state(tt.load_scene(sys.argv[2]), device="cpu"))
+v.close()
+assert demo.main(["--frames", "1", "--substeps", "1", "--out", sys.argv[4], "--device", "cpu"]) == 0
+video.frames_to_gif(sys.argv[4], sys.argv[4] + "/demo.gif", pattern="demo_*.png")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tisph_tpu"))
 print(json.dumps(bad))

@@ -14,12 +14,16 @@ mirrors the ``tisph_tpu`` module of the same path):
 - ``ops``                kernels, EOS, grid, per-particle phases, plain sweeps
 - ``ops.cuda``           kernel wrappers and the nvcc build
 - ``csrc``               the CUDA sources
+- ``parallel``           the 1-D sharded solver (``ShardedWCSPH``, ``make_mesh``)
 - ``render``             frame export (``FrameExporter``, ``load_frame``), 2D
-                         ball pivoting (``bpa2d``)
-- ``utils``              union-find clustering, wireframe lines
+                         ball pivoting (``bpa2d``), 3D surface guards
+                         (``bpa3d``), the viewers (``viewer``, ``orbit``), GIFs
+                         (``video``)
+- ``utils``              union-find clustering, wireframe lines, state
+                         validation (``debug``), timers and traces (``profiling``)
 - ``native``             the C++ host library of clustering and 2D BPA (ctypes)
-- ``run_scene``, ``bench``, ``bench_ladder``  entry points
-                         (``python -m tisph_tpu_torch.<name>``)
+- ``run_scene``, ``run_sharded``, ``demo``, ``bench``, ``bench_ladder``  entry
+                         points (``python -m tisph_tpu_torch.<name>``)
 """
 
 from tisph_tpu_torch.config import SceneConfig, SolverParams, load_scene, scene_from_dict

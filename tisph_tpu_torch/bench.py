@@ -60,7 +60,7 @@ def _measure(solver, state, rigid, ems, steps: int, resort: int):
     return state.num_active * steps / wall
 
 
-def _profile(solver, state, rigid, ems, steps: int, resort: int, top: int = 8) -> dict:
+def profile_steps(solver, state, rigid, ems, steps: int, resort: int, top: int = 8) -> dict:
     """``torch.profiler`` over ``steps`` warm steps at R = ``resort``, per
     step: device busy is the sum of the device operations' durations (one
     stream, so they do not overlap), the idle share is 1 - busy / wall."""
@@ -140,7 +140,7 @@ def main(argv: list[str] | None = None) -> int:
         "device": torch.cuda.get_device_name(0),
     }
     if args.profile:
-        line["profile"] = [_profile(solver, state, rigid, ems, args.profile, r)
+        line["profile"] = [profile_steps(solver, state, rigid, ems, args.profile, r)
                            for r in cadences]
     print(json.dumps(line))
     return 0

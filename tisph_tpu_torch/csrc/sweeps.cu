@@ -119,14 +119,15 @@ __global__ void __launch_bounds__(kThreads, kMinCtasOf<MODE>)
 sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
              const float4* __restrict__ aux, const int* __restrict__ ids,
              const int* __restrict__ bounds, const int* __restrict__ material,
-             float* __restrict__ out, int n, GridArgs g, PhysArgs p) {
+             float* __restrict__ out, int row0, int rows, GridArgs g, PhysArgs p) {
   constexpr bool kGrad = MODE == kForce || MODE == kForceReact || MODE == kReaction;
   constexpr int kOut = kGrad ? DIM : 1;
   static_assert(L >= 1 && L <= 32 && (L & (L - 1)) == 0, "lanes per row: a power of two");
   const int tid = threadIdx.x;
   const int sub = tid % L;  // this thread's lane of its row
-  const int i = blockIdx.x * (kThreads / L) + tid / L;
-  const bool in_n = i < n;
+  // rows [row0, row0 + rows) of the arrays; out holds those rows only
+  const int i = row0 + blockIdx.x * (kThreads / L) + tid / L;
+  const bool in_n = i < row0 + rows;
   const int mat = in_n ? material[i] : -1;
   const bool consumer = (MODE == kBvol || MODE == kReaction) ? (mat == 0)
                         : (MODE == kForceReact)               ? (mat == 0 || mat == 1)
@@ -267,19 +268,20 @@ sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
     if (kGrad && DIM == 3) acc2 += __shfl_xor_sync(kFull, acc2, o);
   }
   if (!in_n || sub != 0) return;
+  float* o = out + (i - row0) * kOut;
   if (!consumer) {
 #pragma unroll
-    for (int a = 0; a < kOut; ++a) out[i * kOut + a] = 0.0f;
+    for (int a = 0; a < kOut; ++a) o[a] = 0.0f;
   } else if (kGrad && react_i) {  // a force on a body particle: no gravity here
-    out[i * DIM + 0] = acc0 * p.fin;
-    out[i * DIM + 1] = acc1 * p.fin;
-    if (DIM == 3) out[i * DIM + 2] = acc2 * p.fin;
+    o[0] = acc0 * p.fin;
+    o[1] = acc1 * p.fin;
+    if (DIM == 3) o[2] = acc2 * p.fin;
   } else if (kGrad) {
-    out[i * DIM + 0] = acc0 * p.fin + p.g[0];
-    out[i * DIM + 1] = acc1 * p.fin + p.g[1];
-    if (DIM == 3) out[i * DIM + 2] = acc2 * p.fin + p.g[2];
+    o[0] = acc0 * p.fin + p.g[0];
+    o[1] = acc1 * p.fin + p.g[1];
+    if (DIM == 3) o[2] = acc2 * p.fin + p.g[2];
   } else {
-    out[i] = acc0 * p.fin;
+    o[0] = acc0 * p.fin;
   }
 }
 
@@ -288,7 +290,7 @@ struct Call {
   const float4 *pos, *vel, *aux;
   const int *ids, *bounds, *material;
   float* out;
-  int n;
+  int row0, rows;
   GridArgs g;
   PhysArgs p;
   cudaStream_t stream;
@@ -296,10 +298,10 @@ struct Call {
 
 template <int MODE, int DIM, bool FAST, int L>
 void launch(const Call& c) {
-  constexpr int rows = kThreads / L;
-  const int blocks = (c.n + rows - 1) / rows;
+  constexpr int per_cta = kThreads / L;
+  const int blocks = (c.rows + per_cta - 1) / per_cta;
   sweep_kernel<MODE, DIM, FAST, L><<<blocks, kThreads, 0, c.stream>>>(
-      c.pos, c.vel, c.aux, c.ids, c.bounds, c.material, c.out, c.n, c.g, c.p);
+      c.pos, c.vel, c.aux, c.ids, c.bounds, c.material, c.out, c.row0, c.rows, c.g, c.p);
 }
 
 // False for a lane count that is not built: 1, 4 and 8 are.
@@ -336,21 +338,23 @@ bool launch_mode(int mode, int fast, int lanes, const Call& c) {
 
 // mode: 0 density, 1 force, 2 bvol, 3 force_react, 4 reaction; dim: 2 or
 // 3; fast_math is read by the three gradient modes; lanes: threads per
-// row, 1, 4 or 8.  vel and aux are read by the gradient modes only.
+// row, 1, 4 or 8.  vel and aux are read by the gradient modes only.  The
+// launch sweeps rows [row0, row0 + rows) of the arrays (their candidates
+// anywhere in them) and writes out[0, rows).
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for an unknown mode, dim or lanes.
 extern "C" int tisph_sweep(int mode, int dim, int fast_math, int lanes, const void* pos,
                            const void* vel, const void* aux, const void* ids,
                            const void* bounds, const void* material, void* out,
-                           int n, int res0, int res1, int res_z, int s0, int s1,
+                           int row0, int rows, int res0, int res1, int res_z, int s0, int s1,
                            float inv_h, float fin, float eps_visc,
                            float visc_num, float nub_num, float coh_num,
                            float gx, float gy, float gz, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (rows <= 0) return static_cast<int>(cudaGetLastError());
   const Call c{static_cast<const float4*>(pos),  static_cast<const float4*>(vel),
                static_cast<const float4*>(aux),  static_cast<const int*>(ids),
                static_cast<const int*>(bounds),  static_cast<const int*>(material),
-               static_cast<float*>(out),         n,
+               static_cast<float*>(out),         row0, rows,
                GridArgs{res0, res1, res_z, s0, s1},
                PhysArgs{inv_h, fin, eps_visc, visc_num, nub_num, coh_num, {gx, gy, gz}},
                static_cast<cudaStream_t>(stream)};

@@ -128,6 +128,12 @@ def _matmul3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a[..., :, None] * b).sum(-2)
 
 
+def _eye3(device: torch.device) -> torch.Tensor:
+    """The 3x3 identity, copied to ``device`` once."""
+    return device_constant((1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0),
+                           torch.float32, device).view(3, 3)
+
+
 def _rotation_matrix(phi3: torch.Tensor) -> torch.Tensor:
     """Exact rotation matrix of the rotation vector ``phi3`` (Rodrigues):
     R = I + (sin t / t) [phi]x + ((1 - cos t) / t^2) [phi]x^2, with the
@@ -144,7 +150,7 @@ def _rotation_matrix(phi3: torch.Tensor) -> torch.Tensor:
         torch.stack([phi3[2], zero, -phi3[0]]),
         torch.stack([-phi3[1], phi3[0], zero]),
     ])
-    eye = torch.eye(3, dtype=torch.float32, device=phi3.device)
+    eye = _eye3(phi3.device)
     return eye + a * k + b * _matmul3(k, k)
 
 
@@ -168,32 +174,60 @@ def integrate_rigid_fields(
 ) -> tuple[torch.Tensor, torch.Tensor, RigidState]:
     """One symplectic step of every dynamic body and its particles; returns
     (x, v, rigid) with only body rows of x and v changed."""
-    dim, dev = x.shape[1], x.device
+    sums = [body_sums(x, mass, object_id, boundary_mask, rigid, reactions, k, params)
+            for k in range(rigid.num_bodies)]
+    rigid2, moves = step_bodies(rigid, sums, params, x.shape[1])
+    x, v = move_body_rows(x, v, object_id, boundary_mask, rigid, moves)
+    return x, v, rigid2
+
+
+def body_sums(x, mass, object_id, boundary_mask, rigid: RigidState, reactions,
+              k: int, params: SolverParams) -> tuple[torch.Tensor, ...]:
+    """Body k's sums over the rows given: (force, torque, inertia, pen_lo,
+    pen_hi), the net reaction force (dim,), its torque about the COM (3,),
+    the inertia of the particles about the COM (3, 3), and the deepest
+    penetration below and above the padded domain box (dim,) each.  The
+    first three add over disjoint sets of rows, the last two combine by
+    max: a sharded solver adds its shards' sums."""
+    lo, hi = domain_box(params, x.device)
+    eye = _eye3(x.device)
+    mask = (object_id == rigid.object_ids[k]) & boundary_mask  # (N,)
+    maskf = mask.to(torch.float32)[:, None]
+    m_p = mass * maskf[:, 0]
+
+    com = rigid.com[k]
+    r = (x - com) * maskf  # zero off the body
+    f_p = reactions * maskf
+    force = torch.sum(f_p, dim=0)
+    tau3 = torch.sum(_cross(_pad3(r), _pad3(f_p)), dim=0)
+
+    # inertia of the current particles about the COM
+    r3 = _pad3(r)
+    r2 = torch.sum(r3 * r3, dim=-1)
+    inertia = torch.sum(
+        m_p[:, None, None] * (r2[:, None, None] * eye - r3[:, :, None] * r3[:, None, :]),
+        dim=0,
+    )
+    # wall contact: the deepest penetration of the padded box
+    body_x = torch.where(maskf > 0, x, com)  # off-body rows at the COM
+    pen_lo = torch.amax(torch.clamp(lo - body_x, min=0.0), dim=0)
+    pen_hi = torch.amax(torch.clamp(body_x - hi, min=0.0), dim=0)
+    return force, tau3, inertia, pen_lo, pen_hi
+
+
+def step_bodies(rigid: RigidState, sums, params: SolverParams,
+                dim: int) -> tuple[RigidState, list[tuple[torch.Tensor, ...]]]:
+    """The bodies' new state from their :func:`body_sums` (one tuple per
+    body), and per body what :func:`move_body_rows` applies to its rows."""
+    dev = rigid.com.device
     dt = params.dt
     # constants copied to the device once, never per substep
     g = device_constant(params.gravity, torch.float32, dev)
-    lo, hi = domain_box(params, dev)
-    eye = torch.eye(3, dtype=torch.float32, device=dev)
-
-    new_com, new_vcom, new_omega = [], [], []
-    for k in range(rigid.num_bodies):
-        mask = (object_id == rigid.object_ids[k]) & boundary_mask  # (N,)
-        maskf = mask.to(torch.float32)[:, None]
-        m_p = mass * maskf[:, 0]
-
-        com = rigid.com[k]
-        r = (x - com) * maskf  # zero off the body
-        f_p = reactions * maskf
-        force = torch.sum(f_p, dim=0) + rigid.mass[k] * g
-        tau3 = torch.sum(_cross(_pad3(r), _pad3(f_p)), dim=0)
-
-        # inertia of the current particles about the COM
-        r3 = _pad3(r)
-        r2 = torch.sum(r3 * r3, dim=-1)
-        inertia = torch.sum(
-            m_p[:, None, None] * (r2[:, None, None] * eye - r3[:, :, None] * r3[:, None, :]),
-            dim=0,
-        ) + 1e-8 * eye
+    eye = _eye3(dev)
+    new_com, new_vcom, new_omega, moves = [], [], [], []
+    for k, (fsum, tau3, isum, pen_lo, pen_hi) in enumerate(sums):
+        force = fsum + rigid.mass[k] * g
+        inertia = isum + 1e-8 * eye
         if dim == 2:  # planar rotation: omega_z += dt tau_z / I_zz
             zero = torch.zeros_like(tau3[2])
             domega = torch.stack([zero, zero, tau3[2] / inertia[2, 2]])
@@ -204,23 +238,11 @@ def integrate_rigid_fields(
         omega = rigid.omega[k] + dt * domega
 
         # wall contact: push back the deepest penetration, reflect v_com
-        body_x = torch.where(maskf > 0, x, com)  # off-body rows at the COM
-        pen_lo = torch.amax(torch.clamp(lo - body_x, min=0.0), dim=0)
-        pen_hi = torch.amax(torch.clamp(body_x - hi, min=0.0), dim=0)
         shift = pen_lo - pen_hi
         hit = (pen_lo > 0) | (pen_hi > 0)
         v_com = torch.where(hit, -params.collision_factor * v_com, v_com)
-        new_c = com + dt * v_com + shift
-
-        # particles: v_p = v_com + omega x r, offsets rotated exactly
-        r_cur = _pad3(x - com)
-        v_rot = _cross(omega.expand(x.shape[0], 3), r_cur)[:, :dim]
-        v_p = v_com + v_rot
-        rot = _rotation_matrix(omega * dt)
-        x_p = new_c + _matmul3(r_cur, rot.T)[:, :dim]
-
-        x = torch.where(mask[:, None], x_p, x)
-        v = torch.where(mask[:, None], v_p, v)
+        new_c = rigid.com[k] + dt * v_com + shift
+        moves.append((new_c, v_com, omega, _rotation_matrix(omega * dt)))
         new_com.append(new_c)
         new_vcom.append(v_com)
         new_omega.append(omega)
@@ -232,4 +254,21 @@ def integrate_rigid_fields(
         v_com=torch.stack(new_vcom),
         omega=torch.stack(new_omega),
     )
-    return x, v, rigid2
+    return rigid2, moves
+
+
+def move_body_rows(x, v, object_id, boundary_mask, rigid: RigidState,
+                   moves) -> tuple[torch.Tensor, torch.Tensor]:
+    """x and v with every body's rows moved rigidly: v_p = v_com + omega x
+    r, offsets r about the old COM (of ``rigid``) rotated exactly about the
+    new one.  ``moves`` from :func:`step_bodies`, on x's device."""
+    dim = x.shape[1]
+    for k, (new_c, v_com, omega, rot) in enumerate(moves):
+        mask = (object_id == rigid.object_ids[k]) & boundary_mask
+        r_cur = _pad3(x - rigid.com[k])
+        v_rot = _cross(omega.expand(x.shape[0], 3), r_cur)[:, :dim]
+        v_p = v_com + v_rot
+        x_p = new_c + _matmul3(r_cur, rot.T)[:, :dim]
+        x = torch.where(mask[:, None], x_p, x)
+        v = torch.where(mask[:, None], v_p, v)
+    return x, v

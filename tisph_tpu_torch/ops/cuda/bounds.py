@@ -96,9 +96,11 @@ def _launch(name: str, sorted_ids, perm, spec: GridSpec, src=(), dst=()) -> torc
 def gather_and_bound(state: SimState, sorted_ids: torch.Tensor, perm: torch.Tensor,
                      spec: GridSpec) -> tuple[SimState, torch.Tensor]:
     """(state reordered by ``perm``, bounds of ``sorted_ids``): the rebuild
-    after the sort.  ``sorted_ids`` (N,) int32 ascending with the inactive
-    tail = ``spec.num_cells``, ``perm`` (N,) int64, the sort's
-    permutation.  Every field must be 4 bytes wide and contiguous."""
+    after the sort.  ``sorted_ids`` (M,) int32 ascending with the inactive
+    tail = ``spec.num_cells``, ``perm`` (M,) int64, the sort's
+    permutation; M is the state's capacity, or fewer when only some
+    sorted rows are wanted (row k of the result is row perm[k]).  Every
+    field must be 4 bytes wide and contiguous."""
     names = _check_fields(state)
     dev = state.device
     if dev.type == "cpu":
@@ -106,12 +108,13 @@ def gather_and_bound(state: SimState, sorted_ids: torch.Tensor, perm: torch.Tens
     if dev.type != "cuda":
         raise ValueError(f"sort_and_bound: unsupported device {dev}")
     _check_ids("sort_and_bound", sorted_ids, spec)
-    n = state.capacity
-    if (sorted_ids.shape[0] != n or perm.dtype != torch.int64 or tuple(perm.shape) != (n,)
+    n = sorted_ids.shape[0]
+    if (n > state.capacity or perm.dtype != torch.int64 or tuple(perm.shape) != (n,)
             or not perm.is_contiguous() or sorted_ids.device != dev or perm.device != dev):
-        raise ValueError(f"sort_and_bound: need ({n},) int32 ids and int64 perm on {dev}")
+        raise ValueError(f"sort_and_bound: need ({n},) int32 ids and int64 perm on {dev}, "
+                         f"at most the state's {state.capacity} rows")
     src = [getattr(state, k) for k in names]
-    dst = [torch.empty_like(t) for t in src]
+    dst = [t.new_empty((n,) + tuple(t.shape[1:])) for t in src]
     bounds = _launch("sort_and_bound", sorted_ids, perm, spec, src, dst)
     sort_and_bound.launches += 1
     return dataclasses.replace(state, **dict(zip(names, dst))), bounds

@@ -17,8 +17,15 @@ The plain versions are the functions of the same names in
 goes there, a CUDA tensor launches the kernel or raises.  Each wrapper
 counts its launches in ``<wrapper>.launches``.
 
+Every wrapper of ``csrc/sweeps.cu`` takes ``rows=(row0, n)``: the launch
+sweeps rows [row0, row0 + n) of the arrays, their candidates anywhere in
+them, into an (n,) or (n, dim) output; None is every row, the launch it
+always was.  The sharded solver sweeps a shard's rows of its halo window
+so (``tisph_tpu`` sweeps the whole extended array and slices the shard's
+rows out, ``parallel/domain.py:559``, ``:624-628``).
+
 How many threads of ``csrc/sweeps.cu`` share a row is a launch rule of
-the row count (``launch_shape``), read by no caller but the launch: a
+the swept row count (``launch_shape``), read by no caller but the launch: a
 small launch gives a row 4 or 8 lanes (and the gradient modes the
 two-stage walk), a large one one thread, whose sums are in j order.
 Either way the same input gives bitwise the same output.
@@ -113,20 +120,21 @@ def _ptr(t):
 
 
 def _launch(mode: str, pos, vel, aux, ids, bounds, material,
-            spec: GridSpec, params: SolverParams, fast_math: bool) -> torch.Tensor:
+            spec: GridSpec, params: SolverParams, fast_math: bool, rows) -> torch.Tensor:
     name = f"{mode}_sweep"
     if ids.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {ids.device}")
     packs = {"pos": pos} | ({"vel": vel, "aux": aux} if mode in _GRAD else {})
     _check(name, spec, ids, bounds, material, packs)
-    n, dim = ids.shape[0], spec.dim
+    row0, n = neighbors.row_range(rows, ids.shape[0], name)
+    dim = spec.dim
     out = torch.empty((n, dim) if mode in _GRAD else (n,),
                       dtype=torch.float32, device=ids.device)
     with torch.cuda.device(ids.device):
         err = build.load().tisph_sweep(
             _MODES[mode], dim, int(fast_math), launch_shape(mode, n)[0], pos.data_ptr(),
             _ptr(vel), _ptr(aux), ids.data_ptr(), bounds.data_ptr(), material.data_ptr(),
-            out.data_ptr(), n,
+            out.data_ptr(), row0, n,
             *_grid_args(spec), *_phys_args(mode in _GRAD, spec, params),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -164,59 +172,66 @@ def _launch_linear(mode: str, pos, vel, aux, ids, bounds, material, spec: GridSp
 
 
 def density_sweep(pos, ids, bounds, material, spec: GridSpec,
-                  params: SolverParams, fast_math: bool = True) -> torch.Tensor:
-    """(N,) density on fluid rows, 0 elsewhere (``neighbors.density_sweep``)."""
+                  params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
+    """(N,) density on fluid rows, 0 elsewhere (``neighbors.density_sweep``).
+    ``rows=(row0, n)``: sweep only those rows, output (n,), as in every
+    wrapper of this kernel; None is every row."""
     if ids.device.type == "cpu":
-        return neighbors.density_sweep(pos, ids, bounds, material, spec, params, fast_math)
-    out = _launch("density", pos, None, None, ids, bounds, material, spec, params, fast_math)
+        return neighbors.density_sweep(pos, ids, bounds, material, spec, params, fast_math,
+                                       rows)
+    out = _launch("density", pos, None, None, ids, bounds, material, spec, params, fast_math,
+                  rows)
     density_sweep.launches += 1
     return out
 
 
 def bvol_sweep(pos, ids, bounds, material, spec: GridSpec,
-               params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+               params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
     """(N,) boundary-volume denominator on boundary rows, 0 elsewhere
     (``neighbors.bvol_sweep``)."""
     if ids.device.type == "cpu":
-        return neighbors.bvol_sweep(pos, ids, bounds, material, spec, params, fast_math)
-    out = _launch("bvol", pos, None, None, ids, bounds, material, spec, params, fast_math)
+        return neighbors.bvol_sweep(pos, ids, bounds, material, spec, params, fast_math, rows)
+    out = _launch("bvol", pos, None, None, ids, bounds, material, spec, params, fast_math,
+                  rows)
     bvol_sweep.launches += 1
     return out
 
 
 def force_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
-                params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+                params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
     """(N, dim) acceleration on fluid rows, 0 elsewhere
     (``neighbors.force_sweep``)."""
     if ids.device.type == "cpu":
         return neighbors.force_sweep(pos, vel, aux, ids, bounds, material, spec,
-                                     params, fast_math)
-    out = _launch("force", pos, vel, aux, ids, bounds, material, spec, params, fast_math)
+                                     params, fast_math, rows)
+    out = _launch("force", pos, vel, aux, ids, bounds, material, spec, params, fast_math,
+                  rows)
     force_sweep.launches += 1
     return out
 
 
 def force_react_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
-                      params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+                      params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
     """(N, dim): acceleration on fluid rows, fluid -> boundary reaction
     force on boundary rows, 0 elsewhere (``neighbors.force_react_sweep``)."""
     if ids.device.type == "cpu":
         return neighbors.force_react_sweep(pos, vel, aux, ids, bounds, material, spec,
-                                           params, fast_math)
+                                           params, fast_math, rows)
     out = _launch("force_react", pos, vel, aux, ids, bounds, material, spec, params,
-                  fast_math)
+                  fast_math, rows)
     force_react_sweep.launches += 1
     return out
 
 
 def reaction_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
-                   params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+                   params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
     """(N, dim) fluid -> boundary reaction force on boundary rows, 0
     elsewhere (``neighbors.reaction_sweep``)."""
     if ids.device.type == "cpu":
         return neighbors.reaction_sweep(pos, vel, aux, ids, bounds, material, spec,
-                                        params, fast_math)
-    out = _launch("reaction", pos, vel, aux, ids, bounds, material, spec, params, fast_math)
+                                        params, fast_math, rows)
+    out = _launch("reaction", pos, vel, aux, ids, bounds, material, spec, params, fast_math,
+                  rows)
     reaction_sweep.launches += 1
     return out
 

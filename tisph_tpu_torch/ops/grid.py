@@ -169,12 +169,12 @@ def stencil_runs(coords: torch.Tensor, bounds: torch.Tensor, spec: GridSpec) -> 
     z = coords[:, spec.dim - 1]
     z_lo = torch.clamp(z - 1, min=0)
     z_hi = torch.clamp(z + 1, max=int(res[-1]) - 1)
-    res_lead = torch.tensor(res[:-1], dtype=torch.int32, device=dev)
-    strides_lead = torch.tensor(strides[:-1], dtype=torch.int32, device=dev)
+    res_lead = device_constant(res[:-1].tolist(), torch.int32, dev)
+    strides_lead = device_constant(strides[:-1].tolist(), torch.int32, dev)
 
     runs = []
     for o in _row_offsets(spec):
-        nb = lead + torch.tensor(o, dtype=torch.int32, device=dev)
+        nb = lead + device_constant(o.tolist(), torch.int32, dev)
         valid = torch.all((nb >= 0) & (nb < res_lead), dim=-1)
         nb_cl = torch.minimum(torch.clamp(nb, min=0), res_lead - 1)
         base = torch.sum(nb_cl * strides_lead, dim=-1, dtype=torch.int32)
@@ -195,11 +195,11 @@ def _row_queries(coords: torch.Tensor, spec: GridSpec, lo_off: int, hi_off: int)
     z = coords[:, spec.dim - 1]
     z_lo = torch.clamp(z - 1, min=0)
     z_hi = torch.clamp(z + 1, max=int(res[-1]) - 1)
-    res_lead = torch.tensor(res[:-1], dtype=torch.int32, device=dev)
-    strides_lead = torch.tensor(spec.strides[:-1], dtype=torch.int32, device=dev)
+    res_lead = device_constant(res[:-1].tolist(), torch.int32, dev)
+    strides_lead = device_constant(spec.strides[:-1], torch.int32, dev)
     lo, hi = [], []
     for o in _row_offsets(spec):
-        nb = lead + torch.tensor(o, dtype=torch.int32, device=dev)
+        nb = lead + device_constant(o.tolist(), torch.int32, dev)
         valid = torch.all((nb >= 0) & (nb < res_lead), dim=-1)
         base = torch.sum(nb * strides_lead, dim=-1, dtype=torch.int32)
         lo.append(torch.where(valid, base + z_lo, lo_off))

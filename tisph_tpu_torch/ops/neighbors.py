@@ -147,19 +147,35 @@ def candidates(ids, bounds, rows_i, spec: GridSpec, layout: str = "seg"):
         yield i, j
 
 
+def row_range(rows, n: int, name: str) -> tuple[int, int]:
+    """(row0, count) of a sweep's ``rows`` argument over arrays of ``n``
+    rows: ``(row0, count)`` as given, or every row for None."""
+    if rows is None:
+        return 0, n
+    row0, count = (int(r) for r in rows)
+    if row0 < 0 or count < 0 or row0 + count > n:
+        raise ValueError(f"{name}: rows ({row0}, {count}) outside the {n} rows of the arrays")
+    return row0, count
+
+
 def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
-           spec: GridSpec, params: SolverParams, layout: str = "seg") -> torch.Tensor:
+           spec: GridSpec, params: SolverParams, layout: str = "seg",
+           rows=None) -> torch.Tensor:
     n = pos.shape[0]
+    row0, count = row_range(rows, n, f"{mode}_sweep")
     dim = spec.dim
     h = params.support_length
     k_sig = cubic_kernel_sigma(dim, h)
     grad = mode in _GRAD
+    # the mode's family among the swept rows [row0, row0 + count); the
+    # candidates j range over every row
+    material = material[row0:row0 + count]
     fam = material == _FAMILY[mode][0]
     for m in _FAMILY[mode][1:]:
         fam = fam | (material == m)
     fluid = material == MATERIAL_FLUID
-    acc = torch.zeros((n, dim if grad else 1), dtype=torch.float32, device=pos.device)
-    rows_i = torch.nonzero(fam).squeeze(1)
+    acc = torch.zeros((count, dim if grad else 1), dtype=torch.float32, device=pos.device)
+    rows_i = torch.nonzero(fam).squeeze(1) + row0
     if rows_i.numel() == 0:
         return acc if grad else acc[:, 0]
 
@@ -186,7 +202,7 @@ def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
         w = 2.0 * p1 * p1sq - 8.0 * p2 * p2sq
 
         if not grad:
-            acc[:, 0].index_add_(0, i, pj[:, 3] * w)
+            acc[:, 0].index_add_(0, i - row0, pj[:, 3] * w)
             continue
 
         vi, vj, aj = vel[i], vel[j], aux[j]
@@ -214,9 +230,9 @@ def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
             inv_rho_j = 1.0 / torch.clamp(vj[:, 3], min=1e-12)
             nu_b_j = (params.boundary_sigma * h * params.c_s * 0.5) * inv_rho_j
             react = (pi[:, 3] * (flm * (nu_b_j * dot_neg - aj[:, 0]))) * gmag
-            coef = react if coef is None else torch.where(fluid[i], coef, react)
+            coef = react if coef is None else torch.where(fluid[i - row0], coef, react)
         for a in range(dim):
-            acc[:, a].index_add_(0, i, coef * dx[a])
+            acc[:, a].index_add_(0, i - row0, coef * dx[a])
 
     if not grad:
         return acc[:, 0] * k_sig  # rows outside the family were never added to
@@ -228,36 +244,41 @@ def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
 
 
 def density_sweep(pos, ids, bounds, material, spec: GridSpec,
-                  params: SolverParams, fast_math: bool = True) -> torch.Tensor:
-    """(N,) density on fluid rows, 0 elsewhere.  ``pos`` c column = effm."""
-    return _sweep("density", pos, None, None, ids, bounds, material, spec, params)
+                  params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
+    """(N,) density on fluid rows, 0 elsewhere.  ``pos`` c column = effm.
+    ``rows=(row0, n)``: only those rows are swept (their candidates lie
+    anywhere in the arrays) and the output has n rows, in every mode of
+    the seg sweep; None is every row."""
+    return _sweep("density", pos, None, None, ids, bounds, material, spec, params,
+                  rows=rows)
 
 
 def bvol_sweep(pos, ids, bounds, material, spec: GridSpec,
-               params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+               params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
     """(N,) boundary-volume denominator on boundary rows, 0 elsewhere.
     ``pos`` c column = bd (1 on boundary rows)."""
-    return _sweep("bvol", pos, None, None, ids, bounds, material, spec, params)
+    return _sweep("bvol", pos, None, None, ids, bounds, material, spec, params, rows=rows)
 
 
 def force_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
-                params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+                params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
     """(N, dim) acceleration on fluid rows, 0 elsewhere."""
-    return _sweep("force", pos, vel, aux, ids, bounds, material, spec, params)
+    return _sweep("force", pos, vel, aux, ids, bounds, material, spec, params, rows=rows)
 
 
 def force_react_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
-                      params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+                      params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
     """(N, dim): acceleration on fluid rows, fluid -> boundary reaction
     force on boundary rows, 0 elsewhere."""
-    return _sweep("force_react", pos, vel, aux, ids, bounds, material, spec, params)
+    return _sweep("force_react", pos, vel, aux, ids, bounds, material, spec, params,
+                  rows=rows)
 
 
 def reaction_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
-                   params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+                   params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
     """(N, dim) fluid -> boundary reaction force on boundary rows, 0
     elsewhere.  ``pos`` c column = effm (rho0 V on boundary rows)."""
-    return _sweep("reaction", pos, vel, aux, ids, bounds, material, spec, params)
+    return _sweep("reaction", pos, vel, aux, ids, bounds, material, spec, params, rows=rows)
 
 
 def density_sweep_linear(pos, ids, bounds, material, spec: GridSpec, params: SolverParams,

@@ -1,5 +1,5 @@
 """Run a scene file: the main loop of ``examples/run_scene.py`` on the
-PyTorch port (no viewer, orbit or GIF options).  A scene with a dynamic
+PyTorch port, its viewer, orbit and GIF options included.  A scene with a dynamic
 rigid body (``"isDynamic": true``) runs the coupled solver ``WCSPHRigid``;
 static bodies are boundary particles of plain ``WCSPH`` (``make_solver``);
 a scene with emitters runs ``rollout_emit`` (``make_solver`` refuses one
@@ -10,7 +10,8 @@ Usage:
         --substeps 5 --resort 2 --metrics-every 10 [--out DIR --format npz|png] \
         [--compat reference|config|reference-exact] [--device cuda] \
         [--layout seg|linear] [--solver wcsph|legacy] \
-        [--checkpoint PATH] [--resume PATH] [--bpa]
+        [--checkpoint PATH] [--resume PATH] [--bpa] \
+        [--view] [--orbit] [--view-every N] [--gif OUT.gif]
 
 ``--solver legacy`` runs the reference's V1 physics (``WCSPHLegacy``, at
 ``--resort 1`` only).  ``--checkpoint`` writes the final state, the rigid
@@ -23,6 +24,13 @@ writes ``boundary.bpa.npz`` into ``--out`` (or the current directory).
 ``--compat`` is the reference's: ``reference-exact`` replays its shipped
 V2 density bug (zero pressure), ``config`` honours the scene keys it
 ignores.
+
+``--view`` shows the particles in a matplotlib window (``render.viewer``;
+headless Agg without a display), ``--orbit`` in the orbit-camera viewer
+of 3D scenes (``render.orbit``: left-drag orbit, right-drag pan, scroll
+dolly, wasd/qe move, r reset; a 2D scene falls back to ``--view``), both
+redrawn every ``--view-every`` frames.  ``--gif`` assembles the PNG
+frames of ``--out DIR --format png`` into a GIF (``render.video``).
 
 ``--out`` writes one frame per rendered frame through
 ``render.export.FrameExporter``: ``frame_NNNNNN.npz`` with the reference's
@@ -80,7 +88,19 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--bpa", action="store_true",
                     help="2D scenes: extract the fluid boundary with ball pivoting on the "
                          "final frame and save it as boundary.bpa.npz")
+    ap.add_argument("--view", action="store_true",
+                    help="live matplotlib window updated as frames complete (headless Agg "
+                         "snapshots without a display)")
+    ap.add_argument("--orbit", action="store_true",
+                    help="3D scenes: the interactive orbit-camera viewer; implies --view")
+    ap.add_argument("--view-every", type=int, default=1,
+                    help="with --view or --orbit: redraw every N frames")
+    ap.add_argument("--gif", default=None,
+                    help="assemble the exported PNG frames into a GIF here (requires --out "
+                         "DIR and --format png)")
     args = ap.parse_args(argv)
+    if args.gif and (not args.out or args.format != "png"):
+        ap.error("--gif requires --out DIR and --format png")
 
     device = torch.device(args.device)
     scene = tt.load_scene(args.scene)
@@ -113,6 +133,15 @@ def main(argv: list[str] | None = None) -> int:
           f"grid: res={solver.spec.res} dt={solver.params.dt} R={args.resort} "
           f"layout={args.layout} compat={args.compat} solver={args.solver} device={device}")
     exporter = FrameExporter(args.out, fmt=args.format, scene=scene) if args.out else None
+    viewer = None
+    if args.orbit and scene.dim == 3:
+        from tisph_tpu_torch.render.orbit import OrbitViewer
+        viewer = OrbitViewer(scene, interactive=True)
+    elif args.view or args.orbit:
+        if args.orbit:
+            print("warning: --orbit is 3D-only; using the flat viewer", file=sys.stderr)
+        from tisph_tpu_torch.render.viewer import Viewer
+        viewer = Viewer(scene, interactive=True)
 
     _sync(device)
     t0 = time.perf_counter()
@@ -121,6 +150,8 @@ def main(argv: list[str] | None = None) -> int:
             state, rigid, emitters = tt.advance(solver, state, rigid, args.substeps, emitters)
             if exporter is not None:
                 exporter.save(state, frame)
+            if viewer is not None and frame % args.view_every == 0:
+                viewer.show(state, title=f"frame {frame}")
             if args.metrics_every and frame % args.metrics_every == 0:
                 m = solver.metrics(state)
                 print(f"frame {frame:5d}  vmax={m['max_velocity']:8.3f}  "
@@ -132,6 +163,8 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         if exporter is not None:
             exporter.close()
+        if viewer is not None:
+            viewer.close()
     _sync(device)
     wall = time.perf_counter() - t0
     if solver.metrics(state)["nan_count"]:
@@ -140,6 +173,9 @@ def main(argv: list[str] | None = None) -> int:
     total = args.steps * args.substeps
     print(f"done: {total} steps, {wall:.2f}s wall (frame output included), "
           f"{state.num_active * total / wall:.3e} particle-steps/sec on {device}")
+    if args.gif:
+        from tisph_tpu_torch.render.video import frames_to_gif
+        print(f"GIF written to {frames_to_gif(args.out, args.gif)}")
     if args.checkpoint:
         checkpoint.save_npz(state, args.checkpoint, rigid=rigid, emitters=emitters)
         print(f"checkpoint written to {args.checkpoint}")
