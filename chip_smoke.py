@@ -339,32 +339,25 @@ def sweep_inputs(solver, state, per_step: bool = False):
     comparison read identical inputs).  ``per_step``: boundary volumes
     from a bvol pass on the current positions first, as the coupled
     substep takes them."""
-    from tisph_tpu_torch.ops import forces as F
+    from tisph_tpu_torch.models.wcsph import eos_packs, group_masses, per_step_volumes
     from tisph_tpu_torch.ops import neighbors
     from tisph_tpu_torch.ops.grid import csr_bounds, sort_state_by_cell
 
     spec, params = solver.spec, solver.params
     st, ids, _ = sort_state_by_cell(state, spec)
     bounds = csr_bounds(ids, spec)
-    fl = st.fluid_mask
-    bd = st.boundary_mask.to(torch.float32)
+    fl, bd = st.fluid_mask, st.boundary_mask
+    pos_b = neighbors.pack4(st.x, bd.to(torch.float32))
+    flm, effm = group_masses(st, fl, bd, params.density0)
     if per_step:
-        delta = neighbors.bvol_sweep(neighbors.pack4(st.x, bd), ids, bounds, st.material,
-                                     spec, params)
-        vol = torch.where(st.boundary_mask, 1.0 / torch.clamp(delta, min=1e-10), st.volume)
+        delta = neighbors.bvol_sweep(pos_b, ids, bounds, st.material, spec, params)
+        vol, effm = per_step_volumes(delta, bd, st.volume, flm, params.density0)
         st = dataclasses.replace(st, volume=vol)
-    flm = fl.to(torch.float32) * st.mass
-    effm = flm + bd * (params.density0 * st.volume)
     pos = neighbors.pack4(st.x, effm)
     rho = neighbors.density_sweep(pos, ids, bounds, st.material, spec, params)
-    rho, p = F.compute_pressures(torch.where(fl, rho, st.density), params)
-    p_rho2 = p / torch.clamp(rho * rho, min=1e-12)
-    return {
-        "st": st, "ids": ids, "bounds": bounds,
-        "pos": pos, "pos_b": neighbors.pack4(st.x, bd),
-        "vel": neighbors.pack4(st.v, rho),
-        "aux": neighbors.pack_aux(p_rho2, flm, st.mass),
-    }
+    _, _, vel, aux = eos_packs(rho, st, fl, flm, params)
+    return {"st": st, "ids": ids, "bounds": bounds, "pos": pos, "pos_b": pos_b,
+            "vel": vel, "aux": aux}
 
 
 def check_sweeps(label: str, solver, inp) -> dict[str, float]:
@@ -824,20 +817,18 @@ def group_inputs(solver, state, cache):
     counterpart of sweep_inputs for a state that an emitter changed after
     the group's rebuild.  ``st`` carries the sort-time material, so a
     checker's family rows are the rebuild's."""
-    from tisph_tpu_torch.ops import forces as F
+    from tisph_tpu_torch.models.wcsph import eos_packs
     from tisph_tpu_torch.ops import neighbors
 
     spec, params = solver.spec, solver.params
     ids, bounds = cache.ids, cache.bounds
     pos = neighbors.pack4(state.x, cache.effm)
     rho = neighbors.density_sweep(pos, ids, bounds, cache.material, spec, params)
-    rho, p = F.compute_pressures(torch.where(cache.fluid, rho, state.density), params)
-    p_rho2 = p / torch.clamp(rho * rho, min=1e-12)
+    _, _, vel, aux = eos_packs(rho, state, cache.fluid, cache.flm, params)
     return {
         "st": dataclasses.replace(state, material=cache.material), "ids": ids, "bounds": bounds,
         "pos": pos, "pos_b": neighbors.pack4(state.x, cache.boundary.to(torch.float32)),
-        "vel": neighbors.pack4(state.v, rho),
-        "aux": neighbors.pack_aux(p_rho2, cache.flm, state.mass),
+        "vel": vel, "aux": aux,
     }
 
 
@@ -920,7 +911,7 @@ def shard_sweep_inputs(sh, shards, s: int):
     fresh R-group of the sharded solver ``sh``, as its _apply forms them:
     the window's packs (density from the plain version), ids, bounds and
     sort-time material, and the shard's row range."""
-    from tisph_tpu_torch.ops import forces as F
+    from tisph_tpu_torch.models.wcsph import eos_packs
     from tisph_tpu_torch.ops import neighbors
 
     spec, params = sh.spec, sh.params
@@ -931,9 +922,9 @@ def shard_sweep_inputs(sh, shards, s: int):
     for t, (st, cc) in enumerate(zip(shards, caches)):
         rho = neighbors.density_sweep(sh._extend(pos, t), cc.ids, cc.bounds, cc.material, spec,
                                       params, rows=cc.rows)
-        rho, p = F.compute_pressures(torch.where(cc.fluid, rho, st.density), params)
-        vel.append(neighbors.pack4(st.v, rho))
-        aux.append(neighbors.pack_aux(p / torch.clamp(rho * rho, min=1e-12), cc.flm, st.mass))
+        _, _, v, a = eos_packs(rho, st, cc.fluid, cc.flm, params)
+        vel.append(v)
+        aux.append(a)
     return {"pos": sh._extend(pos, s), "vel": sh._extend(vel, s), "aux": sh._extend(aux, s),
             "ids": c.ids, "bounds": c.bounds, "material": c.material, "rows": c.rows,
             "fluid": c.fluid, "x": sh._extend([st.x for st in shards], s)}
@@ -984,10 +975,12 @@ def check_shard_sweeps(label: str, sh, inp) -> dict[str, tuple]:
         ms, plain_ms = time_against_plain({f"{mode}@shard": (
             lambda: kern(*a, True, rows=(row0, n)), lambda: plain(*a, rows=(row0, n)),
             20, 2)})[f"{mode}@shard"]
-        # bound: the window's inputs read once, the rows' output written
-        # once; the pairs inside h of the shard's fluid rows
+        # bound: the packs over the window and the bounds read once, ids
+        # and material of the swept rows only (the kernel reads them at
+        # i), the rows' output written once; the pairs inside h of the
+        # shard's fluid rows
         grad = mode == "force"
-        nbytes = (w * (16 + 4 + 4) + (spec.num_cells + 1) * 4
+        nbytes = (w * 16 + n * (4 + 4) + (spec.num_cells + 1) * 4
                   + (2 * w * 16 + n * spec.dim * 4 if grad else n * 4))
         rows_mask = torch.zeros(w, dtype=torch.bool, device=fl.device)
         rows_mask[row0:row0 + n] = fl

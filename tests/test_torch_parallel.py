@@ -8,8 +8,8 @@
   tolerances (x atol 1e-5, v atol 5e-3, density rtol 1e-4), rows matched
   by a unique object_id;
 - against the port's own single-device WCSPH and WCSPHRigid at the same
-  tolerances (R=1 and R=2, reference-exact, emitters, the coupled step,
-  per_step volumes);
+  tolerances (R=1 and R=2, reference-exact, interior shards whose windows
+  are cut on both sides, emitters, the coupled step, per_step volumes);
 - the counterparts of tests/test_parallel.py's exchange-resort, halo and
   run() cases;
 - kernel A's plain version over a row range equals the same rows of the
@@ -155,11 +155,23 @@ def test_reference_exact_eos_is_the_single_device_one():
     assert gap > 1e-2 * float(raw["configuration"]["density0"]), gap
 
 
+def _slab_raw():
+    """A fluid bar long in x: on 4 shards the halo (512 rows) is shorter
+    than a shard (640 rows), so an interior shard's window holds rows of
+    both neighbours and ends inside the array on each side."""
+    raw = _raw(0.04)
+    raw["configuration"]["domainEnd"] = [4.0, 0.6, 0.6]
+    raw["fluidBlocks"][0].update(start=[0.2, 0.15, 0.15], end=[3.8, 0.35, 0.35],
+                                 velocity=[0.5, -1.0, 0.3])
+    return raw
+
+
 @pytest.fixture(scope="module")
 def exchange_and_global():
-    """6 steps of tests/test_parallel.py::_scene on 4 shards through each
-    resort, and the exchange's fallbacks on steps 2 to 6."""
-    scene = pt.scene_from_dict(_raw())
+    """6 steps of the bar on 4 shards through each resort, the exchange's
+    fallbacks on steps 2 to 6 and the shards' windows, and 6 steps of the
+    single-device WCSPH."""
+    scene = pt.scene_from_dict(_slab_raw())
     outs, later = {}, {}
     for mode in ("global", "exchange"):
         solver = ShardedWCSPH(scene, _cpu(4), resort=mode)
@@ -169,7 +181,10 @@ def exchange_and_global():
             shards = solver.step(shards)
         outs[mode] = solver.gather_state(shards)
         later[mode] = (solver.occ_resort, solver.metrics(shards)["resort_fallbacks"],
-                       solver.halo_path)
+                       solver.halo_path, [solver._window(s) for s in range(4)],
+                       int(solver.occ_halo))
+    single = pt.WCSPH(scene, device="cpu")
+    outs["single"] = single.rollout(single.bind(pt.build_state(scene, device="cpu")), 6)
     return outs, later
 
 
@@ -179,6 +194,21 @@ def test_exchange_resort_matches_global_bitwise(exchange_and_global):
     assert later["exchange"][2] == "neighbours"  # a window is not the whole array
     for f in gridops.state_fields(outs["global"]):
         assert torch.equal(getattr(outs["global"], f), getattr(outs["exchange"], f)), f
+
+
+def test_interior_shards_match_single_device(exchange_and_global):
+    """The two interior shards of 4 sweep windows cut on both sides (the
+    halo exchange from each neighbour, not the whole array), and the
+    sharded run is the single-device one at test_parallel.py:66-71's
+    tolerances."""
+    outs, later = exchange_and_global
+    windows, cap = later["exchange"][3], outs["exchange"].capacity
+    for g0, g1 in windows[1:3]:
+        assert 0 < g0 and g1 < cap, windows
+    assert later["exchange"][4] == 0  # the halo covered every stencil
+    got, want = outs["exchange"], outs["single"]
+    assert got.num_active == want.num_active
+    _close(pt.state_to_host(got), pt.state_to_host(want))
 
 
 def test_exchange_resort_rides_edges_in_steady_state(exchange_and_global):
@@ -191,7 +221,7 @@ def test_exchange_resort_rides_edges_in_steady_state(exchange_and_global):
 def test_exchange_resort_guard_catches_shuffle():
     """test_parallel.py:351: a shuffled state trips the seam guard, counts
     in occ_resort and still gives the global sort's step bitwise."""
-    scene = pt.scene_from_dict(_raw())
+    scene = pt.scene_from_dict(_slab_raw())
 
     def run(mode):
         solver = ShardedWCSPH(scene, _cpu(4), resort=mode, resort_edge=128)
@@ -243,12 +273,12 @@ def test_halo_overflow_detected_and_regrown():
     assert solver.halo_path == "neighbours"
     assert int(solver.occ_halo) == 1, "halo overflow undetected"
     h0 = solver.halo
-    shards = solver.run(shards, 12, check_every=3)
+    shards = solver.run(shards, 3, check_every=3)
     assert solver.halo > h0, "run() did not deepen the halo"
     assert int(solver.occ_halo) == 0  # reset after the checks
 
     ref = pt.WCSPH(scene, device="cpu")
-    want = ref.rollout(ref.bind(pt.build_state(scene, device="cpu")), 17)
+    want = ref.rollout(ref.bind(pt.build_state(scene, device="cpu")), 8)
     got = solver.gather_state(solver.rollout(shards, 3))
     x1, x2 = want.x[want.fluid_mask].numpy(), got.x[got.fluid_mask].numpy()
     assert np.isfinite(x2).all()

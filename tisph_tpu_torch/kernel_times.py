@@ -86,26 +86,25 @@ def _inputs(solver, state, per_step: bool = False) -> dict:
     """The sorted state and the packs of one substep's sweeps, density from
     the kernel (the plain version is too slow at 1,000,000 dense rows), and
     the rebuild calls on ``state``."""
-    from tisph_tpu_torch.ops import forces, grid, neighbors
+    from tisph_tpu_torch.models.wcsph import eos_packs, group_masses, per_step_volumes
+    from tisph_tpu_torch.ops import grid, neighbors
     from tisph_tpu_torch.ops.cuda import sweeps
 
     spec, params = solver.spec, solver.params
     rebuilds = _rebuilds(state, spec)
     st, ids, _ = grid.sort_state_by_cell(state, spec)
     tail = (ids, grid.csr_bounds(ids, spec), st.material, spec, params)
-    bd = st.boundary_mask.to(torch.float32)
-    pos_b = neighbors.pack4(st.x, bd)
+    fl, bd = st.fluid_mask, st.boundary_mask
+    pos_b = neighbors.pack4(st.x, bd.to(torch.float32))
+    flm, effm = group_masses(st, fl, bd, params.density0)
     if per_step:
-        delta = sweeps.bvol_sweep(pos_b, *tail)
-        st = dataclasses.replace(st, volume=torch.where(
-            st.boundary_mask, 1.0 / torch.clamp(delta, min=1e-10), st.volume))
-    flm = st.fluid_mask.to(torch.float32) * st.mass
-    pos = neighbors.pack4(st.x, flm + bd * (params.density0 * st.volume))
-    rho = sweeps.density_sweep(pos, *tail)
-    rho, p = forces.compute_pressures(torch.where(st.fluid_mask, rho, st.density), params)
-    aux = neighbors.pack_aux(p / torch.clamp(rho * rho, min=1e-12), flm, st.mass)
-    return {"pos": pos, "pos_b": pos_b, "vel": neighbors.pack4(st.v, rho), "aux": aux,
-            "tail": tail, "rebuilds": rebuilds}
+        vol, effm = per_step_volumes(sweeps.bvol_sweep(pos_b, *tail), bd, st.volume, flm,
+                                     params.density0)
+        st = dataclasses.replace(st, volume=vol)
+    pos = neighbors.pack4(st.x, effm)
+    _, _, vel, aux = eos_packs(sweeps.density_sweep(pos, *tail), st, fl, flm, params)
+    return {"pos": pos, "pos_b": pos_b, "vel": vel, "aux": aux, "tail": tail,
+            "rebuilds": rebuilds}
 
 
 def measure() -> dict:

@@ -57,6 +57,44 @@ class GroupCache(NamedTuple):
     flm: torch.Tensor       # (N,) f32 fl * m
 
 
+def group_masses(state: SimState, fluid: torch.Tensor, boundary: torch.Tensor,
+                 density0: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """The group's masses of the rows of ``state``: ``flm`` = fl * m and
+    ``effm`` = fl * m + bd * rho0 * V, the density sweep's pack column."""
+    flm = fluid.to(torch.float32) * state.mass
+    return flm, flm + boundary.to(torch.float32) * (density0 * state.volume)
+
+
+def per_step_volumes(delta: torch.Tensor, boundary: torch.Tensor, volume: torch.Tensor,
+                     flm: torch.Tensor, density0: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """``boundary_mode="per_step"``: Akinci volumes V = 1 / delta on
+    boundary rows from the bvol sweep, and the refreshed ``effm`` (rho0 V
+    on boundary rows is also the reaction's bvol_i)."""
+    volume = torch.where(boundary, 1.0 / torch.clamp(delta, min=1e-10), volume)
+    return volume, flm + torch.where(boundary, density0 * volume, 0.0)
+
+
+def eos_packs(rho: torch.Tensor, state: SimState, fluid: torch.Tensor, flm: torch.Tensor,
+              params) -> tuple[torch.Tensor, ...]:
+    """The summed density kept on fluid rows (boundary rows keep their
+    stored one), the density mode, the Tait EOS, and the force sweep's
+    packs: ``(rho, pressure, vel, aux)``."""
+    rho = torch.where(fluid, rho, state.density)
+    rho = F.apply_density_mode(rho, state, params)
+    rho, pressure = F.compute_pressures(rho, params)
+    p_rho2 = pressure / torch.clamp(rho * rho, min=1e-12)
+    return rho, pressure, pack4(state.v, rho), pack_aux(p_rho2, flm, state.mass)
+
+
+def advance(state: SimState, rho: torch.Tensor, pressure: torch.Tensor, dv: torch.Tensor,
+            params) -> SimState:
+    """The substep's end: store rho and p, advect fluid rows by ``dv``,
+    clamp to the domain box."""
+    state = dataclasses.replace(state, density=rho, pressure=pressure)
+    state = F.advect(state, dv, params)  # fluid rows only
+    return F.enforce_domain_boundary(state, params)
+
+
 class WCSPH(SolverBase):
     def _build(self, state: SimState) -> tuple[SimState, GroupCache]:
         state, ids, _, bounds = cuda_bounds.sort_and_bound(state, self.spec)
@@ -66,8 +104,7 @@ class WCSPH(SolverBase):
                      bounds: torch.Tensor) -> GroupCache:
         """The group's cache from the sorted state, its ids and bounds."""
         fluid, boundary = state.fluid_mask, state.boundary_mask
-        flm = fluid.to(torch.float32) * state.mass
-        effm = flm + boundary.to(torch.float32) * (self.params.density0 * state.volume)
+        flm, effm = group_masses(state, fluid, boundary, self.params.density0)
         return GroupCache(ids, bounds, state.material, fluid, boundary, effm, flm)
 
     def _apply(self, state: SimState, cache: GroupCache, with_reactions: bool = False):
@@ -84,23 +121,14 @@ class WCSPH(SolverBase):
             # structure; the bvol pack's c column is bd, not effm
             delta = cuda_sweeps.bvol_sweep(pack4(state.x, bd.to(torch.float32)), ids, bounds,
                                            material, spec, params, fm)
-            volume = torch.where(bd, 1.0 / torch.clamp(delta, min=1e-10), state.volume)
-            # effm = rho0 V on boundary rows is also the reaction's bvol_i
-            effm = cache.flm + torch.where(bd, params.density0 * volume, 0.0)
+            volume, effm = per_step_volumes(delta, bd, state.volume, cache.flm, params.density0)
             state = dataclasses.replace(state, volume=volume)
 
         linear = self.layout == "linear"
         pos = pack4(state.x, effm)
         density = cuda_sweeps.density_sweep_linear if linear else cuda_sweeps.density_sweep
         rho = density(pos, ids, bounds, material, spec, params, fm)
-        # boundary rows keep their stored density
-        rho = torch.where(fluid, rho, state.density)
-        rho = F.apply_density_mode(rho, state, params)
-        rho, pressure = F.compute_pressures(rho, params)
-        p_rho2 = pressure / torch.clamp(rho * rho, min=1e-12)
-
-        vel = pack4(state.v, rho)
-        aux = pack_aux(p_rho2, cache.flm, state.mass)
+        rho, pressure, vel, aux = eos_packs(rho, state, fluid, cache.flm, params)
         # dv on fluid rows (and the reaction on boundary rows with
         # with_reactions), 0 elsewhere, as the kernel's contract says
         if with_reactions:
@@ -109,9 +137,7 @@ class WCSPH(SolverBase):
             sweep = cuda_sweeps.force_sweep_linear if linear else cuda_sweeps.force_sweep
         dv = sweep(pos, vel, aux, ids, bounds, material, spec, params, fm)
 
-        state = dataclasses.replace(state, density=rho, pressure=pressure)
-        state = F.advect(state, dv, params)  # fluid rows only
-        state = F.enforce_domain_boundary(state, params)
+        state = advance(state, rho, pressure, dv, params)
         if with_reactions:
             return state, torch.where(bd[:, None], dv, 0.0)
         return state

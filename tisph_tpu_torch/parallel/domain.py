@@ -27,9 +27,9 @@ One R-group (``SolverBase._groups``, as the single-device solver):
   halo-extended window (own rows plus ``halo`` rows each side, cut at the
   array's ends) and their CSR bounds (kernel B), the window's sort-time
   material and the group's masses;
-- ``_apply``, every substep: per shard, over its window, the same phases
-  as ``WCSPH._apply`` (``per_step`` bvol, density, the EOS through
-  ``apply_density_mode``, force or force_react, advect, clamp), each sweep
+- ``_apply``, every substep: per shard, over its window, the phases of
+  ``WCSPH._apply`` through its row-local helpers (``per_step`` bvol,
+  density, ``eos_packs``, force or force_react, ``advance``), each sweep
   a launch of kernel A over the shard's rows of the window
   (``rows=(off, rows)``) after a value-only exchange of the packs it reads
   (pos; then vel and aux).
@@ -59,12 +59,12 @@ from tisph_tpu_torch.models.rigid import (
 )
 from tisph_tpu_torch.models.solver_base import SolverBase
 from tisph_tpu_torch.models.state import SimState, pad_state_capacity
-from tisph_tpu_torch.ops import forces as F
+from tisph_tpu_torch.models.wcsph import advance, eos_packs, group_masses, per_step_volumes
 from tisph_tpu_torch.ops import grid as gridops
 from tisph_tpu_torch.ops.consts import device_constant
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
-from tisph_tpu_torch.ops.neighbors import pack4, pack_aux
+from tisph_tpu_torch.ops.neighbors import pack4
 
 # rows: shard sizes, halo and edge depths are multiples of it (tisph_tpu's
 # block size), which also keeps every shard's slice of an int32 or f32
@@ -349,8 +349,7 @@ class ShardedWCSPH(SolverBase):
         for s, st in enumerate(shards):
             ids_e = self._extend(ids_l, s)
             fluid, bd = st.fluid_mask, st.boundary_mask
-            flm = fluid.to(torch.float32) * st.mass
-            effm = flm + bd.to(torch.float32) * (params.density0 * st.volume)
+            flm, effm = group_masses(st, fluid, bd, params.density0)
             g0 = self._window(s)[0]
             caches.append(ShardCache(ids_e, cuda_bounds.csr_bounds_sorted(ids_e, spec),
                                      self._extend(mat_l, s), (s * self.shard_rows - g0,
@@ -398,9 +397,8 @@ class ShardedWCSPH(SolverBase):
                 c, st = caches[s], shards[s]
                 delta = cuda_sweeps.bvol_sweep(self._extend(pos_b, s), c.ids, c.bounds,
                                                c.material, spec, params, fm, rows=c.rows)
-                bd = c.boundary
-                volume = torch.where(bd, 1.0 / torch.clamp(delta, min=1e-10), st.volume)
-                effm[s] = c.flm + torch.where(bd, params.density0 * volume, 0.0)
+                volume, effm[s] = per_step_volumes(delta, c.boundary, st.volume, c.flm,
+                                                   params.density0)
                 shards[s] = dataclasses.replace(st, volume=volume)
 
         pos = [pack4(st.x, effm[s]) for s, st in enumerate(shards)]
@@ -410,12 +408,9 @@ class ShardedWCSPH(SolverBase):
             c, st = caches[s], shards[s]
             rho = cuda_sweeps.density_sweep(pos_e[s], c.ids, c.bounds, c.material, spec,
                                             params, fm, rows=c.rows)
-            rho = torch.where(c.fluid, rho, st.density)
-            rho = F.apply_density_mode(rho, st, params)
-            rho, pressure = F.compute_pressures(rho, params)
-            p_rho2 = pressure / torch.clamp(rho * rho, min=1e-12)
-            vel.append(pack4(st.v, rho))
-            aux.append(pack_aux(p_rho2, c.flm, st.mass))
+            rho, pressure, v, a = eos_packs(rho, st, c.fluid, c.flm, params)
+            vel.append(v)
+            aux.append(a)
             eos.append((rho, pressure))
 
         sweep = cuda_sweeps.force_react_sweep if with_reactions else cuda_sweeps.force_sweep
@@ -424,9 +419,7 @@ class ShardedWCSPH(SolverBase):
             c, st = caches[s], shards[s]
             dv = sweep(pos_e[s], self._extend(vel, s), self._extend(aux, s), c.ids, c.bounds,
                        c.material, spec, params, fm, rows=c.rows)
-            st = dataclasses.replace(st, density=eos[s][0], pressure=eos[s][1])
-            st = F.advect(st, dv, params)
-            shards[s] = F.enforce_domain_boundary(st, params)
+            shards[s] = advance(st, *eos[s], dv, params)
             if with_reactions:
                 reactions.append(torch.where(c.boundary[:, None], dv, 0.0))
         return (shards, reactions) if with_reactions else shards

@@ -58,7 +58,6 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--resort", type=int, default=1,
                     help="substeps per rebuild (R)")
-    ap.add_argument("--resort-mode", choices=("exchange", "global"), default="exchange")
     ap.add_argument("--profile", type=int, default=0,
                     help="then torch.profiler over N more steps (bench.py's --profile): "
                          "one JSON line")
@@ -76,7 +75,7 @@ def main(argv: list[str] | None = None) -> int:
         print("note: shards share a device, so this run measures the halo exchange's cost "
               "there, not multi-device scaling")
     scene = tt.load_scene(args.scene)
-    solver = ShardedWCSPH(scene, mesh, resort_every=args.resort, resort=args.resort_mode)
+    solver = ShardedWCSPH(scene, mesh, resort_every=args.resort)
     shards = solver.bind(tt.build_state(scene, device=mesh.devices[0]))
     n = sum(st.num_active for st in shards)
     print(f"particles: {n}, halo={solver.halo} rows ({solver.halo_path}), "
