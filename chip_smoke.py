@@ -131,7 +131,33 @@ Phases, each of which raises on failure (nothing is caught):
    step passes, a NaN velocity raises), StepTimer over five R=2 groups,
    and the orbit viewer (matplotlib's Agg) rendering it to a PNG; where
    matplotlib is not installed, the viewer's camera projection of the
-   state alone (every particle in front of the camera, finite).
+   state alone (every particle in front of the camera, finite);
+17. the rectangle decomposition (tisph_tpu_torch.parallel.ShardedWCSPHRect)
+   on demo_3d, on a 2x2 and a 2x2x2 mesh whose shards all live on the one
+   card: 100 steps at R=2 through bind -> rollout; after 20 the global
+   state against the single-device WCSPH run (rows by their tag; the
+   tolerances of phase 14, tests/test_parallel2d.py:80-84), the largest
+   errors and whether they are bitwise 0; the launch counters prove, per
+   shard and substep, a density and a force launch of kernel A with an
+   i-row map, and per shard and group one rebuild pass and one bounds-only
+   launch; no NaN, CFL < 1, no halo overflow, migration trip or dropped
+   row; one R=2 group (build and substeps) queued behind the device spin
+   without a host wait, and one host read per rollout call (its check of
+   the live rows and the dropped rows); then on shard 1 of the 2x2, kernel
+   A with the i-row map against its plain version at phase 4's
+   tolerances, its time and its bound; and run_sharded --mesh2d 2x2
+   --profile 20 (device operations, busy time and idle share a step);
+18. the rectangle coupled path: bench_3d_rigid on a 2x2 mesh of the card,
+   200 coupled steps at R=2 through rollout_coupled, held to WCSPHRigid
+   after 20 as phase 15 is, launch counters (bvol, density and force_react
+   with an i-row map per shard per substep), body shape drift below 1e-4,
+   one host read per call;
+19. the sharded linear layout: demo_3d on 2 and 4 slab shards of the card
+   (ShardedWCSPH(layout="linear"), R=1), 50 steps; after 20 the global
+   state against the single-device linear run (and whether it is bitwise
+   equal); kernel C's launch counters (a density and a force launch over
+   a row range per shard per step); then kernel C over shard 1 of 2's row
+   range against its plain version, its time and its bound.
 
 Every kernel's entry in the JSON line has a bound: the larger of the bytes
 it must move (each input read once, each output written once) over 3.35
@@ -143,8 +169,10 @@ torch.searchsorted plus one index_select per field (no PyTorch call
 computes a sweep).
 
 The launches in the JSON line are the sums of the main paths' runs:
-phases 5, 11, 12 and 13 with 14 and 15 for kernel A's density and force and
-kernel B, 7 and 15 for bvol and force_react, 9 for kernel C.
+phases 5, 11, 12 and 13 with 14, 15, 17 and 18 for kernel A's density and
+force and kernel B (and 19 for B), 7, 15 and 18 for bvol and force_react,
+9 and 19 for kernel C.  A's max_abs_err folds in its checks over a row
+range (phase 14) and with an i-row map (17), C's over a row range (19).
 
 The last two lines of standard output are the JSON kernel summary and
 {"ok": true, "device": {...}}; any failure exits nonzero before them.
@@ -183,6 +211,9 @@ LEGACY_CHECK, LEGACY_STEPS = 20, 500
 BITWISE_STEPS = 20
 SHARD_STEPS, SHARD_CHECK, SHARD_BITWISE = 100, 20, 10  # phase 14
 SHARD_RIGID = 200  # phase 15
+RECT_STEPS, RECT_CHECK = 100, 20  # phase 17 (and the check of 18 and 19)
+RECT_RIGID = 200  # phase 18
+LIN_SHARD_STEPS = 50  # phase 19
 SPIN_CYCLES = 2_000_000_000  # about a second at the H100's clocks
 
 # tests/test_rigid_dynamics.py::test_buoyancy's pool and box
@@ -306,6 +337,8 @@ def time_against_plain(timing: dict) -> dict[str, tuple[float, float]]:
 def reset_counts(kernels) -> None:
     for k in kernels.values():
         k.launches = 0
+        if hasattr(k, "part_launches"):
+            k.part_launches = 0
 
 
 def assert_no_host_wait(label: str, fn) -> None:
@@ -930,31 +963,59 @@ def shard_sweep_inputs(sh, shards, s: int):
             "fluid": c.fluid, "x": sh._extend([st.x for st in shards], s)}
 
 
-def check_shard_sweeps(label: str, sh, inp) -> dict[str, tuple]:
-    """Kernel A over the shard's row range against its plain version on
-    the same rows at phase 4's tolerances (fast_math on, the main path's),
-    rows off the family exactly 0; then its time against the plain
-    version's and its bound.  Returns {mode: (max_abs_err, ms, plain_ms,
-    bound_ms, bound_by)}."""
+def rect_sweep_inputs(sh, shards, s: int):
+    """Shard s's density and force sweep inputs of one substep inside a
+    fresh R-group of the rectangle solver ``sh``, as its _apply forms them:
+    the extended packs (density from the plain version), ids, bounds and
+    sort-time material, and the own rows' i-row map."""
+    from tisph_tpu_torch.models.wcsph import eos_packs
+    from tisph_tpu_torch.ops import neighbors
+
+    spec, params = sh.spec, sh.params
+    shards, caches = sh._build(shards)
+    pos = sh._halo([neighbors.pack4(st.x, c.effm) for st, c in zip(shards, caches)], caches)
+    vel, aux = [], []
+    for t, (st, c) in enumerate(zip(shards, caches)):
+        rho = neighbors.density_sweep(pos[t], c.ids, c.bounds, c.material, spec, params,
+                                      rows=c.rows)
+        _, _, v, a = eos_packs(rho, st, c.fluid, c.flm, params)
+        vel.append(v)
+        aux.append(a)
+    c = caches[s]
+    return {"pos": pos[s], "vel": sh._halo(vel, caches)[s], "aux": sh._halo(aux, caches)[s],
+            "ids": c.ids, "bounds": c.bounds, "material": c.material, "rows": c.rows,
+            "fluid": c.fluid, "x": sh._halo([st.x for st in shards], caches)[s]}
+
+
+def check_shard_sweeps(label: str, sh, inp, linear: bool = False) -> dict[str, tuple]:
+    """Kernel A (C with ``linear``) over the shard's rows (a row range, or
+    for A an i-row map) against its plain version on the same rows at
+    phase 4's tolerances (fast_math on, the main path's), rows off the
+    family exactly 0; then its time against the plain version's and its
+    bound.  Returns {mode: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)}."""
     from types import SimpleNamespace
 
     from tisph_tpu_torch.ops import neighbors
     from tisph_tpu_torch.ops.cuda import sweeps
 
     spec, params = sh.spec, sh.params
-    row0, n = inp["rows"]
+    rows = inp["rows"]
+    row_map = isinstance(rows, torch.Tensor)
+    n = rows.shape[0] if row_map else rows[1]
     w = inp["ids"].shape[0]
     fl = inp["fluid"]
     base = (inp["ids"], inp["bounds"], inp["material"], spec, params)
     args = {"density": (inp["pos"], *base),
             "force": (inp["pos"], inp["vel"], inp["aux"], *base)}
     rtol, atol_f = TOL[True]
+    suffix = "_linear" if linear else ""
     out = {}
     for mode, a in args.items():
-        kern = getattr(sweeps, f"{mode}_sweep")
-        plain = getattr(neighbors, f"{mode}_sweep")
-        got, again = kern(*a, True, rows=(row0, n)), kern(*a, True, rows=(row0, n))
-        ref = plain(*a, rows=(row0, n))
+        kern = getattr(sweeps, f"{mode}_sweep{suffix}")
+        plain = getattr(neighbors, f"{mode}_sweep{suffix}")
+        got, again = kern(*a, True, rows=rows), kern(*a, True, rows=rows)
+        ref = plain(*a, rows=rows)
         torch.cuda.synchronize()
         if not torch.equal(got, again) or not torch.isfinite(got).all():
             raise AssertionError(f"{label} {mode}: two calls differ or non-finite output")
@@ -967,23 +1028,28 @@ def check_shard_sweeps(label: str, sh, inp) -> dict[str, tuple]:
         else:
             rel = float(((got - ref)[fl].abs() / ref[fl].abs().clamp(min=1e-30)).max())
             ok, detail = rel <= rtol, f"max rel err = {rel:.3e} (rtol {rtol})"
-        lanes, ctas = sweeps.launch_shape(mode, n)
-        print(f"  {label} {mode:<7} rows [{row0}, {row0 + n}) of a {w}-row window, "
-              f"{lanes} lane(s) per row, {ctas} CTAs: max|err|={err:.3e} {detail}")
+        what = (f"{n} own rows by an i-row map" if row_map else
+                f"rows [{rows[0]}, {rows[0] + n})") + f" of a {w}-row extended array"
+        shape = ("blocks of 128 rows, one thread each" if linear else
+                 "{} lane(s) per row, {} CTAs".format(*sweeps.launch_shape(mode, n)))
+        print(f"  {label} {mode:<7} {what}, {shape}: max|err|={err:.3e} {detail}")
         if not ok:
             raise AssertionError(f"{label} {mode}: {detail}")
         ms, plain_ms = time_against_plain({f"{mode}@shard": (
-            lambda: kern(*a, True, rows=(row0, n)), lambda: plain(*a, rows=(row0, n)),
+            lambda: kern(*a, True, rows=rows), lambda: plain(*a, rows=rows),
             20, 2)})[f"{mode}@shard"]
-        # bound: the packs over the window and the bounds read once, ids
-        # and material of the swept rows only (the kernel reads them at
-        # i), the rows' output written once; the pairs inside h of the
-        # shard's fluid rows
+        # bound: the packs over the extended array and the bounds read
+        # once, ids and material (and an i-row map) of the swept rows only
+        # (the kernel reads them at i), the rows' output written once; the
+        # pairs inside h of the shard's fluid rows
         grad = mode == "force"
-        nbytes = (w * 16 + n * (4 + 4) + (spec.num_cells + 1) * 4
+        nbytes = (w * 16 + n * (4 + 4 + (4 if row_map else 0)) + (spec.num_cells + 1) * 4
                   + (2 * w * 16 + n * spec.dim * 4 if grad else n * 4))
         rows_mask = torch.zeros(w, dtype=torch.bool, device=fl.device)
-        rows_mask[row0:row0 + n] = fl
+        if row_map:
+            rows_mask[rows.long()] = fl
+        else:
+            rows_mask[rows[0]:rows[0] + n] = fl
         pairs = pairs_inside_h({"st": SimpleNamespace(x=inp["x"]), "ids": inp["ids"],
                                 "bounds": inp["bounds"]}, sh, rows_mask, inp["material"] != -1)
         t_bytes = nbytes / HBM_BYTES_PER_S
@@ -1122,6 +1188,213 @@ def sharded_rigid(tt, kernels, r_scene, card_line: str):
     if c_waits != 1:
         raise AssertionError(f"coupled sharded group: {c_waits} host waits")
     return c15
+
+
+def rect_demo(tt, kernels, scene, card_line: str):
+    """Phase 17: ``scene`` on a 2x2 and a 2x2x2 mesh of one card; returns
+    the launch counts of both runs added, kernel A's checks with an i-row
+    map on a shard, and run_sharded's profile of the 2x2 mesh."""
+    import contextlib
+    import io
+
+    from tisph_tpu_torch import run_sharded
+    from tisph_tpu_torch.models.solver_base import SolverBase
+    from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
+    from tisph_tpu_torch.parallel import ShardedWCSPHRect, make_mesh2d, make_mesh3d
+
+    print("  every shard on the one card: particle-steps/s here is what the exchanges cost, "
+          "not any scaling")
+    start = tagged(tt.build_state(scene, device=DEVICE))
+    ref = tt.WCSPH(scene, device=DEVICE, resort_every=2)
+    ref_check = ref.rollout(ref.bind(start), RECT_CHECK)
+    total, runs = {k: 0 for k in kernels}, {}
+    for shape in ((2, 2), (2, 2, 2)):
+        d = math.prod(shape)
+        label = "x".join(map(str, shape))
+        make = make_mesh2d if len(shape) == 2 else make_mesh3d
+        sh = ShardedWCSPHRect(scene, make(*shape, devices=[DEVICE] * d), resort_every=2)
+        shards = sh.bind(start)
+        print(f"  {label}: {d} shards of {sh.shard_rows} rows, live rows "
+              f"{[st.num_active for st in shards]}, halo caps {sh.cap_h}, migration caps "
+              f"{sh.cap_m}")
+        reset_counts(kernels)
+        shards = sh.rollout(shards, RECT_CHECK)
+        errs = hold_to_single(f"{label}, {RECT_CHECK} steps", sh.gather_state(shards), ref_check)
+        print(f"  {label}: x, v and density bitwise equal to the single-device run: "
+              f"{all(e == 0 for e in errs)} (largest errors {errs})")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards = sh.rollout(shards, RECT_STEPS - RECT_CHECK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: f.launches for k, f in kernels.items()}
+        groups = RECT_STEPS // 2
+        want = {k: 0 for k in kernels} | {
+            "rebuild": groups * d, "csr_bounds": groups * d,
+            "sweep.density": RECT_STEPS * d, "sweep.force": RECT_STEPS * d}
+        maps = {m: getattr(cuda_sweeps, f"{m}_sweep").part_launches for m in ("density", "force")}
+        if got != want or maps != {"density": RECT_STEPS * d, "force": RECT_STEPS * d}:
+            raise AssertionError(f"{label}: launch counts {got} ({maps} with an i-row map), "
+                                 f"expected {want}, every sweep with an i-row map")
+        m = sh.metrics(shards)
+        print(f"  launches: {got}; with an i-row map: {maps} ({groups} groups: the rebuild "
+              f"pass and the bounds-only launch once per shard per group)")
+        print(f"  metrics: {m}")
+        if m["nan_count"] != 0 or not math.isfinite(m["max_velocity"]) or m["cfl"] >= 1.0:
+            raise AssertionError(f"{label} unhealthy: {m}")
+        if m["occ_halo"] or m["migrate_anomalies"] or m["dropped_rows"]:
+            raise AssertionError(f"{label}: halo overflow, migration trips or dropped rows: {m}")
+        # one R=2 group, its build and two substeps, without the call's end
+        group = lambda: SolverBase._groups(sh, (shards,), 2, 2, sh._substep)  # noqa: E731
+        g_waits, waits = count_host_waits(group), count_host_waits(lambda: sh.rollout(shards, 2))
+        print(f"  host reads: {g_waits} in one R=2 group, {waits} in one rollout call (its "
+              "one read of the shards' live rows and the dropped-row count)")
+        if g_waits != 0 or waits != 1:
+            raise AssertionError(f"{label}: {g_waits} host waits in a group, {waits} in a call")
+        if len(shape) == 2:
+            # a group's 1,400-odd launches overfill the launch queue behind
+            # the spin (cudaLaunchKernel then blocks until the device drains
+            # it), so its build and a substep queue behind it each alone
+            st_b, caches = sh._build(shards)
+            assert_no_host_wait(f"{label}, a group's build", lambda: sh._build(shards))
+            assert_no_host_wait(f"{label}, a substep", lambda: sh._substep((st_b,), caches))
+        n17 = sum(st.num_active for st in shards)
+        print(f"  {n17} particles on {label}: "
+              f"{n17 * (RECT_STEPS - RECT_CHECK) / wall:.6e} particle-steps/s "
+              f"({wall * 1e3 / (RECT_STEPS - RECT_CHECK):.4f} ms/step) on {card_line}")
+        total = {k: total[k] + got[k] for k in kernels}
+        runs[label] = (sh, shards)
+    sh, shards = runs["2x2"]
+    a_checks = check_shard_sweeps("2x2, shard 1:", sh, rect_sweep_inputs(sh, shards, 1))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = run_sharded.main([DEMO_3D, "--mesh2d", "2x2", "--devices", ",".join([DEVICE] * 4),
+                               "--resort", "2", "--steps", "20", "--profile", "20"])
+    out = buf.getvalue().strip().splitlines()
+    print("\n".join(f"  run_sharded: {line}" for line in out))
+    if rc != 0:
+        raise AssertionError(f"run_sharded --mesh2d 2x2 exited {rc}")
+    return total, a_checks, json.loads(out[-1])
+
+
+def rect_rigid(tt, kernels, r_scene, card_line: str):
+    """Phase 18: the coupled ``r_scene`` on a 2x2 mesh of one card; returns
+    the launch counts."""
+    from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
+    from tisph_tpu_torch.parallel import ShardedWCSPHRect, make_mesh2d
+
+    start = tagged(tt.build_state(r_scene, device=DEVICE))
+    ref_r, ref_st, ref_rg0 = tt.make_solver(r_scene, start, device=DEVICE, resort_every=2)
+    ref_st, ref_rg = ref_r.rollout_coupled(ref_st, ref_rg0, RECT_CHECK)
+    sh = ShardedWCSPHRect(r_scene, make_mesh2d(2, 2, devices=[DEVICE] * 4), resort_every=2)
+    shards = sh.bind(start)
+    # the bodies' mass and com summed over the shards' rows, in another order
+    # than the single device's: the held run starts from WCSPHRigid's bodies
+    own = sh.init_rigid(shards)
+    d_com = float((own.com - ref_rg0.com).abs().max())
+    d_mass = float(((own.mass - ref_rg0.mass) / ref_rg0.mass).abs().max())
+    print(f"  init_rigid on the shards vs WCSPHRigid's: com {d_com:.3e} (atol 1e-5), mass rel "
+          f"{d_mass:.3e} (1e-5): the body rows summed in the shards' order")
+    if not (d_com <= 1e-5 and d_mass <= 1e-5):
+        raise AssertionError(f"init_rigid on the shards: com {d_com}, mass {d_mass}")
+    rg = ref_rg0
+    sel0 = (start.object_id == 0) & start.boundary_mask
+    b_tags = start.color[sel0, 0]
+    b_d0 = torch.linalg.vector_norm(start.x[sel0] - rg.com[0], dim=1)
+    print(f"  boundary_mode {sh.boundary_mode}, {sh.shard_rows} rows a shard, live rows "
+          f"{[st.num_active for st in shards]}, halo caps {sh.cap_h}")
+    reset_counts(kernels)
+    shards, rg = sh.rollout_coupled(shards, rg, RECT_CHECK)
+    hold_to_single(f"coupled, 2x2, {RECT_CHECK} steps", sh.gather_state(shards), ref_st)
+    body = {k: float((getattr(rg, k) - getattr(ref_rg, k)).abs().max())
+            for k in ("com", "v_com", "omega")}
+    print(f"  bodies vs WCSPHRigid: com {body['com']:.3e} (atol 1e-6), v_com "
+          f"{body['v_com']:.3e} (1e-4), omega {body['omega']:.3e} (1e-4)")
+    if not (body["com"] <= 1e-6 and body["v_com"] <= 1e-4 and body["omega"] <= 1e-4):
+        raise AssertionError(f"coupled rectangle bodies differ from WCSPHRigid's: {body}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    shards, rg = sh.rollout_coupled(shards, rg, RECT_RIGID - RECT_CHECK)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: f.launches for k, f in kernels.items()}
+    groups = RECT_RIGID // 2
+    want = {k: 0 for k in kernels} | {
+        "rebuild": groups * 4, "csr_bounds": groups * 4, "sweep.bvol": RECT_RIGID * 4,
+        "sweep.density": RECT_RIGID * 4, "sweep.force_react": RECT_RIGID * 4}
+    maps = {m: getattr(cuda_sweeps, f"{m}_sweep").part_launches
+            for m in ("bvol", "density", "force_react")}
+    if got != want or set(maps.values()) != {RECT_RIGID * 4}:
+        raise AssertionError(f"coupled rectangle launch counts {got} ({maps} with an i-row "
+                             f"map), expected {want}")
+    whole = sh.gather_state(shards)
+    m = sh.metrics(shards)
+    drift = body_drift(whole, rg, b_tags, b_d0)
+    print(f"  launches: {got}; with an i-row map: {maps}")
+    print(f"  metrics: {m}; body shape drift {drift:.3e} (< 1e-4), com {rg.com[0].tolist()}")
+    if (m["nan_count"] != 0 or m["cfl"] >= 1.0 or m["occ_halo"] or m["dropped_rows"]
+            or not drift < 1e-4):
+        raise AssertionError(f"coupled rectangle run unhealthy: {m}, drift {drift}")
+    waits = count_host_waits(lambda: sh.rollout_coupled(shards, rg, 2))
+    print(f"  host reads per coupled rollout call: {waits}; {whole.num_active} particles: "
+          f"{whole.num_active * (RECT_RIGID - RECT_CHECK) / wall:.6e} particle-steps/s "
+          f"({wall * 1e3 / (RECT_RIGID - RECT_CHECK):.4f} ms/step) on {card_line}")
+    if waits != 1:
+        raise AssertionError(f"coupled rectangle call: {waits} host waits")
+    return got
+
+
+def linear_sharded(tt, kernels, scene, card_line: str):
+    """Phase 19: ``scene`` on the linear layout at R=1 on 2 and 4 slab
+    shards of one card; returns the launch counts of both runs added and
+    kernel C's checks over a shard's row range."""
+    from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
+    from tisph_tpu_torch.parallel import ShardedWCSPH, make_mesh
+
+    start = tagged(tt.build_state(scene, device=DEVICE))
+    ref = tt.WCSPH(scene, device=DEVICE, layout="linear")
+    ref_check = ref.rollout(ref.bind(start), RECT_CHECK)
+    total, runs = {k: 0 for k in kernels}, {}
+    for d in (2, 4):
+        sh = ShardedWCSPH(scene, make_mesh(devices=[DEVICE] * d), layout="linear")
+        shards = sh.bind(start)
+        reset_counts(kernels)
+        sh.occ_resort = 0
+        shards = sh.rollout(shards, RECT_CHECK)
+        errs = hold_to_single(f"linear, {d} shards, {RECT_CHECK} steps", sh.gather_state(shards),
+                              ref_check)
+        print(f"  {d} shards: x, v and density bitwise equal to the single-device linear run: "
+              f"{all(e == 0 for e in errs)}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards = sh.rollout(shards, LIN_SHARD_STEPS - RECT_CHECK)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: f.launches for k, f in kernels.items()}
+        fb = sh.occ_resort
+        want = {k: 0 for k in kernels} | {
+            "rebuild": (LIN_SHARD_STEPS - fb) * d + fb, "csr_bounds": LIN_SHARD_STEPS * d,
+            "linear.density": LIN_SHARD_STEPS * d, "linear.force": LIN_SHARD_STEPS * d}
+        ranged = {m: getattr(cuda_sweeps, f"{m}_sweep_linear").part_launches
+                  for m in ("density", "force")}
+        if got != want or set(ranged.values()) != {LIN_SHARD_STEPS * d}:
+            raise AssertionError(f"linear, {d} shards: launch counts {got} ({ranged} over a "
+                                 f"row range), expected {want}")
+        m = sh.metrics(shards)
+        print(f"  launches: {got}; C over a row range: {ranged} ({fb} seam-guard fallbacks)")
+        print(f"  metrics: {m}")
+        if m["nan_count"] != 0 or m["cfl"] >= 1.0 or m["occ_halo"]:
+            raise AssertionError(f"linear, {d} shards unhealthy: {m}")
+        n19 = sum(st.num_active for st in shards)
+        print(f"  {n19} particles on {d} shards: "
+              f"{n19 * (LIN_SHARD_STEPS - RECT_CHECK) / wall:.6e} particle-steps/s "
+              f"({wall * 1e3 / (LIN_SHARD_STEPS - RECT_CHECK):.4f} ms/step) on {card_line}")
+        total = {k: total[k] + got[k] for k in kernels}
+        runs[d] = (sh, shards)
+    sh, shards = runs[2]
+    c_checks = check_shard_sweeps("linear, 2 shards, shard 1:", sh,
+                                  shard_sweep_inputs(sh, shards, 1), linear=True)
+    return total, c_checks
 
 
 def viewers_and_utils(solver, scene, state):
@@ -1824,9 +2097,26 @@ def main() -> int:
     launches = {k: launches[k] + s14[k] + s15[k] for k in kernels}
     phase("16 viewers and utilities on the card: phase 5's demo_3d state")
     viewers_and_utils(solver, scene, state)
-    print("  kernel A over a shard's rows (phase 14), ms (kernel, plain, bound):")
-    for mode, (err, ms, pms, bms, by) in shard_sweeps.items():
-        print(f"    {mode:<8} {ms:.4f} {pms:.4f} {bms:.5f} ({by}); max|err| {err:.3e}")
+    phase(f"17 rectangle decomposition: demo_3d, {RECT_STEPS} steps at R=2 on a 2x2 and a "
+          "2x2x2 mesh of one card")
+    s17, rect_sweeps, rect_prof = rect_demo(tt, kernels, scene, card_line)
+    phase(f"18 rectangle bench_3d_rigid: {RECT_RIGID} coupled steps at R=2 on a 2x2 mesh")
+    s18 = rect_rigid(tt, kernels, r_scene, card_line)
+    phase(f"19 sharded linear layout: demo_3d, {LIN_SHARD_STEPS} steps at R=1 on 2 and 4 "
+          "shards")
+    s19, lin_shard = linear_sharded(tt, kernels, scene, card_line)
+    launches = {k: launches[k] + s17[k] + s18[k] + s19[k] for k in kernels}
+    print(f"  run_sharded --mesh2d 2x2 --profile 20 (phase 17): "
+          f"{rect_prof['device_ops_per_step']:.1f} device operations, "
+          f"{rect_prof['device_busy_ms_per_step']:.4f} ms busy, idle share "
+          f"{rect_prof['device_idle_share']:.4f}, wall {rect_prof['wall_ms_per_step']:.4f} ms "
+          "a step")
+    for title, checks in (("kernel A over a shard's rows (phase 14)", shard_sweeps),
+                          ("kernel A with an i-row map, 2x2 shard 1 (phase 17)", rect_sweeps),
+                          ("kernel C over a shard's row range (phase 19)", lin_shard)):
+        print(f"  {title}, ms (kernel, plain, bound):")
+        for mode, (err, ms, pms, bms, by) in checks.items():
+            print(f"    {mode:<8} {ms:.4f} {pms:.4f} {bms:.5f} ({by}); max|err| {err:.3e}")
 
     src = {k: ("tisph_tpu_torch/csrc/bounds.cu", "tisph_tpu/ops/pallas/bounds.py:43")
            for k in ("rebuild", "csr_bounds")}
@@ -1837,8 +2127,11 @@ def main() -> int:
             src[k] = ("tisph_tpu_torch/csrc/sweeps_linear.cu",
                       "tisph_tpu/ops/pallas/sweeps.py:384")
     err_of = {"rebuild": rebuild_err, "csr_bounds": float(bounds_err)}
-    err_of |= {f"sweep.{m}": e for m, e in errs.items()}
-    err_of |= {f"linear.{m}": e for m, e in lin_errs.items()}
+    # A's entries fold in its row-range (phase 14) and i-row-map (17)
+    # checks, C's its row-range check (19)
+    err_of |= {f"sweep.{m}": max([e] + [c[m][0] for c in (shard_sweeps, rect_sweeps) if m in c])
+               for m, e in errs.items()}
+    err_of |= {f"linear.{m}": max(e, lin_shard[m][0]) for m, e in lin_errs.items()}
     print("  the rebuild pass after the sort, ms (kernel, plain, library, bound):")
     for label, r in rebuild.items():
         print(f"    {label:<22} {r['ms']:.4f} {r['plain_ms']:.4f} {r['library_ms']:.4f} "

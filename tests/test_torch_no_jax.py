@@ -3,7 +3,9 @@ the CPU, a fluid scene with a boundary block (on the seg and the linear
 layout, and on the legacy solver with --bpa), a scene with a dynamic mesh
 body (voxelizer and coupled solver) and a scene with an emitter (with
 --checkpoint, then --resume); run_sharded on two CPU shards with each of
-the three scenes (the plain, coupled and emitting sharded paths); the
+the three scenes (the plain, coupled and emitting sharded paths), on a
+2x2 mesh of four CPU devices with each (the rectangle decomposition) and
+on the linear layout; the
 viewers, the GIF assembler, the 3D BPA guards, the debug and profiling
 utilities and the demo, in a fresh interpreter, leave both out of
 sys.modules (tisph_tpu/__init__.py imports jax and every solver, so
@@ -27,7 +29,8 @@ matplotlib.use("Agg")
 import tisph_tpu_torch as tt
 from tisph_tpu_torch import (bench, bench_ladder, checkpoint, demo, paired_bench, run_scene,
                              run_sharded)
-from tisph_tpu_torch.parallel import ShardedWCSPH, make_mesh
+from tisph_tpu_torch.parallel import (ShardedWCSPH, ShardedWCSPH2D, ShardedWCSPHRect, make_mesh,
+                                      make_mesh2d, make_mesh3d)
 from tisph_tpu_torch.render import bpa3d, orbit, video, viewer
 from tisph_tpu_torch.utils import debug, profiling
 import chip_smoke
@@ -49,6 +52,11 @@ for extra in (["--checkpoint", sys.argv[5]], ["--resume", sys.argv[5]]):
 for path in sys.argv[1:4]:
     rc = run_sharded.main([path, "--devices", "cpu,cpu", "--steps", "2", "--resort", "2"])
     assert rc == 0, rc
+    rc = run_sharded.main([path, "--mesh2d", "2x2", "--devices", "cpu,cpu,cpu,cpu", "--steps", "2",
+                           "--resort", "2"])
+    assert rc == 0, rc
+rc = run_sharded.main([sys.argv[1], "--devices", "cpu,cpu", "--steps", "2", "--layout", "linear"])
+assert rc == 0, rc
 sc = tt.load_scene(sys.argv[1])
 solver = tt.WCSPH(sc, device="cpu")
 st = debug.checked_step(solver.step, solver.params)(solver.bind(tt.build_state(sc, device="cpu")))

@@ -12,8 +12,13 @@
   are cut on both sides, emitters, the coupled step, per_step volumes);
 - the counterparts of tests/test_parallel.py's exchange-resort, halo and
   run() cases;
-- kernel A's plain version over a row range equals the same rows of the
-  full sweep, in every mode.
+- kernel A's plain version over a row range, and with an i-row map,
+  equals the same rows of the full sweep, in every mode; kernel C's plain
+  version over a row range equals the same rows of its full sweep;
+- the linear layout (kernel C's path, R=1) on 2 and 4 shards: bitwise the
+  single-device linear run, and tisph_tpu's sharded linear layout
+  (``SweepConfig(impl="pallas", layout="linear", interpret=True)``) at
+  test_parallel.py's tolerances.
 """
 
 import dataclasses
@@ -457,6 +462,111 @@ def test_plain_sweep_over_a_row_range(mode):
         fn(*args, rows=(w - 1, 2))
 
 
+def _sweep_case():
+    """A sorted 3D state with fluid and boundary rows, seeded velocities
+    and its packs: (solver, ids, bounds, material, {mode: args})."""
+    raw = _raw(0.04)
+    raw["fluidBlocks"][0].update(start=[0.1] * 3, end=[0.6, 0.5, 0.6])
+    raw["boundaryBlocks"] = [{"start": [0.6, 0.1, 0.3], "end": [0.72, 0.3, 0.5]}]
+    scene = pt.scene_from_dict(raw)
+    solver = pt.WCSPH(scene, device="cpu")
+    st = solver.bind(pt.build_state(scene, device="cpu", extra_capacity=16))
+    st, ids, _, bounds = pt.models.wcsph.cuda_bounds.sort_and_bound(st, solver.spec)
+    rng = np.random.default_rng(4)
+    v = torch.from_numpy(rng.normal(size=tuple(st.v.shape)).astype(np.float32))
+    fl, bd = st.fluid_mask.to(torch.float32), st.boundary_mask.to(torch.float32)
+    pos = neighbors.pack4(st.x, fl * st.mass + bd * (1000.0 * st.volume))
+    vel = neighbors.pack4(v, st.density + 1.0)
+    aux = neighbors.pack_aux(torch.linspace(0.0, 1.0, st.capacity), fl * st.mass, st.mass)
+    base = (ids, bounds, st.material, solver.spec, solver.params)
+    args = {m: ((neighbors.pack4(st.x, bd),) if m == "bvol" else (pos,) if m == "density"
+                else (pos, vel, aux)) + base
+            for m in ("density", "bvol", "force", "force_react", "reaction")}
+    return st, ids, args
+
+
+@pytest.mark.parametrize("mode", ["density", "bvol", "force", "force_react", "reaction"])
+def test_plain_sweep_with_a_row_map(mode):
+    """Kernel A's plain version with an i-row map equals the sweep over
+    every row gathered at the map's rows, on a map that skips rows on
+    both sides of a cell's boundary, lists rows out of order and ends in
+    an inactive row."""
+    st, ids, args = _sweep_case()
+    fn = getattr(neighbors, f"{mode}_sweep")
+    full = fn(*args[mode])
+    n = st.num_active
+    # every third live row, reversed in pairs, then the first inactive row
+    keep = torch.arange(0, n - n % 6, 3).reshape(-1, 2).flip(1).reshape(-1)
+    irows = torch.cat([keep, torch.tensor([n])]).to(torch.int32)
+    cells = ids[irows.long()]
+    assert bool((cells[1:] != cells[:-1]).any()) and bool((torch.diff(keep) < 0).any())
+    got = fn(*args[mode], rows=irows)
+    assert got.shape == (irows.numel(),) + tuple(full.shape[1:])
+    assert torch.equal(got, full[irows.long()])
+    assert got.abs().sum() > 0 and bool((got[-1] == 0).all())
+    with pytest.raises(ValueError, match="i-row map"):
+        fn(*args[mode], rows=irows.long())
+
+
+@pytest.mark.parametrize("mode", ["density", "force"])
+def test_plain_linear_sweep_over_a_row_range(mode):
+    """Kernel C's plain version over rows [row0, row0 + n) equals those rows
+    of its sweep over every row, whether its blocks start on the full
+    sweep's (row0 a multiple of 128) or not: a row's pairs are the ids
+    inside its stencil, whatever its block's window."""
+    st, ids, args = _sweep_case()
+    fn = getattr(neighbors, f"{mode}_sweep_linear")
+    full = fn(*args[mode])
+    for row0, n in ((384, 500), (200, 700), (0, st.capacity)):
+        part = fn(*args[mode], rows=(row0, n))
+        assert torch.equal(part, full[row0:row0 + n]), (row0, n)
+    assert torch.equal(full, getattr(neighbors, f"{mode}_sweep")(*args[mode]))
+    with pytest.raises(ValueError, match="row range"):
+        fn(*args[mode], rows=torch.arange(4, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_linear_matches_single_device_bitwise(n):
+    """layout="linear" on n shards: kernel C's plain version over each
+    shard's rows of its window; every field bitwise the single-device
+    linear run's."""
+    scene = pt.scene_from_dict(_raw(0.04))
+    single = pt.WCSPH(scene, device="cpu", layout="linear")
+    want = single.rollout(single.bind(pt.build_state(scene, device="cpu")), 5)
+    solver = ShardedWCSPH(scene, _cpu(n), layout="linear")
+    got = solver.gather_state(solver.rollout(solver.bind(pt.build_state(scene, device="cpu")),
+                                             5))
+    for f in gridops.state_fields(want):
+        assert torch.equal(getattr(got, f)[:want.capacity], getattr(want, f)), f
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_sharded_linear_matches_jax_sharded_linear(n):
+    """Against tisph_tpu's ShardedWCSPH on its linear layout
+    (``_step_fn_windowed``, domain.py:891), its TPU kernel in interpret
+    mode, at test_parallel.py:66-71's tolerances."""
+    raw = _raw(0.04)
+    scene, state, start = _tagged_start(raw)
+    js = JShardedWCSPH(scene, jax_mesh(n), sweep_cfg=SweepConfig(
+        impl="pallas", layout="linear", interpret=True, block_size=128, window_cap=1152,
+        tile=128))
+    jst = js.bind(state)
+    for _ in range(5):
+        jst = js.step(jst)
+    solver, shards = _port_sharded(raw, n, start, 5, layout="linear")
+    _close(pt.state_to_host(solver.gather_state(shards)), jax_to_host(jax.device_get(jst)))
+
+
+def test_sharded_linear_refusals(tmp_path):
+    """The linear layout runs at R=1 only, and not with dynamic bodies (as
+    the single-device solvers)."""
+    scene = pt.scene_from_dict(_raw(0.04))
+    with pytest.raises(ValueError, match="R = 1"):
+        ShardedWCSPH(scene, _cpu(2), layout="linear", resort_every=2)
+    with pytest.raises(ValueError, match="dynamic body"):
+        ShardedWCSPH(_rigid_raw(tmp_path), _cpu(2), layout="linear")
+
+
 def test_make_mesh_never_falls_back_to_the_cpu():
     """tisph_tpu's make_mesh falls back to the virtual CPU devices; the
     port's raises without CUDA devices, and places shards only where the
@@ -526,6 +636,56 @@ def test_kernel_row_range_on_cuda(tmp_path):
                 assert torch.equal(got, full[row0:row0 + rows])
             scale = want.abs().max().clamp(min=1e-30)
             torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=5e-6)
+
+
+@pytest.mark.cuda
+def test_kernels_over_part_of_the_arrays_on_cuda():
+    """Kernel A with an i-row map against its plain version (phase 4's
+    tolerances), bitwise its range launch over the same rows; kernel C
+    over a row range against its plain version, and bitwise the same rows
+    of its whole-array launch when the blocks align."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sweep kernels have no CPU mode")
+    from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
+
+    st, ids, args = _sweep_case()
+    cuda = {m: tuple(a.cuda() if isinstance(a, torch.Tensor) else a for a in arg)
+            for m, arg in args.items()}
+    n = st.capacity
+    irows = torch.arange(n // 4, n // 4 + n // 2, dtype=torch.int32, device="cuda")
+    for mode, a in cuda.items():
+        kern, plain = getattr(cuda_sweeps, f"{mode}_sweep"), getattr(neighbors, f"{mode}_sweep")
+        got = kern(*a, False, rows=irows)
+        assert torch.equal(got, kern(*a, False, rows=(n // 4, n // 2)))
+        want = plain(*a, rows=irows)
+        scale = want.abs().max().clamp(min=1e-30)
+        torch.testing.assert_close(got / scale, want / scale, rtol=0, atol=5e-6)
+    for mode in ("density", "force"):
+        kern = getattr(cuda_sweeps, f"{mode}_sweep_linear")
+        plain = getattr(neighbors, f"{mode}_sweep_linear")
+        full = kern(*cuda[mode], False)
+        part = kern(*cuda[mode], False, rows=(256, n - 300))
+        assert torch.equal(part, full[256:n - 44])
+        want = plain(*cuda[mode], rows=(256, n - 300))
+        scale = want.abs().max().clamp(min=1e-30)
+        torch.testing.assert_close(part / scale, want / scale, rtol=0, atol=5e-6)
+
+
+@pytest.mark.cuda
+def test_sharded_linear_on_cuda_matches_single_device():
+    """Two and four shards on one card on the linear layout: bitwise the
+    single-device linear run on that card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the sweep kernel has no CPU mode")
+    scene = pt.scene_from_dict(_raw(0.02))
+    single = pt.WCSPH(scene, device="cuda", layout="linear")
+    want = single.rollout(single.bind(pt.build_state(scene, device="cuda")), 4)
+    for n in (2, 4):
+        solver = ShardedWCSPH(scene, make_mesh(devices=["cuda:0"] * n), layout="linear")
+        got = solver.gather_state(solver.rollout(
+            solver.bind(pt.build_state(scene, device="cuda")), 4))
+        for f in gridops.state_fields(want):
+            assert torch.equal(getattr(got, f)[:want.capacity], getattr(want, f)), f
 
 
 @pytest.mark.cuda

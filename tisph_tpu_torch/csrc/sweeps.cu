@@ -12,7 +12,12 @@
 // from its sort-time id, and for each of the 3^(dim-1) stencil rows inside
 // the grid walks the contiguous candidate range
 // [bounds[c_lo], bounds[c_hi + 1]) and sums over it in f32 registers, as
-// the reference Taichi code walks for_all_neighbors.  Rows outside the
+// the reference Taichi code walks for_all_neighbors.  The swept rows are
+// all rows, a range [row0, row0 + n) of them (a slab shard's rows of its
+// halo window), or an i-row map: n positions in the arrays (a rectangle
+// shard's own rows, which the id merge interleaves with its halo rows; the
+// TPU kernel takes them as a separate i pack, sweeps.py:1166-1182).  Rows
+// outside the
 // mode's consumer family (fluid for density and force, boundary for bvol
 // and reaction, fluid or boundary for force_react) walk nothing and write
 // 0.  No tensor cores (r^2 must come from f32 differences) and no TMA (the
@@ -119,16 +124,21 @@ __global__ void __launch_bounds__(kThreads, kMinCtasOf<MODE>)
 sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
              const float4* __restrict__ aux, const int* __restrict__ ids,
              const int* __restrict__ bounds, const int* __restrict__ material,
-             float* __restrict__ out, int row0, int rows, GridArgs g, PhysArgs p) {
+             const int* __restrict__ irows, float* __restrict__ out, int row0, int rows,
+             int n_all, GridArgs g, PhysArgs p) {
   constexpr bool kGrad = MODE == kForce || MODE == kForceReact || MODE == kReaction;
   constexpr int kOut = kGrad ? DIM : 1;
   static_assert(L >= 1 && L <= 32 && (L & (L - 1)) == 0, "lanes per row: a power of two");
   const int tid = threadIdx.x;
   const int sub = tid % L;  // this thread's lane of its row
-  // rows [row0, row0 + rows) of the arrays; out holds those rows only
-  const int i = row0 + blockIdx.x * (kThreads / L) + tid / L;
-  const bool in_n = i < row0 + rows;
-  const int mat = in_n ? material[i] : -1;
+  // output row t sweeps row i of the arrays: irows[t] with an i-row map,
+  // else row0 + t; out holds the swept rows only, in t order
+  const int t = blockIdx.x * (kThreads / L) + tid / L;
+  const bool in_n = t < rows;
+  const int i = !in_n ? 0 : irows != nullptr ? irows[t] : row0 + t;
+  // a map entry outside the arrays sweeps nothing (the wrapper cannot
+  // read the map without waiting for the device)
+  const int mat = in_n && i >= 0 && i < n_all ? material[i] : -1;
   const bool consumer = (MODE == kBvol || MODE == kReaction) ? (mat == 0)
                         : (MODE == kForceReact)               ? (mat == 0 || mat == 1)
                                                               : (mat == 1);
@@ -268,7 +278,7 @@ sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
     if (kGrad && DIM == 3) acc2 += __shfl_xor_sync(kFull, acc2, o);
   }
   if (!in_n || sub != 0) return;
-  float* o = out + (i - row0) * kOut;
+  float* o = out + t * kOut;
   if (!consumer) {
 #pragma unroll
     for (int a = 0; a < kOut; ++a) o[a] = 0.0f;
@@ -288,9 +298,9 @@ sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
 // One call's arguments, as the kernel takes them.
 struct Call {
   const float4 *pos, *vel, *aux;
-  const int *ids, *bounds, *material;
+  const int *ids, *bounds, *material, *irows;
   float* out;
-  int row0, rows;
+  int row0, rows, n_all;
   GridArgs g;
   PhysArgs p;
   cudaStream_t stream;
@@ -301,7 +311,8 @@ void launch(const Call& c) {
   constexpr int per_cta = kThreads / L;
   const int blocks = (c.rows + per_cta - 1) / per_cta;
   sweep_kernel<MODE, DIM, FAST, L><<<blocks, kThreads, 0, c.stream>>>(
-      c.pos, c.vel, c.aux, c.ids, c.bounds, c.material, c.out, c.row0, c.rows, c.g, c.p);
+      c.pos, c.vel, c.aux, c.ids, c.bounds, c.material, c.irows, c.out, c.row0, c.rows,
+      c.n_all, c.g, c.p);
 }
 
 // False for a lane count that is not built: 1, 4 and 8 are.
@@ -339,14 +350,17 @@ bool launch_mode(int mode, int fast, int lanes, const Call& c) {
 // mode: 0 density, 1 force, 2 bvol, 3 force_react, 4 reaction; dim: 2 or
 // 3; fast_math is read by the three gradient modes; lanes: threads per
 // row, 1, 4 or 8.  vel and aux are read by the gradient modes only.  The
-// launch sweeps rows [row0, row0 + rows) of the arrays (their candidates
-// anywhere in them) and writes out[0, rows).
+// arrays hold n_all rows.  The launch sweeps `rows` rows of them (their
+// candidates anywhere in them) and writes out[0, rows): row t of out is
+// row irows[t] with an i-row map (irows not null, rows int32 entries), else
+// row row0 + t.
 // Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
 // for an unknown mode, dim or lanes.
 extern "C" int tisph_sweep(int mode, int dim, int fast_math, int lanes, const void* pos,
                            const void* vel, const void* aux, const void* ids,
-                           const void* bounds, const void* material, void* out,
-                           int row0, int rows, int res0, int res1, int res_z, int s0, int s1,
+                           const void* bounds, const void* material, const void* irows,
+                           void* out, int row0, int rows, int n_all, int res0, int res1,
+                           int res_z, int s0, int s1,
                            float inv_h, float fin, float eps_visc,
                            float visc_num, float nub_num, float coh_num,
                            float gx, float gy, float gz, void* stream) {
@@ -354,7 +368,8 @@ extern "C" int tisph_sweep(int mode, int dim, int fast_math, int lanes, const vo
   const Call c{static_cast<const float4*>(pos),  static_cast<const float4*>(vel),
                static_cast<const float4*>(aux),  static_cast<const int*>(ids),
                static_cast<const int*>(bounds),  static_cast<const int*>(material),
-               static_cast<float*>(out),         row0, rows,
+               static_cast<const int*>(irows),   static_cast<float*>(out),
+               row0, rows, n_all,
                GridArgs{res0, res1, res_z, s0, s1},
                PhysArgs{inv_h, fin, eps_visc, visc_num, nub_num, coh_num, {gx, gy, gz}},
                static_cast<cudaStream_t>(stream)};

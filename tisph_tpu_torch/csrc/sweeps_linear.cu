@@ -73,10 +73,11 @@
 // (every term is exactly 0 there); FAST = fast_math puts __fdividef on
 // the two viscosity divides.
 //
-// The i rows are all rows of the j array.  The TPU kernel's other caller,
-// the sharded windowed step, passes a row slice of it (_run_sweep(ipack=
-// ...), sweeps.py:545-551); that caller is not ported, and with it comes
-// an offset on the i index.
+// The i rows are the rows [row0, row0 + n) of the j array: all of it, or a
+// slab shard's rows of its halo window, as the TPU kernel's sharded caller
+// passes a row slice of the extended pack (_run_sweep(ipack=...),
+// sweeps.py:545-551).  Block b holds rows row0 + 128 b on, and the windows
+// output has ceil(n / 128) blocks.
 
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
@@ -142,7 +143,7 @@ __global__ void __launch_bounds__(kBlock, kMinCtasOf<MODE>)
 linear_sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ vel,
                     const float4* __restrict__ aux, const int* __restrict__ ids,
                     const int* __restrict__ bounds, const int* __restrict__ material,
-                    float* __restrict__ out, int* __restrict__ windows, int n,
+                    float* __restrict__ out, int* __restrict__ windows, int row0, int n,
                     int num_cells, GridArgs g, PhysArgs p) {
   constexpr bool kGrad = MODE == kForce;
   constexpr int kRows = DIM == 3 ? 9 : 3;
@@ -157,8 +158,8 @@ linear_sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ v
   const int t = threadIdx.x;
   const int lane = t & 31;
   const int warp = t >> 5;
-  const int i = blockIdx.x * kBlock + t;
-  const bool in_range = i < n;
+  const int i = row0 + blockIdx.x * kBlock + t;
+  const bool in_range = i < row0 + n;
   const int id = in_range ? ids[i] : num_cells;
   const bool active = id < num_cells;
   const bool consumer = in_range && active && material[i] == 1;
@@ -285,12 +286,13 @@ linear_sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ v
   }
 
   if (!in_range) return;
+  const int o = i - row0;  // out holds the swept rows only
   if (kGrad) {
-    out[i * DIM + 0] = consumer ? acc0 * p.fin + p.g[0] : 0.0f;
-    out[i * DIM + 1] = consumer ? acc1 * p.fin + p.g[1] : 0.0f;
-    if (DIM == 3) out[i * DIM + 2] = consumer ? acc2 * p.fin + p.g[2] : 0.0f;
+    out[o * DIM + 0] = consumer ? acc0 * p.fin + p.g[0] : 0.0f;
+    out[o * DIM + 1] = consumer ? acc1 * p.fin + p.g[1] : 0.0f;
+    if (DIM == 3) out[o * DIM + 2] = consumer ? acc2 * p.fin + p.g[2] : 0.0f;
   } else {
-    out[i] = consumer ? acc0 * p.fin : 0.0f;
+    out[o] = consumer ? acc0 * p.fin : 0.0f;
   }
 }
 
@@ -300,7 +302,7 @@ linear_sweep_kernel(const float4* __restrict__ pos, const float4* __restrict__ v
 template <int MODE, int DIM, bool FAST>
 cudaError_t launch(const void* pos, const void* vel, const void* aux, const void* ids,
                    const void* bounds, const void* material, void* out, void* windows,
-                   int n, int num_cells, const GridArgs& g, const PhysArgs& p,
+                   int row0, int n, int num_cells, const GridArgs& g, const PhysArgs& p,
                    cudaStream_t stream) {
   constexpr size_t kShared = kChunkRowsOf<MODE> * sizeof(float4);
   static_assert(kShared + sizeof(BlockMeta<DIM == 3 ? 9 : 3>) <= 48 * 1024,
@@ -310,22 +312,23 @@ cudaError_t launch(const void* pos, const void* vel, const void* aux, const void
       static_cast<const float4*>(pos), static_cast<const float4*>(vel),
       static_cast<const float4*>(aux), static_cast<const int*>(ids),
       static_cast<const int*>(bounds), static_cast<const int*>(material),
-      static_cast<float*>(out), static_cast<int*>(windows), n, num_cells, g, p);
+      static_cast<float*>(out), static_cast<int*>(windows), row0, n, num_cells, g, p);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // mode: 0 density, 1 force; dim: 2 or 3; fast_math is read by the force
-// mode, vel and aux only by it.  pos, vel, aux, ids and material hold n
-// rows, bounds the ids' CSR bounds over num_cells + 1 entries; out holds
-// n rows.  windows, if not null, receives each block's [start, end) per
-// stencil row, (ceil(n / 128), 3^(dim-1), 2) int32.  Returns the launch's
-// error (0 for none), or cudaErrorInvalidValue for an unknown mode or dim.
+// mode, vel and aux only by it.  pos, vel, aux, ids and material hold the
+// arrays' rows, bounds the ids' CSR bounds over num_cells + 1 entries; the
+// launch sweeps rows [row0, row0 + n) of them and out holds those n rows.
+// windows, if not null, receives each block's [start, end) per stencil
+// row, (ceil(n / 128), 3^(dim-1), 2) int32.  Returns the launch's error (0
+// for none), or cudaErrorInvalidValue for an unknown mode or dim.
 extern "C" int tisph_linear_sweep(int mode, int dim, int fast_math, const void* pos,
                                   const void* vel, const void* aux, const void* ids,
                                   const void* bounds, const void* material, void* out,
-                                  void* windows, int n, int res0, int res1,
+                                  void* windows, int row0, int n, int res0, int res1,
                                   int res_z, int s0, int s1, int num_cells, float inv_h,
                                   float fin, float eps_visc, float visc_num,
                                   float nub_num, float coh_num, float gx, float gy,
@@ -334,7 +337,8 @@ extern "C" int tisph_linear_sweep(int mode, int dim, int fast_math, const void* 
   const GridArgs g{res0, res1, res_z, s0, s1};
   const PhysArgs p{inv_h, fin, eps_visc, visc_num, nub_num, coh_num, {gx, gy, gz}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define TISPH_ARGS pos, vel, aux, ids, bounds, material, out, windows, n, num_cells, g, p, st
+#define TISPH_ARGS \
+  pos, vel, aux, ids, bounds, material, out, windows, row0, n, num_cells, g, p, st
   cudaError_t err = cudaErrorInvalidValue;
   if (dim == 3 && mode == kDensity) {
     err = launch<kDensity, 3, false>(TISPH_ARGS);

@@ -96,14 +96,12 @@ def activate_seeds(fields: dict[str, torch.Tensor], start: int, seeds: torch.Ten
             for k in EMIT_FIELDS}
 
 
-def count_step(es: EmitterState, num_active: int,
-               capacity: int) -> tuple[bool, EmitterState]:
+def count_step(es: EmitterState, room: bool) -> tuple[bool, EmitterState]:
     """(fire, es counted one step): whether this step activates a batch
-    into rows ``[num_active, num_active + b)`` of a pool of ``capacity``
-    rows (due, room for the whole batch, under the quota)."""
+    (due, ``room`` for the whole batch, under the quota)."""
     b = es.batch_size
     fire = (es.step % es.interval == 0
-            and num_active + b <= capacity
+            and room
             and (es.max_particles <= 0 or es.emitted + b <= es.max_particles))
     return fire, dataclasses.replace(es, emitted=es.emitted + (b if fire else 0),
                                      step=es.step + 1)
@@ -115,7 +113,7 @@ def maybe_emit(state: SimState, es: EmitterState,
     due, and count the step.  ``state`` must be cell-sorted (its inactive
     rows at the tail), as every solver step leaves it."""
     b = es.batch_size
-    fire, es2 = count_step(es, state.num_active, state.capacity)
+    fire, es2 = count_step(es, state.num_active + b <= state.capacity)
     if not fire:
         return state, es2
     fields = activate_seeds({k: getattr(state, k) for k in EMIT_FIELDS}, state.num_active,

@@ -36,10 +36,10 @@ _F = ctypes.c_float
 # ctypes never cuts a 64-bit address to a C int.
 _SIGNATURES = {
     "tisph_rebuild": [_P, _P, _I, _I, _P, _I, _I, _P, _P],
-    "tisph_sweep": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+    "tisph_sweep": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                     _I, _I, _I, _I, _I,
                     _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
-    "tisph_linear_sweep": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+    "tisph_linear_sweep": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "tisph_error_string": [_I],

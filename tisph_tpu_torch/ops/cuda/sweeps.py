@@ -15,14 +15,23 @@
 The plain versions are the functions of the same names in
 ``ops.neighbors``, with the same signatures and pack layouts: a CPU tensor
 goes there, a CUDA tensor launches the kernel or raises.  Each wrapper
-counts its launches in ``<wrapper>.launches``.
+counts its launches in ``<wrapper>.launches``, and of those the ones over
+part of the arrays in ``<wrapper>.part_launches`` (an i-row map for
+``csrc/sweeps.cu``, a row range for ``csrc/sweeps_linear.cu``).
 
-Every wrapper of ``csrc/sweeps.cu`` takes ``rows=(row0, n)``: the launch
-sweeps rows [row0, row0 + n) of the arrays, their candidates anywhere in
-them, into an (n,) or (n, dim) output; None is every row, the launch it
-always was.  The sharded solver sweeps a shard's rows of its halo window
-so (``tisph_tpu`` sweeps the whole extended array and slices the shard's
-rows out, ``parallel/domain.py:559``, ``:624-628``).
+Every wrapper of ``csrc/sweeps.cu`` takes ``rows``: None sweeps every
+row, the launch it always was; ``(row0, n)`` sweeps rows [row0, row0 + n)
+of the arrays; an (n,) int32 tensor, an i-row map, sweeps the rows it
+lists (row t of the output is row ``rows[t]``).  The candidates lie
+anywhere in the arrays and the output has n rows.  The slab solver sweeps
+a shard's rows of its halo window by a range (``tisph_tpu`` sweeps the
+whole extended array and slices the shard's rows out,
+``parallel/domain.py:559``, ``:624-628``); the rectangle solver its own
+rows of the id-merged extended array by a map (``tisph_tpu`` passes them
+as a separate i pack, ``ipack``, ``ops/pallas/sweeps.py:1166-1182``).
+The wrappers of ``csrc/sweeps_linear.cu`` take ``rows=(row0, n)``: blocks
+of 128 rows from row0 on (the sharded linear step, ``tisph_tpu``'s
+``ipack`` slice of its extended pack, ``parallel/domain.py:940-942``).
 
 How many threads of ``csrc/sweeps.cu`` share a row is a launch rule of
 the swept row count (``launch_shape``), read by no caller but the launch: a
@@ -119,6 +128,12 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+def _count(wrapper, part: bool) -> None:
+    """One launch of ``wrapper``'s kernel, over part of the arrays or not."""
+    wrapper.launches += 1
+    wrapper.part_launches += int(part)
+
+
 def _launch(mode: str, pos, vel, aux, ids, bounds, material,
             spec: GridSpec, params: SolverParams, fast_math: bool, rows) -> torch.Tensor:
     name = f"{mode}_sweep"
@@ -126,7 +141,12 @@ def _launch(mode: str, pos, vel, aux, ids, bounds, material,
         raise ValueError(f"{name}: unsupported device {ids.device}")
     packs = {"pos": pos} | ({"vel": vel, "aux": aux} if mode in _GRAD else {})
     _check(name, spec, ids, bounds, material, packs)
-    row0, n = neighbors.row_range(rows, ids.shape[0], name)
+    irows = None
+    if isinstance(rows, torch.Tensor):
+        neighbors.check_row_map(rows, ids, name)
+        irows, row0, n = rows, 0, rows.shape[0]
+    else:
+        row0, n = neighbors.row_range(rows, ids.shape[0], name)
     dim = spec.dim
     out = torch.empty((n, dim) if mode in _GRAD else (n,),
                       dtype=torch.float32, device=ids.device)
@@ -134,7 +154,7 @@ def _launch(mode: str, pos, vel, aux, ids, bounds, material,
         err = build.load().tisph_sweep(
             _MODES[mode], dim, int(fast_math), launch_shape(mode, n)[0], pos.data_ptr(),
             _ptr(vel), _ptr(aux), ids.data_ptr(), bounds.data_ptr(), material.data_ptr(),
-            out.data_ptr(), row0, n,
+            _ptr(irows), out.data_ptr(), row0, n, ids.shape[0],
             *_grid_args(spec), *_phys_args(mode in _GRAD, spec, params),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -143,16 +163,20 @@ def _launch(mode: str, pos, vel, aux, ids, bounds, material,
 
 
 def _launch_linear(mode: str, pos, vel, aux, ids, bounds, material, spec: GridSpec,
-                   params: SolverParams, fast_math: bool, windows) -> torch.Tensor:
+                   params: SolverParams, fast_math: bool, windows, rows) -> torch.Tensor:
     name = f"{mode}_sweep_linear"
     if ids.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {ids.device}")
     grad = mode == "force"
     _check(name, spec, ids, bounds, material,
            {"pos": pos} | ({"vel": vel, "aux": aux} if grad else {}))
-    n, dim = ids.shape[0], spec.dim
-    if n * spec.num_rows >= 2**31:  # a block's windows as one stream of int positions
-        raise ValueError(f"{name}: {n} rows x {spec.num_rows} stencil rows must fit in int32")
+    if isinstance(rows, torch.Tensor):
+        raise ValueError(f"{name}: takes a row range, not an i-row map")
+    row0, n = neighbors.row_range(rows, ids.shape[0], name)
+    dim = spec.dim
+    if ids.shape[0] * spec.num_rows >= 2**31:  # a block's windows as one stream of positions
+        raise ValueError(f"{name}: {ids.shape[0]} rows x {spec.num_rows} stencil rows must fit "
+                         "in int32")
     if windows is not None:
         shape = (-(-n // neighbors.LINEAR_BLOCK), spec.num_rows, 2)
         if (windows.device != ids.device or windows.dtype != torch.int32
@@ -164,7 +188,7 @@ def _launch_linear(mode: str, pos, vel, aux, ids, bounds, material, spec: GridSp
         err = build.load().tisph_linear_sweep(
             _LINEAR_MODES[mode], dim, int(fast_math), pos.data_ptr(), _ptr(vel), _ptr(aux),
             ids.data_ptr(), bounds.data_ptr(), material.data_ptr(), out.data_ptr(),
-            _ptr(windows), n, *_grid_args(spec), spec.num_cells,
+            _ptr(windows), row0, n, *_grid_args(spec), spec.num_cells,
             *_phys_args(grad, spec, params), torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, name)
@@ -174,14 +198,14 @@ def _launch_linear(mode: str, pos, vel, aux, ids, bounds, material, spec: GridSp
 def density_sweep(pos, ids, bounds, material, spec: GridSpec,
                   params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
     """(N,) density on fluid rows, 0 elsewhere (``neighbors.density_sweep``).
-    ``rows=(row0, n)``: sweep only those rows, output (n,), as in every
-    wrapper of this kernel; None is every row."""
+    ``rows``: None, ``(row0, n)`` or an (n,) int32 i-row map (see the
+    module), as in every wrapper of this kernel."""
     if ids.device.type == "cpu":
         return neighbors.density_sweep(pos, ids, bounds, material, spec, params, fast_math,
                                        rows)
     out = _launch("density", pos, None, None, ids, bounds, material, spec, params, fast_math,
                   rows)
-    density_sweep.launches += 1
+    _count(density_sweep, isinstance(rows, torch.Tensor))
     return out
 
 
@@ -193,7 +217,7 @@ def bvol_sweep(pos, ids, bounds, material, spec: GridSpec,
         return neighbors.bvol_sweep(pos, ids, bounds, material, spec, params, fast_math, rows)
     out = _launch("bvol", pos, None, None, ids, bounds, material, spec, params, fast_math,
                   rows)
-    bvol_sweep.launches += 1
+    _count(bvol_sweep, isinstance(rows, torch.Tensor))
     return out
 
 
@@ -206,7 +230,7 @@ def force_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
                                      params, fast_math, rows)
     out = _launch("force", pos, vel, aux, ids, bounds, material, spec, params, fast_math,
                   rows)
-    force_sweep.launches += 1
+    _count(force_sweep, isinstance(rows, torch.Tensor))
     return out
 
 
@@ -219,7 +243,7 @@ def force_react_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
                                            params, fast_math, rows)
     out = _launch("force_react", pos, vel, aux, ids, bounds, material, spec, params,
                   fast_math, rows)
-    force_react_sweep.launches += 1
+    _count(force_react_sweep, isinstance(rows, torch.Tensor))
     return out
 
 
@@ -232,49 +256,48 @@ def reaction_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
                                         params, fast_math, rows)
     out = _launch("reaction", pos, vel, aux, ids, bounds, material, spec, params, fast_math,
                   rows)
-    reaction_sweep.launches += 1
+    _count(reaction_sweep, isinstance(rows, torch.Tensor))
     return out
 
 
 def density_sweep_linear(pos, ids, bounds, material, spec: GridSpec, params: SolverParams,
-                         fast_math: bool = True,
-                         windows: torch.Tensor | None = None) -> torch.Tensor:
+                         fast_math: bool = True, windows: torch.Tensor | None = None,
+                         rows=None) -> torch.Tensor:
     """(N,) density on fluid rows, 0 elsewhere, over the linear layout
     (``neighbors.density_sweep_linear``).  ``windows``: on the card only,
-    an optional (ceil(N / 128), num_rows, 2) int32 tensor that receives
-    each block's windows [start, end)."""
+    an optional (ceil(n / 128), num_rows, 2) int32 tensor that receives
+    each block's windows [start, end).  ``rows=(row0, n)``: sweep those
+    rows in blocks of 128 from row0 on, output (n,); None is every row."""
     if ids.device.type == "cpu":
         if windows is not None:
             raise ValueError("density_sweep_linear: windows are written by the kernel only")
         return neighbors.density_sweep_linear(pos, ids, bounds, material, spec, params,
-                                              fast_math)
+                                              fast_math, rows)
     out = _launch_linear("density", pos, None, None, ids, bounds, material, spec, params,
-                         fast_math, windows)
-    density_sweep_linear.launches += 1
+                         fast_math, windows, rows)
+    _count(density_sweep_linear, rows is not None)
     return out
 
 
 def force_sweep_linear(pos, vel, aux, ids, bounds, material, spec: GridSpec,
                        params: SolverParams, fast_math: bool = True,
-                       windows: torch.Tensor | None = None) -> torch.Tensor:
+                       windows: torch.Tensor | None = None, rows=None) -> torch.Tensor:
     """(N, dim) acceleration on fluid rows, 0 elsewhere, over the linear
-    layout (``neighbors.force_sweep_linear``); ``windows`` as in
-    :func:`density_sweep_linear`."""
+    layout (``neighbors.force_sweep_linear``); ``windows`` and ``rows`` as
+    in :func:`density_sweep_linear`."""
     if ids.device.type == "cpu":
         if windows is not None:
             raise ValueError("force_sweep_linear: windows are written by the kernel only")
         return neighbors.force_sweep_linear(pos, vel, aux, ids, bounds, material, spec,
-                                            params, fast_math)
+                                            params, fast_math, rows)
     out = _launch_linear("force", pos, vel, aux, ids, bounds, material, spec, params,
-                         fast_math, windows)
-    force_sweep_linear.launches += 1
+                         fast_math, windows, rows)
+    _count(force_sweep_linear, rows is not None)
     return out
 
 
-density_sweep.launches = 0
-bvol_sweep.launches = 0
-force_sweep.launches = 0
-force_react_sweep.launches = 0
-reaction_sweep.launches = 0
-density_sweep_linear.launches = 0
-force_sweep_linear.launches = 0
+for _w in (density_sweep, bvol_sweep, force_sweep, force_react_sweep, reaction_sweep,
+           density_sweep_linear, force_sweep_linear):
+    _w.launches = 0
+    _w.part_launches = 0
+del _w

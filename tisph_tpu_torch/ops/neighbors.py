@@ -96,19 +96,27 @@ def pack_aux(p_rho2: torch.Tensor, flm: torch.Tensor, mass: torch.Tensor) -> tor
     return torch.stack([p_rho2, flm, mass, torch.zeros_like(mass)], dim=1)
 
 
-def candidates(ids, bounds, rows_i, spec: GridSpec, layout: str = "seg"):
+def candidates(ids, bounds, rows_i, spec: GridSpec, layout: str = "seg",
+               blocks: tuple[int, int] | None = None):
     """Yields the candidate pairs of the rows ``rows_i`` (int64) as chunks
     ``(i, j)`` of about ``_PAIR_BUDGET`` pairs.
 
     - ``seg``: every j of i's stencil runs (``grid.stencil_runs``);
     - ``linear``: every j of i's block window in each stencil row
-      (``grid.block_window_bounds`` over blocks of ``LINEAR_BLOCK`` i rows,
-      windows read out of ``bounds``) whose id lies in i's range of that
-      row (``grid.cell_target_ranges``), as ``tisph_tpu``'s linear TPU
-      kernel tests it (ops/pallas/sweeps.py:483).
+      (``grid.block_window_bounds`` over blocks of ``LINEAR_BLOCK`` of the
+      rows ``blocks=(row0, n)``, by default every row, windows read out of
+      ``bounds``) whose id lies in
+      i's range of that row (``grid.cell_target_ranges``), as
+      ``tisph_tpu``'s linear TPU kernel tests it (ops/pallas/sweeps.py:483).
 
     Both give the same pair set; i's cell is decoded from its sort-time id.
     """
+    for k, j in _pairs(ids, bounds, rows_i, spec, layout, blocks):
+        yield rows_i[k], j
+
+
+def _pairs(ids, bounds, rows_i, spec: GridSpec, layout: str, blocks):
+    """:func:`candidates` as ``(k, j)``: i = rows_i[k]."""
     dev = ids.device
     rows = spec.num_rows
     coords_i = coords_from_ids(ids[rows_i], spec)
@@ -116,9 +124,13 @@ def candidates(ids, bounds, rows_i, spec: GridSpec, layout: str = "seg"):
         runs = stencil_runs(coords_i, bounds, spec).long()
         starts, ends = runs[..., 0], runs[..., 1]
     elif layout == "linear":
-        w_lo, w_hi = block_window_bounds(ids, coords_from_ids(ids, spec), spec,
-                                         LINEAR_BLOCK, bounds=bounds)
-        blk = torch.div(rows_i, LINEAR_BLOCK, rounding_mode="floor")
+        # the blocks of the swept rows [row0, row0 + n): their windows, and
+        # the block of each row i
+        row0, n = blocks if blocks is not None else (0, ids.shape[0])
+        ids_b = ids[row0:row0 + n]
+        w_lo, w_hi = block_window_bounds(ids, coords_from_ids(ids_b, spec), spec,
+                                         LINEAR_BLOCK, ids_i=ids_b, bounds=bounds)
+        blk = torch.div(rows_i - row0, LINEAR_BLOCK, rounding_mode="floor")
         starts, ends = w_lo.long()[blk], w_hi.long()[blk]
         ranges = cell_target_ranges(coords_i, spec).reshape(-1, 2)
     else:
@@ -138,13 +150,13 @@ def candidates(ids, bounds, rows_i, spec: GridSpec, layout: str = "seg"):
         run = torch.repeat_interleave(torch.arange(ln.numel(), device=dev), ln)
         first = torch.cumsum(ln, 0) - ln
         j = starts[c0 * rows:c1 * rows][run] + (torch.arange(run.numel(), device=dev) - first[run])
-        i = rows_i[c0 + torch.div(run, rows, rounding_mode="floor")]
+        k = c0 + torch.div(run, rows, rounding_mode="floor")
         if layout == "linear":
             rng = ranges[c0 * rows + run]
             idj = ids[j]
             keep = torch.nonzero((idj >= rng[:, 0]) & (idj <= rng[:, 1])).squeeze(1)
-            i, j = i[keep], j[keep]
-        yield i, j
+            k, j = k[keep], j[keep]
+        yield k, j
 
 
 def row_range(rows, n: int, name: str) -> tuple[int, int]:
@@ -158,24 +170,42 @@ def row_range(rows, n: int, name: str) -> tuple[int, int]:
     return row0, count
 
 
+def check_row_map(irows, ids, name: str) -> None:
+    """An i-row map must be an (n,) int32 contiguous tensor on the arrays'
+    device; its entries are not read here (on a card that would wait)."""
+    if (irows.dtype != torch.int32 or irows.dim() != 1 or not irows.is_contiguous()
+            or irows.device != ids.device):
+        raise ValueError(f"{name}: an i-row map must be a contiguous (n,) int32 tensor on "
+                         f"{ids.device}, got {tuple(irows.shape)} {irows.dtype} on "
+                         f"{irows.device}")
+
+
 def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
            spec: GridSpec, params: SolverParams, layout: str = "seg",
            rows=None) -> torch.Tensor:
-    n = pos.shape[0]
-    row0, count = row_range(rows, n, f"{mode}_sweep")
+    name = f"{mode}_sweep"
+    if isinstance(rows, torch.Tensor):  # an i-row map: row t of the output is row rows[t]
+        check_row_map(rows, ids, name)
+        if layout != "seg":
+            raise ValueError(f"{name}_{layout}: takes a row range, not an i-row map")
+        irows, row0, count = rows.long(), 0, rows.shape[0]
+    else:
+        irows = None
+        row0, count = row_range(rows, pos.shape[0], name)
     dim = spec.dim
     h = params.support_length
     k_sig = cubic_kernel_sigma(dim, h)
     grad = mode in _GRAD
-    # the mode's family among the swept rows [row0, row0 + count); the
-    # candidates j range over every row
-    material = material[row0:row0 + count]
+    # the mode's family among the swept rows; the candidates j range over
+    # every row
+    material = material[irows] if irows is not None else material[row0:row0 + count]
     fam = material == _FAMILY[mode][0]
     for m in _FAMILY[mode][1:]:
         fam = fam | (material == m)
     fluid = material == MATERIAL_FLUID
     acc = torch.zeros((count, dim if grad else 1), dtype=torch.float32, device=pos.device)
-    rows_i = torch.nonzero(fam).squeeze(1) + row0
+    ts = torch.nonzero(fam).squeeze(1)  # output rows of the family
+    rows_i = irows[ts] if irows is not None else ts + row0  # their rows in the arrays
     if rows_i.numel() == 0:
         return acc if grad else acc[:, 0]
 
@@ -184,14 +214,15 @@ def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
     # dropping them first saves ~85% of the math.
     r2_keep = 1.0001 * h * h
 
-    for i, j in candidates(ids, bounds, rows_i, spec, layout):
+    for k, j in _pairs(ids, bounds, rows_i, spec, layout, (row0, count)):
+        i, t = rows_i[k], ts[k]
         pi, pj = pos.index_select(0, i), pos.index_select(0, j)
         dx = [pi[:, a] - pj[:, a] for a in range(dim)]
         r2 = dx[0] * dx[0]
         for a in range(1, dim):
             r2 = r2 + dx[a] * dx[a]
         near = torch.nonzero(r2 < r2_keep).squeeze(1)
-        i, j, r2, pi, pj = i[near], j[near], r2[near], pi[near], pj[near]
+        i, t, j, r2, pi, pj = i[near], t[near], j[near], r2[near], pi[near], pj[near]
         dx = [d[near] for d in dx]
         rs = torch.rsqrt(torch.clamp(r2, min=1e-12))
         q = (r2 * rs) * (1.0 / h)
@@ -202,7 +233,7 @@ def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
         w = 2.0 * p1 * p1sq - 8.0 * p2 * p2sq
 
         if not grad:
-            acc[:, 0].index_add_(0, i - row0, pj[:, 3] * w)
+            acc[:, 0].index_add_(0, t, pj[:, 3] * w)
             continue
 
         vi, vj, aj = vel[i], vel[j], aux[j]
@@ -230,9 +261,9 @@ def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
             inv_rho_j = 1.0 / torch.clamp(vj[:, 3], min=1e-12)
             nu_b_j = (params.boundary_sigma * h * params.c_s * 0.5) * inv_rho_j
             react = (pi[:, 3] * (flm * (nu_b_j * dot_neg - aj[:, 0]))) * gmag
-            coef = react if coef is None else torch.where(fluid[i - row0], coef, react)
+            coef = react if coef is None else torch.where(fluid[t], coef, react)
         for a in range(dim):
-            acc[:, a].index_add_(0, i - row0, coef * dx[a])
+            acc[:, a].index_add_(0, t, coef * dx[a])
 
     if not grad:
         return acc[:, 0] * k_sig  # rows outside the family were never added to
@@ -246,9 +277,10 @@ def _sweep(mode: str, pos, vel, aux, ids, bounds, material,
 def density_sweep(pos, ids, bounds, material, spec: GridSpec,
                   params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
     """(N,) density on fluid rows, 0 elsewhere.  ``pos`` c column = effm.
-    ``rows=(row0, n)``: only those rows are swept (their candidates lie
-    anywhere in the arrays) and the output has n rows, in every mode of
-    the seg sweep; None is every row."""
+    ``rows``, in every mode of the seg sweep: None sweeps every row;
+    ``(row0, n)`` rows [row0, row0 + n); an (n,) int32 tensor (an i-row
+    map) the rows it lists, row t of the output being row ``rows[t]``.
+    The candidates lie anywhere in the arrays and the output has n rows."""
     return _sweep("density", pos, None, None, ids, bounds, material, spec, params,
                   rows=rows)
 
@@ -282,14 +314,17 @@ def reaction_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
 
 
 def density_sweep_linear(pos, ids, bounds, material, spec: GridSpec, params: SolverParams,
-                         fast_math: bool = True) -> torch.Tensor:
+                         fast_math: bool = True, rows=None) -> torch.Tensor:
     """``density_sweep`` over the linear layout's block windows: (N,)
-    density on fluid rows, 0 elsewhere."""
-    return _sweep("density", pos, None, None, ids, bounds, material, spec, params, "linear")
+    density on fluid rows, 0 elsewhere.  ``rows=(row0, n)``: the blocks of
+    128 rows start at row0 and the output has n rows; None is every row."""
+    return _sweep("density", pos, None, None, ids, bounds, material, spec, params, "linear",
+                  rows)
 
 
 def force_sweep_linear(pos, vel, aux, ids, bounds, material, spec: GridSpec,
-                       params: SolverParams, fast_math: bool = True) -> torch.Tensor:
+                       params: SolverParams, fast_math: bool = True, rows=None) -> torch.Tensor:
     """``force_sweep`` over the linear layout's block windows: (N, dim)
-    acceleration on fluid rows, 0 elsewhere."""
-    return _sweep("force", pos, vel, aux, ids, bounds, material, spec, params, "linear")
+    acceleration on fluid rows, 0 elsewhere; ``rows`` as in
+    :func:`density_sweep_linear`."""
+    return _sweep("force", pos, vel, aux, ids, bounds, material, spec, params, "linear", rows)

@@ -32,7 +32,13 @@ One R-group (``SolverBase._groups``, as the single-device solver):
   density, ``eos_packs``, force or force_react, ``advance``), each sweep
   a launch of kernel A over the shard's rows of the window
   (``rows=(off, rows)``) after a value-only exchange of the packs it reads
-  (pos; then vel and aux).
+  (pos; then vel and aux).  ``MeshSolver._apply`` is shared with the
+  rectangle solver (``domain2d``), whose exchange and rows differ.
+
+``layout="linear"`` (R = 1, ``tisph_tpu``'s ``_step_fn_windowed``,
+``domain.py:891-1024``) runs the density and force sweeps as kernel C
+over the shard's rows of its window: a shard's rows start at a multiple
+of 128 of the global array, so C's blocks are the single-device ones.
 
 The halo depth is fixed between rebuilds; each build checks that the
 window covers the sort-time stencil of every live row it holds
@@ -44,6 +50,7 @@ than two shards the window is the whole array (JAX's all-gather path).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import NamedTuple
 
 import torch
@@ -74,9 +81,18 @@ BLOCK = 128
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D mesh: shard s runs on ``devices[s]``."""
+    """Shard s runs on ``devices[s]``; ``shape`` is the mesh's axes, (n,)
+    for the slab solver, (sx, sy) or (sx, sy, sz) for the rectangle one
+    (shards in row-major order)."""
 
     devices: tuple[torch.device, ...]
+    shape: tuple[int, ...] | None = None  # None: (len(devices),)
+
+    def __post_init__(self):
+        shape = (len(self.devices),) if self.shape is None else tuple(int(v) for v in self.shape)
+        if math.prod(shape) != len(self.devices) or min(shape, default=0) < 1:
+            raise ValueError(f"mesh shape {shape} does not hold {len(self.devices)} devices")
+        object.__setattr__(self, "shape", shape)
 
     @property
     def size(self) -> int:
@@ -90,26 +106,33 @@ def _device(d) -> torch.device:
     return d
 
 
+def mesh_devices(n_devices: int | None, devices, name: str) -> tuple[torch.device, ...]:
+    """``devices`` (one per shard, repeats allowed), or the first
+    ``n_devices`` CUDA devices (all of them for None); raises when there
+    are fewer CUDA devices, never falling back to the CPU."""
+    if devices is not None:
+        devs = tuple(_device(d) for d in devices)
+        if n_devices is not None and len(devs) != n_devices:
+            raise ValueError(f"{name}: {len(devs)} devices given for {n_devices} shards")
+    else:
+        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        n = have if n_devices is None else int(n_devices)
+        if n < 1 or have < n:
+            raise RuntimeError(f"{name}: need {max(n, 1)} CUDA devices, have {have}; "
+                               "pass devices=[...] to place shards explicitly")
+        devs = tuple(torch.device("cuda", i) for i in range(n))
+    if not devs:
+        raise ValueError(f"{name}: no devices")
+    return devs
+
+
 def make_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     """A 1-D mesh over ``devices`` (one per shard, repeats allowed), or
     over the first ``n_devices`` CUDA devices (all of them for None).
     Raises when there are fewer CUDA devices: unlike ``tisph_tpu``'s
     ``make_mesh`` it never falls back to the CPU; a caller that wants
     several shards on one device, or on the CPU, says so in ``devices``."""
-    if devices is not None:
-        devs = tuple(_device(d) for d in devices)
-        if n_devices is not None and len(devs) != n_devices:
-            raise ValueError(f"make_mesh: {len(devs)} devices given for {n_devices} shards")
-    else:
-        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
-        n = have if n_devices is None else int(n_devices)
-        if n < 1 or have < n:
-            raise RuntimeError(f"make_mesh: need {max(n, 1)} CUDA devices, have {have}; "
-                               "pass devices=[...] to place shards explicitly")
-        devs = tuple(torch.device("cuda", i) for i in range(n))
-    if not devs:
-        raise ValueError("make_mesh: no devices")
-    return Mesh(devs)
+    return Mesh(mesh_devices(n_devices, devices, "make_mesh"))
 
 
 class ShardCache(NamedTuple):
@@ -129,12 +152,145 @@ def _cat_to(parts: list[torch.Tensor], device: torch.device) -> torch.Tensor:
     return torch.cat([p.to(device, non_blocking=True) for p in parts])
 
 
-class ShardedWCSPH(SolverBase):
+class MeshSolver(SolverBase):
+    """What the slab and the rectangle solver share: the state is a list of
+    per-shard SimStates, shard s on ``mesh.devices[s]`` with
+    ``shard_rows`` rows; the substep (``_apply``) and the coupled substep
+    run every shard over its extended arrays, which ``_halo`` makes and
+    whose rows each cache's ``rows`` names."""
+
+    def __init__(self, scene: SceneConfig, mesh: Mesh, compat: str, resort_every: int,
+                 fast_math: bool, layout: str, boundary_mode: str | None,
+                 params: SolverParams | None):
+        dynamic = any(rb.is_dynamic for rb in scene.rigid_bodies)
+        if boundary_mode is None:
+            boundary_mode = "per_step" if dynamic else "static"
+        if dynamic and layout != "seg":
+            # the linear kernel has no force_react mode (as WCSPHRigid)
+            raise ValueError(f"a scene with a dynamic body runs layout='seg', not {layout!r}")
+        super().__init__(scene, compat=compat, device=mesh.devices[0], resort_every=resort_every,
+                         fast_math=fast_math, layout=layout, boundary_mode=boundary_mode,
+                         params=params)
+        self.mesh = mesh
+        self.n_shards = mesh.size
+        self.shard_rows: int | None = None
+
+    def _check_device(self, shards) -> None:
+        if not isinstance(shards, (list, tuple)) or len(shards) != self.n_shards:
+            raise ValueError(f"{type(self).__name__}: the state must be a list of "
+                             f"{self.n_shards} shards (bind a global state first)")
+        for s, (st, dev) in enumerate(zip(shards, self.mesh.devices)):
+            if st.device != dev or st.capacity != self.shard_rows:
+                raise ValueError(f"shard {s}: {st.capacity} rows on {st.device}, want "
+                                 f"{self.shard_rows} on {dev}")
+
+    def _halo(self, parts: list[torch.Tensor], caches) -> list[torch.Tensor]:
+        """Each shard's extended array of the per-shard tensors ``parts``
+        (the value-only exchange of one pack), on its device."""
+        raise NotImplementedError
+
+    def _apply(self, shards, caches, with_reactions: bool = False):
+        """One substep of every shard, the phases of ``WCSPH._apply`` over
+        each shard's extended arrays, its rows ``caches[s].rows``; with
+        ``with_reactions`` also the (rows, dim) reactions of each shard
+        (``force_react``)."""
+        spec, params, fm = self.spec, self.params, self.fast_math
+        n = range(self.n_shards)
+        shards = list(shards)
+        effm = [c.effm for c in caches]
+        if self.boundary_mode == "per_step":
+            pos_b = self._halo([pack4(st.x, c.boundary.to(torch.float32))
+                                for st, c in zip(shards, caches)], caches)
+            for s in n:
+                c, st = caches[s], shards[s]
+                delta = cuda_sweeps.bvol_sweep(pos_b[s], c.ids, c.bounds, c.material, spec,
+                                               params, fm, rows=c.rows)
+                volume, effm[s] = per_step_volumes(delta, c.boundary, st.volume, c.flm,
+                                                   params.density0)
+                shards[s] = dataclasses.replace(st, volume=volume)
+
+        linear = self.layout == "linear"
+        density = cuda_sweeps.density_sweep_linear if linear else cuda_sweeps.density_sweep
+        pos_e = self._halo([pack4(st.x, effm[s]) for s, st in enumerate(shards)], caches)
+        vel, aux, eos = [], [], []
+        for s in n:
+            c, st = caches[s], shards[s]
+            rho = density(pos_e[s], c.ids, c.bounds, c.material, spec, params, fm, rows=c.rows)
+            rho, pressure, v, a = eos_packs(rho, st, c.fluid, c.flm, params)
+            vel.append(v)
+            aux.append(a)
+            eos.append((rho, pressure))
+
+        if with_reactions:
+            sweep = cuda_sweeps.force_react_sweep
+        else:
+            sweep = cuda_sweeps.force_sweep_linear if linear else cuda_sweeps.force_sweep
+        vel_e, aux_e = self._halo(vel, caches), self._halo(aux, caches)
+        reactions = []
+        for s in n:
+            c, st = caches[s], shards[s]
+            dv = sweep(pos_e[s], vel_e[s], aux_e[s], c.ids, c.bounds, c.material, spec, params,
+                       fm, rows=c.rows)
+            shards[s] = advance(st, *eos[s], dv, params)
+            if with_reactions:
+                reactions.append(torch.where(c.boundary[:, None], dv, 0.0))
+        return (shards, reactions) if with_reactions else shards
+
+    # -- dynamic rigid bodies ---------------------------------------------
+    def init_rigid(self, shards: list[SimState]) -> RigidState:
+        """Bodies at rest, on shard 0's device."""
+        return make_rigid_state(self.gather_state(shards), self.scene)
+
+    def _coupled_substep(self, carry: tuple, caches) -> tuple:
+        """``WCSPHRigid._coupled_substep`` over the shards: each body's sums
+        are the shards' partial sums added on shard 0's device."""
+        shards, rigid = carry
+        shards, reactions = self._apply(shards, caches, with_reactions=True)
+        dev0, params = self.mesh.devices[0], self.params
+        local = [_rigid_to(rigid, dev) for dev in self.mesh.devices]
+        sums = []
+        for k in range(rigid.num_bodies):
+            parts = [[t.to(dev0, non_blocking=True) for t in
+                      body_sums(st.x, st.mass, st.object_id, c.boundary, local[s],
+                                reactions[s], k, params)]
+                     for s, (st, c) in enumerate(zip(shards, caches))]
+            force, tau, inertia, pen_lo, pen_hi = parts[0]
+            for p in parts[1:]:
+                force, tau, inertia = force + p[0], tau + p[1], inertia + p[2]
+                pen_lo, pen_hi = torch.maximum(pen_lo, p[3]), torch.maximum(pen_hi, p[4])
+            sums.append((force, tau, inertia, pen_lo, pen_hi))
+        rigid2, moves = step_bodies(rigid, sums, params, self.spec.dim)
+        out = []
+        for s, (st, c) in enumerate(zip(shards, caches)):
+            dev = self.mesh.devices[s]
+            mv = [tuple(t.to(dev, non_blocking=True) for t in m) for m in moves]
+            x, v = move_body_rows(st.x, st.v, st.object_id, c.boundary, local[s], mv)
+            out.append(dataclasses.replace(st, x=x, v=v))
+        return out, rigid2
+
+    def _check_rigid(self, rigid: RigidState) -> None:
+        if rigid.com.device != self.mesh.devices[0]:
+            raise ValueError(f"rigid state is on {rigid.com.device}, want shard 0's "
+                             f"{self.mesh.devices[0]}")
+
+    def step_coupled(self, shards, rigid: RigidState):
+        """One coupled substep with a fresh structure."""
+        self._check_rigid(rigid)
+        return self._groups((shards, rigid), 1, 1, self._coupled_substep)
+
+    def rollout_coupled(self, shards, rigid: RigidState, num_steps: int):
+        """``num_steps`` coupled substeps in groups of ``resort_every``."""
+        self._check_rigid(rigid)
+        return self._groups((shards, rigid), num_steps, self.resort_every,
+                            self._coupled_substep)
+
+
+class ShardedWCSPH(MeshSolver):
     """WCSPH over a 1-D mesh; the state is a list of per-shard SimStates,
     shard s's ``num_active`` the live rows it holds (the global array keeps
     its live rows first, so shard s holds rows [s R, (s+1) R) of it)."""
 
-    layouts = ("seg",)
+    layouts = ("seg", "linear")
 
     def __init__(
         self,
@@ -148,26 +304,25 @@ class ShardedWCSPH(SolverBase):
         halo: int | None = None,
         resort: str = "exchange",
         resort_edge: int | None = None,
+        layout: str = "seg",
     ):
         """``halo``: rows each side of a shard's own in its window (None:
         twice the furthest stencil reach across a shard boundary at bind).
         ``resort``: ``"exchange"`` or ``"global"`` (see the module).
         ``resort_edge``: the exchange's edge depth in rows (None: the
         halo's).  ``boundary_mode`` None: ``"per_step"`` when the scene has
-        a dynamic body, else ``"static"``.  The rest as ``SolverBase``."""
-        if boundary_mode is None:
-            dynamic = any(rb.is_dynamic for rb in scene.rigid_bodies)
-            boundary_mode = "per_step" if dynamic else "static"
+        a dynamic body, else ``"static"``.  ``layout``: ``"seg"`` (kernel
+        A) or ``"linear"`` (kernel C, R = 1 only; a dynamic scene refuses
+        it).  The rest as ``SolverBase``."""
         if resort not in ("exchange", "global"):
             raise ValueError(f"resort must be 'exchange' or 'global', got {resort!r}")
-        super().__init__(scene, compat=compat, device=mesh.devices[0], resort_every=resort_every,
-                         fast_math=fast_math, boundary_mode=boundary_mode, params=params)
-        self.mesh = mesh
-        self.n_shards = mesh.size
+        if len(mesh.shape) != 1:
+            raise ValueError(f"ShardedWCSPH needs a 1-D mesh, got shape {mesh.shape}")
+        super().__init__(scene, mesh, compat, resort_every, fast_math, layout, boundary_mode,
+                         params)
         self.halo = halo
         self.resort = resort
         self.resort_edge = resort_edge
-        self.shard_rows: int | None = None
         self.halo_path: str | None = None  # "neighbours" or "all_gather", set at bind
         self.occ_resort = 0    # seam-guard fallbacks since the last reset (host count)
         self.occ_halo: torch.Tensor | None = None  # () i32 on shard 0's device
@@ -236,15 +391,6 @@ class ShardedWCSPH(SolverBase):
         fields = {k: _cat_to([getattr(st, k) for st in shards], dev0)
                   for k in gridops.state_fields(shards[0])}
         return SimState(**fields, num_active=sum(st.num_active for st in shards))
-
-    def _check_device(self, shards) -> None:
-        if not isinstance(shards, (list, tuple)) or len(shards) != self.n_shards:
-            raise ValueError(f"{type(self).__name__}: the state must be a list of "
-                             f"{self.n_shards} shards (bind a global state first)")
-        for s, (st, dev) in enumerate(zip(shards, self.mesh.devices)):
-            if st.device != dev or st.capacity != self.shard_rows:
-                raise ValueError(f"shard {s}: {st.capacity} rows on {st.device}, want "
-                                 f"{self.shard_rows} on {dev}")
 
     def _hops(self) -> int:
         return max(1, -(-self.halo // self.shard_rows))
@@ -383,46 +529,8 @@ class ShardedWCSPH(SolverBase):
         self.occ_halo = torch.maximum(
             self.occ_halo, short.to(torch.int32).to(self.mesh.devices[0], non_blocking=True))
 
-    def _apply(self, shards, caches, with_reactions: bool = False):
-        """One substep of every shard, the phases of ``WCSPH._apply`` over
-        each shard's window; with ``with_reactions`` also the (rows, dim)
-        reactions of each shard (``force_react``)."""
-        spec, params, fm = self.spec, self.params, self.fast_math
-        n = range(self.n_shards)
-        shards = list(shards)
-        effm = [c.effm for c in caches]
-        if self.boundary_mode == "per_step":
-            pos_b = [pack4(st.x, c.boundary.to(torch.float32)) for st, c in zip(shards, caches)]
-            for s in n:
-                c, st = caches[s], shards[s]
-                delta = cuda_sweeps.bvol_sweep(self._extend(pos_b, s), c.ids, c.bounds,
-                                               c.material, spec, params, fm, rows=c.rows)
-                volume, effm[s] = per_step_volumes(delta, c.boundary, st.volume, c.flm,
-                                                   params.density0)
-                shards[s] = dataclasses.replace(st, volume=volume)
-
-        pos = [pack4(st.x, effm[s]) for s, st in enumerate(shards)]
-        pos_e = [self._extend(pos, s) for s in n]
-        vel, aux, eos = [], [], []
-        for s in n:
-            c, st = caches[s], shards[s]
-            rho = cuda_sweeps.density_sweep(pos_e[s], c.ids, c.bounds, c.material, spec,
-                                            params, fm, rows=c.rows)
-            rho, pressure, v, a = eos_packs(rho, st, c.fluid, c.flm, params)
-            vel.append(v)
-            aux.append(a)
-            eos.append((rho, pressure))
-
-        sweep = cuda_sweeps.force_react_sweep if with_reactions else cuda_sweeps.force_sweep
-        reactions = []
-        for s in n:
-            c, st = caches[s], shards[s]
-            dv = sweep(pos_e[s], self._extend(vel, s), self._extend(aux, s), c.ids, c.bounds,
-                       c.material, spec, params, fm, rows=c.rows)
-            shards[s] = advance(st, *eos[s], dv, params)
-            if with_reactions:
-                reactions.append(torch.where(c.boundary[:, None], dv, 0.0))
-        return (shards, reactions) if with_reactions else shards
+    def _halo(self, parts, caches):
+        return [self._extend(parts, s) for s in range(self.n_shards)]
 
     # -- emitters: the global tail pool -----------------------------------
     def _maybe_emit(self, carry: tuple) -> tuple:
@@ -434,7 +542,7 @@ class ShardedWCSPH(SolverBase):
         rps = self.shard_rows
         for k, es in enumerate(ems):
             n0 = sum(st.num_active for st in shards)
-            fire, ems[k] = count_step(es, n0, rps * self.n_shards)
+            fire, ems[k] = count_step(es, n0 + es.batch_size <= rps * self.n_shards)
             if not fire:
                 continue
             n1 = n0 + es.batch_size
@@ -447,54 +555,6 @@ class ShardedWCSPH(SolverBase):
                     es.color.to(dev), es.density.to(dev), self.scene.particle_volume0)
                 shards[s] = dataclasses.replace(st, num_active=st.num_active + hi - lo, **fields)
         return shards, ems
-
-    # -- dynamic rigid bodies ---------------------------------------------
-    def init_rigid(self, shards: list[SimState]) -> RigidState:
-        """Bodies at rest, on shard 0's device."""
-        return make_rigid_state(self.gather_state(shards), self.scene)
-
-    def _coupled_substep(self, carry: tuple, caches) -> tuple:
-        """``WCSPHRigid._coupled_substep`` over the shards: each body's sums
-        are the shards' partial sums added on shard 0's device."""
-        shards, rigid = carry
-        shards, reactions = self._apply(shards, caches, with_reactions=True)
-        dev0, params = self.mesh.devices[0], self.params
-        local = [_rigid_to(rigid, dev) for dev in self.mesh.devices]
-        sums = []
-        for k in range(rigid.num_bodies):
-            parts = [[t.to(dev0, non_blocking=True) for t in
-                      body_sums(st.x, st.mass, st.object_id, c.boundary, local[s],
-                                reactions[s], k, params)]
-                     for s, (st, c) in enumerate(zip(shards, caches))]
-            force, tau, inertia, pen_lo, pen_hi = parts[0]
-            for p in parts[1:]:
-                force, tau, inertia = force + p[0], tau + p[1], inertia + p[2]
-                pen_lo, pen_hi = torch.maximum(pen_lo, p[3]), torch.maximum(pen_hi, p[4])
-            sums.append((force, tau, inertia, pen_lo, pen_hi))
-        rigid2, moves = step_bodies(rigid, sums, params, self.spec.dim)
-        out = []
-        for s, (st, c) in enumerate(zip(shards, caches)):
-            dev = self.mesh.devices[s]
-            mv = [tuple(t.to(dev, non_blocking=True) for t in m) for m in moves]
-            x, v = move_body_rows(st.x, st.v, st.object_id, c.boundary, local[s], mv)
-            out.append(dataclasses.replace(st, x=x, v=v))
-        return out, rigid2
-
-    def _check_rigid(self, rigid: RigidState) -> None:
-        if rigid.com.device != self.mesh.devices[0]:
-            raise ValueError(f"rigid state is on {rigid.com.device}, want shard 0's "
-                             f"{self.mesh.devices[0]}")
-
-    def step_coupled(self, shards, rigid: RigidState):
-        """One coupled substep with a fresh structure."""
-        self._check_rigid(rigid)
-        return self._groups((shards, rigid), 1, 1, self._coupled_substep)
-
-    def rollout_coupled(self, shards, rigid: RigidState, num_steps: int):
-        """``num_steps`` coupled substeps in groups of ``resort_every``."""
-        self._check_rigid(rigid)
-        return self._groups((shards, rigid), num_steps, self.resort_every,
-                            self._coupled_substep)
 
     # -- adaptive run and metrics ------------------------------------------
     def regrow_halo(self, new_halo: int | None = None) -> None:
