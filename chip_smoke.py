@@ -922,6 +922,33 @@ def hold_to_single(label: str, got, want) -> tuple[float, float, float]:
     return dx, dv, drho
 
 
+def launches_behind_spin(label: str, fn) -> None:
+    """Prints how many kernel launches ``fn()`` makes behind a device-side
+    spin of about a second, the host time they take, the part of it spent
+    inside cudaLaunchKernel, and whether the spin outlasted them: a
+    measurement of the launch queue's depth, which fails nothing."""
+    from torch.profiler import ProfilerActivity, profile
+
+    spun = torch.cuda.Event()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        # the profiler starts before the spin: its start may wait for the
+        # device
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SPIN_CYCLES)
+        spun.record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        spin_running = not spun.query()
+    torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.key == "cudaLaunchKernel"]
+    n = rows[0].count if rows else 0
+    in_launch = rows[0].cpu_time_total / 1e3 if rows else 0.0
+    print(f"  {label} behind the spin: {n} cudaLaunchKernel calls recorded by the "
+          f"profiler, {host_ms:.1f} ms of host time, {in_launch:.1f} ms of it inside "
+          f"cudaLaunchKernel; spin still running when it returned: {spin_running}")
+
+
 def count_host_waits(fn) -> int:
     """How many times ``fn()`` made the host wait for the device: torch's
     sync debug mode warns once per synchronising call."""
@@ -1255,6 +1282,7 @@ def rect_demo(tt, kernels, scene, card_line: str):
             # a group's 1,400-odd launches overfill the launch queue behind
             # the spin (cudaLaunchKernel then blocks until the device drains
             # it), so its build and a substep queue behind it each alone
+            launches_behind_spin(f"{label}, a whole R=2 group", group)
             st_b, caches = sh._build(shards)
             assert_no_host_wait(f"{label}, a group's build", lambda: sh._build(shards))
             assert_no_host_wait(f"{label}, a substep", lambda: sh._substep((st_b,), caches))
