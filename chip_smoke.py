@@ -157,7 +157,26 @@ Phases, each of which raises on failure (nothing is caught):
    state against the single-device linear run (and whether it is bitwise
    equal); kernel C's launch counters (a density and a force launch over
    a row range per shard per step); then kernel C over shard 1 of 2's row
-   range against its plain version, its time and its bound.
+   range against its plain version, its time and its bound;
+20. long runs through tools.soak (WCSPH.run, R=2, each chunk's
+   particle-steps/s by the host clock between synchronisations): demo_3d
+   10,000 steps in chunks of 1,000, then bench_3d_1m 2,500 in chunks of
+   100; each with launch counters (a rebuild per group of each chunk, a
+   density and a force launch per step), no NaN, CFL < 1, every particle
+   still live; demo_3d's end-state speed and density errors printed beside
+   artifacts/soak_r04.json's (the TPU soak of the same run); kernel A's
+   density and force on demo_3d's end state against their plain versions
+   at phase 4's tolerances, their times beside phase 5's;
+21. tools.compare_resort on demo_3d, 200 steps at R=2 and at R=3 against
+   R=1 (R=2 must stay below 0.5 h position RMSE), and
+   tools.compare_compat on demo_2d, WCSPH 100 steps and legacy 50, beside
+   README's table; launch counters of both;
+22. test_buoyancy's scenes through ShardedWCSPH.run_coupled, 2,000 steps
+   at R=1 on one shard of the card (the light box floats above com_y
+   0.27, the heavy one sinks below) and the light one on 2 slab shards,
+   with launch counters; then bench_3d_rigid's 1,200 coupled steps at R=2
+   through WCSPHRigid.run_coupled(check_every=400) and through
+   rollout_coupled: every particle and body field bitwise equal.
 
 Every kernel's entry in the JSON line has a bound: the larger of the bytes
 it must move (each input read once, each output written once) over 3.35
@@ -169,10 +188,12 @@ torch.searchsorted plus one index_select per field (no PyTorch call
 computes a sweep).
 
 The launches in the JSON line are the sums of the main paths' runs:
-phases 5, 11, 12 and 13 with 14, 15, 17 and 18 for kernel A's density and
-force and kernel B (and 19 for B), 7, 15 and 18 for bvol and force_react,
-9 and 19 for kernel C.  A's max_abs_err folds in its checks over a row
-range (phase 14) and with an i-row map (17), C's over a row range (19).
+phases 5, 11, 12 and 13 with 14, 15, 17, 18 and 20-22 for kernel A's
+density and force and kernel B (and 19 for B), 7, 15, 18 and 22 for bvol
+and force_react, 9 and 19 for kernel C.  A's max_abs_err folds in its
+checks over a row range (phase 14), with an i-row map (17) and, for
+density and force, on demo_3d after 10,000 steps (20); C's over a row
+range (19).
 
 The last two lines of standard output are the JSON kernel summary and
 {"ok": true, "device": {...}}; any failure exits nonzero before them.
@@ -214,6 +235,13 @@ SHARD_RIGID = 200  # phase 15
 RECT_STEPS, RECT_CHECK = 100, 20  # phase 17 (and the check of 18 and 19)
 RECT_RIGID = 200  # phase 18
 LIN_SHARD_STEPS = 50  # phase 19
+SOAK_STEPS, SOAK_CHUNK = 10_000, 1_000  # phase 20, demo_3d
+SOAK_1M_STEPS, SOAK_1M_CHUNK = 2_500, 100  # phase 20, bench_3d_1m
+RESORT_STEPS = 200  # phase 21
+COMPAT_SUBSTEPS = 5  # phase 21: demo_2d's snapshots every 5 steps
+COMPAT_STEPS = {"wcsph": 100, "legacy": 50}  # phase 21, README's table
+RESORT_CHUNK = 100  # tools.compare_resort's rollouts
+COUPLED_RUN, COUPLED_CHECK = 1_200, 400  # phase 22, bench_3d_rigid
 SPIN_CYCLES = 2_000_000_000  # about a second at the H100's clocks
 
 # tests/test_rigid_dynamics.py::test_buoyancy's pool and box
@@ -664,9 +692,8 @@ def body_drift(state, rigid, tags, d0) -> float:
     return float((d - d0).abs().max())
 
 
-def buoyancy(tt, density: float, tmp: str) -> float:
-    """test_buoyancy's scene with a box of ``density``: com_y after
-    BUOYANCY_STEPS coupled steps at R=1, on the card."""
+def pool_scene(tt, density: float, tmp: str):
+    """test_buoyancy's scene: a box of ``density`` over a calm pool."""
     from tisph_tpu_torch.geometry.mesh import box_mesh, save_obj
 
     save_obj(box_mesh(*BOX), os.path.join(tmp, "box.obj"))
@@ -680,7 +707,13 @@ def buoyancy(tt, density: float, tmp: str) -> float:
                          "density": density, "color": [150, 150, 150], "isDynamic": True}],
         "fluidBlocks": POOL,
     }
-    scene = tt.scene_from_dict(raw, base_dir=tmp)
+    return tt.scene_from_dict(raw, base_dir=tmp)
+
+
+def buoyancy(tt, density: float, tmp: str) -> float:
+    """test_buoyancy's scene with a box of ``density``: com_y after
+    BUOYANCY_STEPS coupled steps at R=1, on the card."""
+    scene = pool_scene(tt, density, tmp)
     solver, state, rigid = tt.make_solver(scene, tt.build_state(scene, device=DEVICE),
                                           device=DEVICE, resort_every=1)
     t0 = time.perf_counter()
@@ -1476,6 +1509,201 @@ def viewers_and_utils(solver, scene, state):
         raise AssertionError(f"the orbit view PNG is {size} bytes")
 
 
+def groups_of(steps: int, chunk: int, R: int) -> int:
+    """The R-groups (rebuilds) of ``steps`` substeps run in rollouts of
+    ``chunk``: each rollout starts a group."""
+    return (steps // chunk) * -(-chunk // R) + -(-(steps % chunk) // R)
+
+
+def soak_run(kernels, path: str, steps: int, chunk: int, card_line: str):
+    """One soak of phase 20 through ``tools.soak`` at R=2 (its per-chunk
+    rates printed by ``run``): the launch counters against the chunks'
+    groups, no NaN, CFL < 1, every particle still live.  Returns the
+    record, the solver, the end state and the launch counts."""
+    from tisph_tpu_torch.tools import soak
+
+    reset_counts(kernels)
+    rec, solver, state = soak.soak(path, steps, 2, chunk, torch.device(DEVICE))
+    got = {k: f.launches for k, f in kernels.items()}
+    bind = int(bool(state.boundary_mask.any()))  # static volumes at bind
+    want = {k: 0 for k in kernels} | {"rebuild": bind + groups_of(steps, chunk, 2),
+                                      "sweep.bvol": bind, "sweep.density": steps,
+                                      "sweep.force": steps}
+    m = rec["metrics"]
+    print(f"  record: {json.dumps(rec)}")
+    print(f"  launches: {got}")
+    if got != want:
+        raise AssertionError(f"soak of {path}: launch counts {got}, expected {want}")
+    if m["nan_count"] != 0 or not math.isfinite(m["max_velocity"]) or m["cfl"] >= 1.0:
+        raise AssertionError(f"soak of {path} unhealthy: {m}")
+    if not m["num_active"] == rec["particles"] == state.num_active:
+        raise AssertionError(f"soak of {path}: {rec['particles']} particles at the start, "
+                             f"{m['num_active']} at the end")
+    print(f"  {rec['particles']} particles, {steps} steps ({rec['sim_seconds']:.3f} simulated "
+          f"s) in chunks of {chunk}: {rec['pps_wall']:.6e} particle-steps/s over the run, "
+          f"{rec['wall_s']:.3f} s, on {card_line}")
+    return rec, solver, state, got
+
+
+def long_run(tt, kernels, times5: dict, card_line: str):
+    """Phase 20: demo_3d 10,000 steps and bench_3d_1m 2,500 through
+    ``tools.soak``, then kernel A's density and force on demo_3d's end
+    state; returns the launch counts and A's errors there."""
+    from tisph_tpu_torch.ops import neighbors
+    from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
+
+    rec, solver, state, launches = soak_run(kernels, DEMO_3D, SOAK_STEPS, SOAK_CHUNK, card_line)
+    with open(os.path.join(HERE, "artifacts", "soak_r04.json")) as f:
+        tpu = json.load(f)["metrics"]
+    m = rec["metrics"]
+    print("  end state beside artifacts/soak_r04.json's (the same scene, steps and R on the "
+          "TPU; physics, not speed):")
+    for k in ("max_velocity", "avg_density_error", "max_density_error"):
+        print(f"    {k:<18} {m[k]:.6f}  (TPU soak {tpu[k]:.6f})")
+
+    print(f"  kernel A on demo_3d after {SOAK_STEPS} steps (piled up) against its plain "
+          "version:")
+    inp = sweep_inputs(solver, state)
+    errs = check_sweeps(f"demo_3d+{SOAK_STEPS}", solver, inp)
+    st, ids, bnd, mat = inp["st"], inp["ids"], inp["bounds"], inp["st"].material
+    sp, pr = solver.spec, solver.params
+    piled = time_against_plain({
+        "density": (lambda: cuda_sweeps.density_sweep(inp["pos"], ids, bnd, mat, sp, pr),
+                    lambda: neighbors.density_sweep(inp["pos"], ids, bnd, mat, sp, pr), 20, 2),
+        "force": (lambda: cuda_sweeps.force_sweep(inp["pos"], inp["vel"], inp["aux"], ids, bnd,
+                                                  mat, sp, pr),
+                  lambda: neighbors.force_sweep(inp["pos"], inp["vel"], inp["aux"], ids, bnd,
+                                                mat, sp, pr), 20, 2),
+    })
+    for mode in ("density", "force"):
+        bms, by = sweep_bound(mode, inp, solver)
+        k5, p5 = times5[f"sweep.{mode}"]
+        print(f"  A {mode:<7} after {SOAK_STEPS} steps: kernel {piled[mode][0]:.4f} ms, plain "
+              f"{piled[mode][1]:.4f} ms, bound {bms:.5f} ms ({by}); after "
+              f"{STEPS_R2 + STEPS_R1 + 2} steps (phase 5): kernel {k5:.4f} ms, plain "
+              f"{p5:.4f} ms; on {card_line}")
+    del solver, state, inp
+
+    rec, _, _, got = soak_run(kernels, LARGE_3D, SOAK_1M_STEPS, SOAK_1M_CHUNK, card_line)
+    launches = {k: launches[k] + got[k] for k in kernels}
+    return launches, errs
+
+
+def cadence_and_compat(kernels, card_line: str):
+    """Phase 21: ``tools.compare_resort`` on demo_3d at R=2 and R=3 and
+    ``tools.compare_compat`` on demo_2d; returns the launch counts."""
+    from tisph_tpu_torch.tools import compare_compat, compare_resort
+
+    dev = torch.device(DEVICE)
+    reset_counts(kernels)
+    # tisph_tpu's figures on the TPU (ROADMAP.md, "Facts that hold on any
+    # hardware"): physics, not speed
+    tpu = {2: "0.13 h (p99 0.50 h)", 3: "0.29 h"}
+    res = {}
+    for R in (2, 3):
+        res[R] = compare_resort.compare(DEMO_3D, R, RESORT_STEPS, dev)
+        r = res[R]
+        print(f"  compare_resort demo_3d R={R} against R=1 after {RESORT_STEPS} steps: rmse "
+              f"{r['rmse']:.6e} m = {r['rmse_over_h']:.6f} h, max {r['max_over_h']:.6f} h, "
+              f"p99 {r['p99_over_h']:.6f} h (TPU round: {tpu[R]})")
+    if not res[2]["rmse_over_h"] < 0.5:
+        raise AssertionError(f"R=2 diverges from R=1 by {res[2]['rmse_over_h']} h RMSE (>= 0.5 h)")
+    out = {name: compare_compat.compare(DEMO_2D, name, steps // COMPAT_SUBSTEPS,
+                                        COMPAT_SUBSTEPS, dev)
+           for name, steps in COMPAT_STEPS.items()}
+    readme = {("wcsph", 50): 0.45, ("wcsph", 100): 1.15, ("legacy", 50): 0.00}
+    for (name, step), want in readme.items():
+        row = next(r for r in out[name]["rows"] if r["step"] == step)
+        if not math.isfinite(row["rmse"]):
+            raise AssertionError(f"compare_compat {name} step {step}: non-finite RMSE")
+        print(f"  compare_compat demo_2d {name:<6} {step:>3} steps: pos RMSE {row['rmse']:.6f} m "
+              f"= {row['rmse_over_h']:.4f} h (README: {want:.2f} h)")
+    got = {k: f.launches for k, f in kernels.items()}
+    # each tool runs its two modes; the legacy solver rebuilds every step and
+    # sweeps in plain PyTorch
+    resort = sum(groups_of(RESORT_STEPS, RESORT_CHUNK, 1) + groups_of(RESORT_STEPS, RESORT_CHUNK, R)
+                 for R in (2, 3))
+    wc, lg = 2 * COMPAT_STEPS["wcsph"], 2 * COMPAT_STEPS["legacy"]
+    want = {k: 0 for k in kernels} | {"rebuild": resort + wc + lg,
+                                      "sweep.density": 4 * RESORT_STEPS + wc,
+                                      "sweep.force": 4 * RESORT_STEPS + wc}
+    print(f"  launches: {got}")
+    if got != want:
+        raise AssertionError(f"phase 21 launch counts {got}, expected {want}")
+    return got
+
+
+def coupled_long_runs(tt, kernels, r_scene, card_line: str):
+    """Phase 22: test_buoyancy's scenes through ``ShardedWCSPH.run_coupled``
+    on one shard and the light one on 2 slab shards, then
+    ``WCSPHRigid.run_coupled`` against ``rollout_coupled`` bitwise;
+    returns the launch counts."""
+    from tisph_tpu_torch.models.state import SimState
+    from tisph_tpu_torch.ops import grid as gridops
+    from tisph_tpu_torch.parallel import ShardedWCSPH, make_mesh
+
+    total = {k: 0 for k in kernels}
+    with tempfile.TemporaryDirectory() as tmp:
+        for density, d in ((200.0, 1), (5000.0, 1), (200.0, 2)):
+            scene = pool_scene(tt, density, tmp)
+            sh = ShardedWCSPH(scene, make_mesh(devices=[DEVICE] * d))
+            shards = sh.bind(tt.build_state(scene, device=DEVICE))
+            rigid = sh.init_rigid(shards)
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            shards, rigid = sh.run_coupled(shards, rigid, BUOYANCY_STEPS)
+            com = rigid.com[0].tolist()
+            wall = time.perf_counter() - t0
+            got = {k: f.launches for k, f in kernels.items()}
+            groups = groups_of(BUOYANCY_STEPS, 400, sh.resort_every)
+            # rebuild: d per exchange group, 1 per fallback to the global sort
+            fb = (groups * d - got["rebuild"]) // (d - 1) if d > 1 else 0
+            want = {k: 0 for k in kernels} | {
+                "rebuild": (groups - fb) * d + fb, "csr_bounds": groups * d,
+                "sweep.bvol": BUOYANCY_STEPS * d, "sweep.density": BUOYANCY_STEPS * d,
+                "sweep.force_react": BUOYANCY_STEPS * d}
+            m = sh.metrics(shards)
+            n = sum(st.num_active for st in shards)
+            print(f"  density {density:g} on {d} shard(s): {n} particles, com after "
+                  f"{BUOYANCY_STEPS} steps = {com}, {wall * 1e3 / BUOYANCY_STEPS:.4f} ms/step "
+                  f"on {card_line}; metrics {m}")
+            print(f"  launches: {got}")
+            if got != want or not 0 <= fb <= groups:
+                raise AssertionError(f"run_coupled on {d} shard(s): launch counts {got}, "
+                                     f"expected {want}")
+            if m["nan_count"] or m["cfl"] >= 1.0 or not all(math.isfinite(c) for c in com):
+                raise AssertionError(f"run_coupled density {density} on {d} shard(s) unhealthy")
+            if (com[1] > 0.27) != (density < 1000):
+                raise AssertionError(f"density {density} on {d} shard(s): com_y {com[1]} on the "
+                                     "wrong side of 0.27 (the light box floats, the heavy sinks)")
+            total = {k: total[k] + got[k] for k in kernels}
+
+    solver, state, rigid = tt.make_solver(r_scene, tt.build_state(r_scene, device=DEVICE),
+                                          device=DEVICE, resort_every=2)
+    reset_counts(kernels)
+    by_run = solver.run_coupled(state, rigid, COUPLED_RUN, check_every=COUPLED_CHECK)
+    by_roll = solver.rollout_coupled(state, rigid, COUPLED_RUN)
+    torch.cuda.synchronize()
+    got = {k: f.launches for k, f in kernels.items()}
+    for (a, b) in zip(by_run, by_roll):
+        names = (gridops.state_fields(a) if isinstance(a, SimState)
+                 else [f.name for f in dataclasses.fields(a)])
+        for k in names:
+            if not torch.equal(_bits(getattr(a, k)), _bits(getattr(b, k))):
+                raise AssertionError(f"run_coupled(check_every={COUPLED_CHECK}) and "
+                                     f"rollout_coupled differ in {k} after {COUPLED_RUN} steps")
+    want = {k: 0 for k in kernels} | {
+        "rebuild": 2 * (COUPLED_RUN // 2), "sweep.bvol": 2 * COUPLED_RUN,
+        "sweep.density": 2 * COUPLED_RUN, "sweep.force_react": 2 * COUPLED_RUN}
+    print(f"  bench_3d_rigid: WCSPHRigid.run_coupled({COUPLED_RUN}, check_every="
+          f"{COUPLED_CHECK}) at R=2 and rollout_coupled({COUPLED_RUN}): every particle and body "
+          f"field bitwise equal; com {by_run[1].com[0].tolist()}")
+    print(f"  launches: {got}")
+    if got != want:
+        raise AssertionError(f"run_coupled / rollout_coupled launch counts {got}, expected {want}")
+    return {k: total[k] + got[k] for k in kernels}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs "
@@ -2134,6 +2362,16 @@ def main() -> int:
           "shards")
     s19, lin_shard = linear_sharded(tt, kernels, scene, card_line)
     launches = {k: launches[k] + s17[k] + s18[k] + s19[k] for k in kernels}
+    phase(f"20 long runs: demo_3d {SOAK_STEPS} steps and bench_3d_1m {SOAK_1M_STEPS} at R=2 "
+          "through tools.soak")
+    s20, soak_errs = long_run(tt, kernels, times, card_line)
+    phase(f"21 the cadence and the compat gap: compare_resort on demo_3d ({RESORT_STEPS} steps, "
+          "R=2 and R=3), compare_compat on demo_2d")
+    s21 = cadence_and_compat(kernels, card_line)
+    phase(f"22 coupled long runs: the buoyancy scenes through ShardedWCSPH.run_coupled "
+          f"({BUOYANCY_STEPS} steps), WCSPHRigid.run_coupled against rollout_coupled")
+    s22 = coupled_long_runs(tt, kernels, r_scene, card_line)
+    launches = {k: launches[k] + s20[k] + s21[k] + s22[k] for k in kernels}
     print(f"  run_sharded --mesh2d 2x2 --profile 20 (phase 17): "
           f"{rect_prof['device_ops_per_step']:.1f} device operations, "
           f"{rect_prof['device_busy_ms_per_step']:.4f} ms busy, idle share "
@@ -2156,8 +2394,10 @@ def main() -> int:
                       "tisph_tpu/ops/pallas/sweeps.py:384")
     err_of = {"rebuild": rebuild_err, "csr_bounds": float(bounds_err)}
     # A's entries fold in its row-range (phase 14) and i-row-map (17)
-    # checks, C's its row-range check (19)
-    err_of |= {f"sweep.{m}": max([e] + [c[m][0] for c in (shard_sweeps, rect_sweeps) if m in c])
+    # checks and, for density and force, its check on the piled-up state
+    # (20); C's its row-range check (19)
+    err_of |= {f"sweep.{m}": max([e] + [c[m][0] for c in (shard_sweeps, rect_sweeps) if m in c]
+                                 + ([soak_errs[m]] if m in ("density", "force") else []))
                for m, e in errs.items()}
     err_of |= {f"linear.{m}": max(e, lin_shard[m][0]) for m, e in lin_errs.items()}
     print("  the rebuild pass after the sort, ms (kernel, plain, library, bound):")

@@ -33,6 +33,8 @@ from tisph_tpu_torch.parallel import (ShardedWCSPH, ShardedWCSPH2D, ShardedWCSPH
                                       make_mesh2d, make_mesh3d)
 from tisph_tpu_torch.render import bpa3d, orbit, video, viewer
 from tisph_tpu_torch.utils import debug, profiling
+from tisph_tpu_torch.tools import compare_compat, compare_resort, soak
+from tisph_tpu_torch.version import __version__
 import chip_smoke
 
 for path in sys.argv[1:4]:
@@ -66,6 +68,11 @@ v.show(tt.build_state(tt.load_scene(sys.argv[2]), device="cpu"))
 v.close()
 assert demo.main(["--frames", "1", "--substeps", "1", "--out", sys.argv[4], "--device", "cpu"]) == 0
 video.frames_to_gif(sys.argv[4], sys.argv[4] + "/demo.gif", pattern="demo_*.png")
+assert soak.main([sys.argv[1], "--steps", "2", "--chunk", "1", "--cpu"]) == 0
+assert compare_resort.main([sys.argv[1], "--steps", "2", "--resort", "2", "--cpu", "--json"]) == 0
+for solver in ("wcsph", "legacy"):
+    assert compare_compat.main([sys.argv[1], "--solver", solver, "--frames", "1",
+                                "--substeps", "2", "--cpu"]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "tisph_tpu"))
 print(json.dumps(bad))

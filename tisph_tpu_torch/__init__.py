@@ -5,6 +5,7 @@ It imports torch and numpy and never jax or ``tisph_tpu``; the JAX
 package is the reference it is tested against.  Module tree (each module
 mirrors the ``tisph_tpu`` module of the same path):
 
+- ``version``            ``__version__``
 - ``config``             scene schema, SolverParams
 - ``geometry``           lattice sampler, meshes, voxelizer, ``build_state``,
                          emitters
@@ -24,8 +25,12 @@ mirrors the ``tisph_tpu`` module of the same path):
 - ``native``             the C++ host library of clustering and 2D BPA (ctypes)
 - ``run_scene``, ``run_sharded``, ``demo``, ``bench``, ``bench_ladder``  entry
                          points (``python -m tisph_tpu_torch.<name>``)
+- ``tools``              the long-run measurements: ``soak``, ``compare_resort``,
+                         ``compare_compat`` (``python -m
+                         tisph_tpu_torch.tools.<name>``)
 """
 
+from tisph_tpu_torch.version import __version__
 from tisph_tpu_torch.config import SceneConfig, SolverParams, load_scene, scene_from_dict
 from tisph_tpu_torch.geometry.builder import build_state
 from tisph_tpu_torch.geometry.emitter import EmitterState, make_emitter_state
@@ -36,6 +41,7 @@ from tisph_tpu_torch.models.wcsph_legacy import WCSPHLegacy
 from tisph_tpu_torch.models.wcsph_rigid import WCSPHRigid, advance, make_solver
 
 __all__ = [
+    "__version__",
     "SceneConfig",
     "SolverParams",
     "load_scene",

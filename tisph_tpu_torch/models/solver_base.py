@@ -12,11 +12,20 @@ R = 1 every substep rebuilds, the reference's cadence.
 applies; at R > 1 each group rebuilds once, then every substep emits and
 applies, so a batch emitted inside a group joins the neighbour structure
 at the next rebuild.
+
+``run`` (and every solver's ``run_coupled``) is the long-run entry point:
+``rollout`` in chunks of ``check_every`` steps through the one chunk loop
+``_run_chunks``, with a per-chunk hook ``_after_chunk`` in which the
+sharded solvers read their flags and steer (``solver_base.py:392-583``).
+``tisph_tpu``'s window and row-pad caps, their ``regrow`` and its
+watchdog chunking are not ported: the port's sweeps walk every stencil
+run to its end with no cap, so on one device a chunk reads nothing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -193,6 +202,64 @@ class SolverBase:
                 carry = substep(carry, cache)
             done += k
         return carry
+
+    # -- long runs -------------------------------------------------------
+    def run(self, state: SimState, num_steps: int, check_every: int = 400,
+            verbose: bool = False) -> SimState:
+        """``num_steps`` substeps through ``rollout`` in chunks of
+        ``check_every``.  A chunk that ends inside an R-group makes the
+        next chunk start with a rebuild, as in ``tisph_tpu``: ``run(n,
+        check_every=c)`` is ``rollout(n)`` when ``c % resort_every == 0``.
+        ``verbose`` prints each chunk's particle-steps/s by the host clock
+        between device synchronisations (which only ``verbose`` adds)."""
+        return self._run_chunks((state,), num_steps, self._roll, check_every, verbose)[0]
+
+    def _roll(self, carry: tuple, k: int) -> tuple:
+        return (self.rollout(carry[0], k),)
+
+    def _roll_coupled(self, carry: tuple, k: int) -> tuple:
+        return self.rollout_coupled(*carry, k)
+
+    def _run_chunks(self, carry: tuple, num_steps: int, roll, check_every: int,
+                    verbose: bool, **opts) -> tuple:
+        """The chunk loop of every ``run`` and ``run_coupled``: ``carry =
+        roll(carry, k)`` for ``k = min(check_every, steps left)``, then
+        ``carry = self._after_chunk(carry, k, verbose, **opts)``."""
+        if check_every < 1:
+            raise ValueError(f"check_every must be >= 1, got {check_every}")
+        done = 0
+        while done < num_steps:
+            k = min(check_every, num_steps - done)
+            if verbose:
+                self.synchronize()
+                t0 = time.perf_counter()
+            carry = roll(carry, k)
+            if verbose:
+                self.synchronize()
+                wall = time.perf_counter() - t0
+                n = self._num_particles(carry[0])
+                print(f"[tisph] steps {done}-{done + k}: {wall:.4f} s, "
+                      f"{n * k / wall:.6e} particle-steps/s ({n} particles)", flush=True)
+            done += k
+            carry = self._after_chunk(carry, k, verbose, **opts)
+        return carry
+
+    def _after_chunk(self, carry: tuple, k: int, verbose: bool) -> tuple:
+        """What a chunk's end reads and steers: on one device nothing (no
+        cap to read, so a chunk waits on nothing)."""
+        return carry
+
+    def _devices(self) -> tuple[torch.device, ...]:
+        return (self.device,)
+
+    def synchronize(self) -> None:
+        """Wait for the work queued on the solver's CUDA devices."""
+        for dev in set(self._devices()):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def _num_particles(self, state: SimState) -> int:
+        return state.num_active
 
     def metrics(self, state: SimState) -> dict[str, float | int]:
         """Max fluid speed, CFL number, mean and max relative fluid density

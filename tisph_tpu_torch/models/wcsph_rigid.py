@@ -68,6 +68,16 @@ class WCSPHRigid(WCSPH):
         return self._groups((state, rigid), num_steps, self.resort_every,
                             self._coupled_substep)
 
+    def run_coupled(self, state: SimState, rigid: RigidState, num_steps: int,
+                    check_every: int = 400, verbose: bool = False
+                    ) -> tuple[SimState, RigidState]:
+        """``SolverBase.run`` over the ``(state, rigid)`` carry with
+        ``rollout_coupled``; binds an unbound state first."""
+        if not self._bound:
+            state = self.bind(state)
+        return self._run_chunks((state, rigid), num_steps, self._roll_coupled, check_every,
+                                verbose)
+
 
 def make_solver(scene: SceneConfig, state: SimState,
                 **kw) -> tuple[WCSPH, SimState, RigidState | None]:

@@ -284,6 +284,21 @@ class MeshSolver(SolverBase):
         return self._groups((shards, rigid), num_steps, self.resort_every,
                             self._coupled_substep)
 
+    def run_coupled(self, shards, rigid: RigidState, num_steps: int, check_every: int = 400,
+                    verbose: bool = False):
+        """``run`` over the ``(shards, rigid)`` carry with
+        ``rollout_coupled``: the same chunks and the same steering after
+        each (``tisph_tpu``'s ``run_coupled``)."""
+        return self._run_chunks((shards, rigid), num_steps, self._roll_coupled, check_every,
+                                verbose)
+
+    # -- the chunk loop's view of the shards ---------------------------------
+    def _devices(self) -> tuple[torch.device, ...]:
+        return self.mesh.devices
+
+    def _num_particles(self, shards) -> int:
+        return sum(st.num_active for st in shards)
+
 
 class ShardedWCSPH(MeshSolver):
     """WCSPH over a 1-D mesh; the state is a list of per-shard SimStates,
@@ -574,38 +589,32 @@ class ShardedWCSPH(MeshSolver):
         e = int(new_edge if new_edge is not None else (self.resort_edge or BLOCK) * 2)
         self.resort_edge = min(max(BLOCK, -(-e // BLOCK) * BLOCK), self.shard_rows)
 
-    def run(self, shards, num_steps: int, check_every: int = 400,
-            verbose: bool = False) -> list[SimState]:
-        """``rollout`` in chunks of ``check_every`` steps; after each, one
-        read of the halo flag: a tripped flag deepens the halo; seam-guard
-        fallbacks on most rebuilds deepen the edge, and at a saturated edge
-        switch the resort to ``"global"`` (``tisph_tpu``'s ``run``, without
-        its window and row-pad caps, which the port has not)."""
-        done = 0
-        while done < num_steps:
-            k = min(check_every, num_steps - done)
-            shards = self.rollout(shards, k)
-            done += k
-            if int(self.occ_halo):
-                old = self.halo
-                self.regrow_halo()
+    def _after_chunk(self, carry: tuple, k: int, verbose: bool) -> tuple:
+        """``run``'s read after each chunk: a tripped halo flag deepens the
+        halo; seam-guard fallbacks on most of the chunk's rebuilds deepen
+        the edge, and at a saturated edge switch the resort to
+        ``"global"`` (``tisph_tpu``'s ``run``, without its window and
+        row-pad caps, which the port has not)."""
+        if int(self.occ_halo):
+            old = self.halo
+            self.regrow_halo()
+            if verbose:
+                print(f"[tisph] shard halo reach exceeded depth {old}; deepened to "
+                      f"{self.halo}")
+        if self.resort == "exchange" and self.n_shards > 1:
+            rebuilds = max(1, k // self.resort_every)
+            if self.occ_resort > rebuilds // 2:
+                old = self.resort_edge
+                self.regrow_resort_edge()
+                if self.resort_edge == old:  # saturated: the global sort alone
+                    self.resort = "global"
                 if verbose:
-                    print(f"[tisph] shard halo reach exceeded depth {old}; deepened to "
-                          f"{self.halo}")
-            if self.resort == "exchange" and self.n_shards > 1:
-                rebuilds = max(1, k // self.resort_every)
-                if self.occ_resort > rebuilds // 2:
-                    old = self.resort_edge
-                    self.regrow_resort_edge()
-                    if self.resort_edge == old:  # saturated: the global sort alone
-                        self.resort = "global"
-                    if verbose:
-                        print(f"[tisph] exchange-resort seam guard tripped {self.occ_resort}/"
-                              f"{rebuilds} rebuilds at edge {old}; now edge "
-                              f"{self.resort_edge}, resort {self.resort!r}")
-            self.occ_halo = torch.zeros_like(self.occ_halo)
-            self.occ_resort = 0
-        return shards
+                    print(f"[tisph] exchange-resort seam guard tripped {self.occ_resort}/"
+                          f"{rebuilds} rebuilds at edge {old}; now edge "
+                          f"{self.resort_edge}, resort {self.resort!r}")
+        self.occ_halo = torch.zeros_like(self.occ_halo)
+        self.occ_resort = 0
+        return carry
 
     def metrics(self, shards) -> dict[str, float | int]:
         """``SolverBase.metrics`` of the global state, plus the halo flag,

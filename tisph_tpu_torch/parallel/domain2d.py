@@ -65,6 +65,7 @@ import torch
 
 from tisph_tpu_torch.config import SceneConfig, SolverParams
 from tisph_tpu_torch.geometry.emitter import EMIT_FIELDS, EmitterState, activate_seeds, count_step
+from tisph_tpu_torch.models.rigid import RigidState
 from tisph_tpu_torch.models.state import MATERIAL_INVALID, SimState, pad_state_capacity
 from tisph_tpu_torch.models.wcsph import group_masses
 from tisph_tpu_torch.ops import grid as gridops
@@ -592,34 +593,43 @@ class ShardedWCSPHRect(MeshSolver):
 
     def run(self, shards, num_steps: int, check_every: int = 400, verbose: bool = False,
             warn_frac: float = 0.9) -> list[SimState]:
-        """``rollout`` in chunks of ``check_every`` steps, and after each one
-        read of the flags: the busiest shard past ``warn_frac`` of its rows
-        rebalances the cuts, a halo overflow deepens the halo caps, a
-        migration trip the migration caps (``domain2d.py:1178-1256``,
+        """``SolverBase.run``, and after each chunk one read of the flags
+        (``_after_chunk``); ``warn_frac``: the busiest shard's share of its
+        rows past which the cuts are rebalanced."""
+        return self._run_chunks((shards,), num_steps, self._roll, check_every, verbose,
+                                warn_frac=warn_frac)[0]
+
+    def run_coupled(self, shards, rigid: RigidState, num_steps: int, check_every: int = 400,
+                    verbose: bool = False, warn_frac: float = 0.9):
+        """``run`` over the ``(shards, rigid)`` carry with
+        ``rollout_coupled``; a rebalance passes the bodies through."""
+        return self._run_chunks((shards, rigid), num_steps, self._roll_coupled, check_every,
+                                verbose, warn_frac=warn_frac)
+
+    def _after_chunk(self, carry: tuple, k: int, verbose: bool, warn_frac: float) -> tuple:
+        """One read of the flags: the busiest shard past ``warn_frac`` of
+        its rows rebalances the cuts, a halo overflow deepens the halo caps,
+        a migration trip the migration caps (``domain2d.py:1178-1256``,
         without the window and row-pad caps, which the port has not)."""
-        done = 0
-        while done < num_steps:
-            k = min(check_every, num_steps - done)
-            shards = self.rollout(shards, k)
-            done += k
-            busiest, _, trips, halo = self._flags.tolist()
-            if busiest > warn_frac * self.shard_rows:
-                if verbose:
-                    print(f"[tisph] shard occupancy {busiest}/{self.shard_rows}; rebalancing")
-                shards = self.rebalance(shards)
-            if halo:
-                old = list(self.cap_h)
-                self.regrow_buffers(kinds=("h",))
-                if verbose:
-                    print(f"[tisph] rect halo buffer overflow at caps {old}; now {self.cap_h}")
-            if trips:
-                old = list(self.cap_m)
-                self.regrow_buffers(kinds=("m",))
-                if verbose:
-                    print(f"[tisph] {trips} rebuilds with clamped or anomalous migration at "
-                          f"caps {old}; now {self.cap_m}")
-            self.reset_flags()
-        return shards
+        shards = carry[0]
+        busiest, _, trips, halo = self._flags.tolist()
+        if busiest > warn_frac * self.shard_rows:
+            if verbose:
+                print(f"[tisph] shard occupancy {busiest}/{self.shard_rows}; rebalancing")
+            shards = self.rebalance(shards)
+        if halo:
+            old = list(self.cap_h)
+            self.regrow_buffers(kinds=("h",))
+            if verbose:
+                print(f"[tisph] rect halo buffer overflow at caps {old}; now {self.cap_h}")
+        if trips:
+            old = list(self.cap_m)
+            self.regrow_buffers(kinds=("m",))
+            if verbose:
+                print(f"[tisph] {trips} rebuilds with clamped or anomalous migration at "
+                      f"caps {old}; now {self.cap_m}")
+        self.reset_flags()
+        return (shards,) + tuple(carry[1:])
 
     def metrics(self, shards) -> dict[str, float | int]:
         """``SolverBase.metrics`` of the global state, plus the flags since
