@@ -176,7 +176,24 @@ Phases, each of which raises on failure (nothing is caught):
    0.27, the heavy one sinks below) and the light one on 2 slab shards,
    with launch counters; then bench_3d_rigid's 1,200 coupled steps at R=2
    through WCSPHRigid.run_coupled(check_every=400) and through
-   rollout_coupled: every particle and body field bitwise equal.
+   rollout_coupled: every particle and body field bitwise equal;
+23. the graph path (models.graphs: each R-group one CUDA graph replay)
+   against graphs=False from the same start state, every field bitwise
+   equal: demo_3d 201 steps at R=2 (100 full-group replays and a 1-step
+   tail), bench_3d_rigid 200 coupled steps at R=2 (the bodies too) and
+   demo_3d 100 steps at R=1 on the linear layout, with launch counts that
+   count replays (a rebuild a group, each sweep a step, on both paths);
+   a 200-step graph rollout of demo_3d queued behind the spin with no
+   host wait; then on demo_3d, bench_3d_rigid and bench_3d_1m at R=2 both
+   paths in turns (eager, graph, graph, eager): particle-steps/s, host ms
+   a step to queue, the profile's device operations, busy ms and idle
+   share a step, the capture's time and the memory of the first eager
+   and graph group.
+
+The solvers of phases 5-10, 16, 20, 21, 22's WCSPHRigid and 23 run the
+graph path (the default of a CUDA WCSPH and WCSPHRigid); the emitter path
+(11, 12), the legacy solver (13) and the sharded ones (14, 15, 17-19,
+22's shards) the eager loop.
 
 Every kernel's entry in the JSON line has a bound: the larger of the bytes
 it must move (each input read once, each output written once) over 3.35
@@ -188,9 +205,9 @@ torch.searchsorted plus one index_select per field (no PyTorch call
 computes a sweep).
 
 The launches in the JSON line are the sums of the main paths' runs:
-phases 5, 11, 12 and 13 with 14, 15, 17, 18 and 20-22 for kernel A's
-density and force and kernel B (and 19 for B), 7, 15, 18 and 22 for bvol
-and force_react, 9 and 19 for kernel C.  A's max_abs_err folds in its
+phases 5, 11, 12 and 13 with 14, 15, 17, 18 and 20-23 for kernel A's
+density and force and kernel B (and 19 for B), 7, 15, 18, 22 and 23 for
+bvol and force_react, 9, 19 and 23 for kernel C.  A's max_abs_err folds in its
 checks over a row range (phase 14), with an i-row map (17) and, for
 density and force, on demo_3d after 10,000 steps (20); C's over a row
 range (19).
@@ -242,6 +259,16 @@ COMPAT_SUBSTEPS = 5  # phase 21: demo_2d's snapshots every 5 steps
 COMPAT_STEPS = {"wcsph": 100, "legacy": 50}  # phase 21, README's table
 RESORT_CHUNK = 100  # tools.compare_resort's rollouts
 COUPLED_RUN, COUPLED_CHECK = 1_200, 400  # phase 22, bench_3d_rigid
+# phase 23: (label, scene, layout, R, steps) of the bitwise checks; demo_3d
+# at R=2 takes 100 full-group replays and a 1-step tail
+GRAPH_BITWISE = (("demo_3d R=2", DEMO_3D, "seg", 2, 201),
+                 ("bench_3d_rigid coupled R=2", RIGID_3D, "seg", 2, 200),
+                 ("demo_3d linear R=1", DEMO_3D, "linear", 1, 100))
+GRAPH_NO_WAIT = 200  # phase 23: steps of a graph rollout queued behind the spin
+# phase 23: (label, scene, steps) of eager against graph in turns, at R=2
+GRAPH_TURNS = (("demo_3d", DEMO_3D, 200), ("bench_3d_rigid", RIGID_3D, 200),
+               ("bench_3d_1m", LARGE_3D, 40))
+GRAPH_PROFILE = 20  # phase 23: profiled steps per path
 SPIN_CYCLES = 2_000_000_000  # about a second at the H100's clocks
 
 # tests/test_rigid_dynamics.py::test_buoyancy's pool and box
@@ -1704,6 +1731,114 @@ def coupled_long_runs(tt, kernels, r_scene, card_line: str):
     return {k: total[k] + got[k] for k in kernels}
 
 
+def graph_pair(tt, path: str, layout: str, R: int):
+    """The scene on a solver with the graph path (the default) and on one
+    with ``graphs=False``; the start state bound and the bodies (None
+    without dynamic ones), which both start from."""
+    scene = tt.load_scene(path)
+    g, state, rigid = tt.make_solver(scene, tt.build_state(scene, device=DEVICE), device=DEVICE,
+                                     resort_every=R, layout=layout)
+    e, _, _ = tt.make_solver(scene, state, device=DEVICE, resort_every=R, layout=layout,
+                             graphs=False)
+    if not (g.graphs and not e.graphs):
+        raise AssertionError(f"{path}: graphs {g.graphs} / {e.graphs}, want True / False")
+    return g, e, state, rigid
+
+
+def same_bits(label: str, got, want) -> None:
+    """Every field of two states (or two rigid states) bitwise equal."""
+    for f in dataclasses.fields(got):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        same = (torch.equal(_bits(a), _bits(b)) if isinstance(a, torch.Tensor) else a == b)
+        if not same:
+            raise AssertionError(f"{label}: {f.name} differs between graphs=True and "
+                                 "graphs=False")
+
+
+def graph_path(tt, kernels, card_line: str):
+    """Phase 23: each R-group one CUDA graph replay against the eager
+    loop (graphs=False): bitwise equal on three paths, with launch counts
+    that count replays; a graph rollout queued behind the spin; then both
+    paths in turns on three scenes.  Returns the graph runs' launches."""
+    from tisph_tpu_torch.bench import profile_steps
+
+    total = {k: 0 for k in kernels}
+    for label, path, layout, R, steps in GRAPH_BITWISE:
+        g, e, state, rigid = graph_pair(tt, path, layout, R)
+        reset_counts(kernels)
+        got, got_rigid, _ = tt.advance(g, state, rigid, steps)
+        torch.cuda.synchronize()
+        counted = {k: f.launches for k, f in kernels.items()}
+        reset_counts(kernels)
+        want, want_rigid, _ = tt.advance(e, state, rigid, steps)
+        torch.cuda.synchronize()
+        eager = {k: f.launches for k, f in kernels.items()}
+        sweeps = ((("linear.density", "linear.force") if layout == "linear"
+                   else ("sweep.density", "sweep.bvol", "sweep.force_react") if rigid is not None
+                   else ("sweep.density", "sweep.force")))
+        expect = {k: 0 for k in kernels} | {"rebuild": -(-steps // R)} | {k: steps for k in sweeps}
+        print(f"  {label}, {steps} steps: {g._runner.captures} captures in "
+              f"{g._runner.capture_seconds:.3f} s; launches {counted}")
+        if counted != expect or eager != expect:
+            raise AssertionError(f"{label}: launch counts {counted} (graph), {eager} (eager), "
+                                 f"expected {expect}")
+        same_bits(label, got, want)
+        if rigid is not None:
+            same_bits(f"{label} bodies", got_rigid, want_rigid)
+        print(f"  {label}: graphs=True bitwise equal to graphs=False in every field"
+              + (" and every body field" if rigid is not None else ""))
+        total = {k: total[k] + counted[k] for k in kernels}
+        if label == "demo_3d R=2":
+            demo, demo_state = g, got
+    assert_no_host_wait(f"demo_3d, a {GRAPH_NO_WAIT}-step graph rollout",
+                        lambda: demo.rollout(demo_state, GRAPH_NO_WAIT))
+    del g, e, state, demo, demo_state
+
+    for label, path, steps in GRAPH_TURNS:
+        g, e, state, rigid = graph_pair(tt, path, "seg", 2)
+        n = state.num_active
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.max_memory_allocated()
+        tt.advance(e, state, rigid, 2)
+        torch.cuda.synchronize()
+        eager_peak = torch.cuda.max_memory_allocated() - base
+        torch.cuda.reset_peak_memory_stats()
+        base, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+        tt.advance(g, state, rigid, 2)  # warm-up, capture, one replay
+        torch.cuda.synchronize()
+        graph_peak = torch.cuda.max_memory_allocated() - base
+        held = torch.cuda.memory_allocated() - held
+        rates = {}
+        for name, solver in (("eager", e), ("graph", g), ("graph", g), ("eager", e)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tt.advance(solver, state, rigid, steps)
+            host = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rates.setdefault(name, []).append((n * steps / wall, host * 1e3 / steps))
+        prof = {name: profile_steps(solver, state, rigid, None, GRAPH_PROFILE, 2)
+                for name, solver in (("eager", e), ("graph", g))}
+        for name in ("eager", "graph"):
+            (pps_a, host_a), (pps_b, host_b) = rates[name]
+            p = prof[name]
+            print(f"  turns {label} {name}: {pps_a:.6e} / {pps_b:.6e} particle-steps/s, host "
+                  f"{host_a:.4f} / {host_b:.4f} ms a step to queue, {steps} steps; profile "
+                  f"({GRAPH_PROFILE} steps): {p['device_ops_per_step']:.1f} device operations, "
+                  f"{p['device_busy_ms_per_step']:.4f} ms busy, idle share "
+                  f"{p['device_idle_share']:.4f}, wall {p['wall_ms_per_step']:.4f} ms a step; "
+                  f"on {card_line}")
+        print(f"  turns {label}: {n} particles; capture (warm-up and capture) "
+              f"{g._runner.capture_seconds:.4f} s; peak memory over the start's "
+              f"max_memory_allocated: eager group {eager_peak / 2**20:.1f} MiB, first graph "
+              f"group {graph_peak / 2**20:.1f} MiB (the warm-up's copies, the buffers and the "
+              f"capture); still allocated after it +{held / 2**20:.1f} MiB (the buffers and "
+              f"what the capture keeps); on {card_line}")
+        del g, e, state, rigid
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script runs "
@@ -2372,6 +2507,10 @@ def main() -> int:
           f"({BUOYANCY_STEPS} steps), WCSPHRigid.run_coupled against rollout_coupled")
     s22 = coupled_long_runs(tt, kernels, r_scene, card_line)
     launches = {k: launches[k] + s20[k] + s21[k] + s22[k] for k in kernels}
+    phase(f"23 the graph path against graphs=False: bitwise on demo_3d (R=2, R=1 linear) and "
+          f"bench_3d_rigid, a graph rollout behind the spin, both paths in turns")
+    s23 = graph_path(tt, kernels, card_line)
+    launches = {k: launches[k] + s23[k] for k in kernels}
     print(f"  run_sharded --mesh2d 2x2 --profile 20 (phase 17): "
           f"{rect_prof['device_ops_per_step']:.1f} device operations, "
           f"{rect_prof['device_busy_ms_per_step']:.4f} ms busy, idle share "

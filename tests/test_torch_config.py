@@ -86,3 +86,36 @@ def test_bodies_and_emitters_match_jax(key):
     got = pt.scene_from_dict(raw, base_dir="scenes")
     _fields_match(got, tt.scene_from_dict(raw, base_dir="scenes"))
     assert got.rigid_bodies[0].rotation_angle == 30.0 and not got.rigid_bodies[0].is_dynamic
+
+
+_SHORT = {
+    "fluidBlocks": {"start": [0.1, 0.1], "end": [0.5, 0.5, 0.5]},
+    "boundaryBlocks": {"start": [0.6, 0.1, 0.1], "end": [0.8, 0.3]},
+    "emitters": {"start": [0.2, 0.8], "end": [0.3, 0.8001, 0.4]},
+}
+
+
+@pytest.mark.parametrize("key", list(_SHORT))
+def test_short_block_vector_raises(key):
+    """A block's start or end shorter than dim raises a ValueError naming
+    the block and both lengths, where tisph_tpu takes the shorter length
+    (and its run fails later, in the cell binning): first a 3-vector
+    domain with a 2-vector fluid block start."""
+    raw = {"configuration": {"domainStart": [0.0, 0.0, 0.0], "domainEnd": [1.0, 1.0, 1.0]},
+           "fluidBlocks": [], key: [_SHORT[key]]}
+    assert tt.scene_from_dict(raw).dim == 3
+    which = "end" if key == "boundaryBlocks" else "start"
+    with pytest.raises(ValueError, match=rf"{key}\[0\]: {which} has 2 entries, the scene's "
+                                         "dim is 3"):
+        pt.scene_from_dict(raw)
+
+
+def test_longer_block_vectors_are_truncated():
+    """A 2D scene may give 3-vectors: they are cut to dim, as in tisph_tpu."""
+    raw = {"configuration": {"dim": 2, "domainStart": [0, 0, 0], "domainEnd": [1, 1, 1]},
+           "fluidBlocks": [{"start": [0.1, 0.1, 0.1], "end": [0.5, 0.5, 0.5]}],
+           "boundaryBlocks": [{"start": [0.6, 0.1, 0], "end": [0.8, 0.3, 1]}],
+           "emitters": [{"start": [0.2, 0.8, 0], "end": [0.3, 0.8001, 0]}]}
+    got = pt.scene_from_dict(raw)
+    _fields_match(got, tt.scene_from_dict(raw))
+    assert got.fluid_blocks[0].start == (0.1, 0.1) and got.emitters[0].end == (0.3, 0.8001)

@@ -13,9 +13,11 @@ import tisph_tpu as tt
 from tisph_tpu.geometry import builder as jbuilder
 from tisph_tpu.geometry import mesh as jmesh
 from tisph_tpu.geometry import voxelize as jvox
+from tisph_tpu.geometry.sampler import count_cube_particles as jcount
 
 import tisph_tpu_torch as pt
 from tisph_tpu_torch.geometry import builder, mesh, voxelize
+from tisph_tpu_torch.geometry.sampler import count_cube_particles, cube_lattice
 
 torch.set_num_threads(2)
 
@@ -91,3 +93,25 @@ def test_build_state_matches_jax_on_every_scene(name):
     for k in FIELDS:
         np.testing.assert_array_equal(getattr(got, k).numpy(), np.asarray(getattr(ref, k)),
                                       err_msg=k)
+
+
+def _scene_blocks():
+    """Every scene's fluid blocks as (start, end, spacing), spacing as
+    build_state takes it."""
+    out = []
+    for name in sorted(f for f in os.listdir(SCENES) if f.endswith(".json")):
+        sc = pt.load_scene(os.path.join(SCENES, name))
+        out += [(b.start, b.end, b.spacing or sc.particle_radius) for b in sc.fluid_blocks]
+    return out
+
+
+@pytest.mark.parametrize("start,end,spacing", [
+    ([0.3, 0.1, 0.7], [1.0, 1.0, 1.0], 0.01),  # tests/test_geometry.py's blocks
+    ([0.0, 0.0], [0.1, 0.1], 0.05),
+    ([0.0, 0.0], [0.2, 0.2], 0.05),
+] + _scene_blocks())
+def test_count_cube_particles_matches_jax(start, end, spacing):
+    """The exact lattice count equals tisph_tpu's and the lattice's rows."""
+    got = count_cube_particles(start, end, spacing)
+    assert type(got) is int
+    assert got == jcount(start, end, spacing) == cube_lattice(start, end, spacing).shape[0]

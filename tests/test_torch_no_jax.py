@@ -7,7 +7,8 @@ the three scenes (the plain, coupled and emitting sharded paths), on a
 2x2 mesh of four CPU devices with each (the rectangle decomposition) and
 on the linear layout; the
 viewers, the GIF assembler, the 3D BPA guards, the debug and profiling
-utilities and the demo, in a fresh interpreter, leave both out of
+utilities, the demo, the subpackages' re-exported names and the CUDA
+graph runner, in a fresh interpreter, leave both out of
 sys.modules (tisph_tpu/__init__.py imports jax and every solver, so
 importing any tisph_tpu module would pull jax in)."""
 
@@ -31,6 +32,10 @@ from tisph_tpu_torch import (bench, bench_ladder, checkpoint, demo, paired_bench
                              run_sharded)
 from tisph_tpu_torch.parallel import (ShardedWCSPH, ShardedWCSPH2D, ShardedWCSPHRect, make_mesh,
                                       make_mesh2d, make_mesh3d)
+from tisph_tpu_torch.geometry import TriMesh, build_state, cube_lattice, load_obj, voxelize_points
+from tisph_tpu_torch.models import SimState, WCSPH, WCSPHLegacy
+from tisph_tpu_torch.ops import cubic_kernel, cubic_kernel_grad, cubic_kernel_sigma, tait_pressure
+from tisph_tpu_torch.models import graphs
 from tisph_tpu_torch.render import bpa3d, orbit, video, viewer
 from tisph_tpu_torch.utils import debug, profiling
 from tisph_tpu_torch.tools import compare_compat, compare_resort, soak

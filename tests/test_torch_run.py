@@ -201,3 +201,31 @@ def test_sharded_run_refuses_cap_arguments(tmp_path):
     shards = rect.bind(pt.build_state(body, device="cpu"))
     with pytest.raises(TypeError):
         rect.run_coupled(shards, rect.init_rigid(shards), 2, grow=1.5)
+
+
+@pytest.mark.parametrize("which", ["wcsph", "slab", "rect", "rigid"])
+def test_run_takes_no_positional_argument_after_check_every(which, tmp_path):
+    """tisph_tpu's run takes ``grow`` fourth: a call written for it,
+    ``run(s, n, 400, 1.5)``, raises a TypeError before a step runs instead
+    of turning on ``verbose`` (or, on the rectangle, setting
+    ``warn_frac``); the same for run_coupled."""
+    scene = pt.scene_from_dict(SCENE)
+    if which == "wcsph":
+        solver, state = _solver_and_state()
+        call = lambda: solver.run(state, 2, 400, 1.5)  # noqa: E731
+    elif which == "slab":
+        solver = ShardedWCSPH(scene, make_mesh(devices=["cpu"] * 2))
+        shards = solver.bind(pt.build_state(scene, device="cpu"))
+        call = lambda: solver.run(shards, 2, 400, 1.5)  # noqa: E731
+    elif which == "rect":
+        solver = ShardedWCSPHRect(scene, make_mesh2d(2, 2, devices=["cpu"] * 4))
+        shards = solver.bind(pt.build_state(scene, device="cpu"))
+        call = lambda: solver.run(shards, 2, 400, 1.5, False)  # noqa: E731
+    else:
+        body = pt.scene_from_dict(_body_scene(tmp_path, dynamic=True, radius=0.04),
+                                  base_dir=str(tmp_path))
+        solver, state, rigid = pt.make_solver(body, pt.build_state(body, device="cpu"),
+                                              device="cpu")
+        call = lambda: solver.run_coupled(state, rigid, 2, 400, 1.5)  # noqa: E731
+    with pytest.raises(TypeError, match="positional"):
+        call()

@@ -19,7 +19,9 @@ e.g. to put a falling body in the water) and measures from there.
 ``--profile N`` adds a ``profile`` entry per cadence: ``torch.profiler``
 over N more warm steps, giving per step the profiled host wall, the
 device busy time, the device idle share, the device operations (kernels,
-copies, fills) and the costliest device operations by name.
+copies, fills) and the costliest device operations by name.  ``graphs``
+says whether the solver replayed each R-group as a CUDA graph (the
+default on the card); the profiler sees the kernels inside a replay.
 
 Usage: python -m tisph_tpu_torch.bench [--scene scenes/demo_3d.json] [--steps 50]
            [--layout {seg,linear}]
@@ -137,6 +139,7 @@ def main(argv: list[str] | None = None) -> int:
         "r1_pps": None if r1_pps is None else round(r1_pps, 1),
         "resort_every": resort,
         "layout": args.layout,
+        "graphs": solver.graphs,
         "device": torch.cuda.get_device_name(0),
     }
     if args.profile:

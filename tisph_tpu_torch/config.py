@@ -204,6 +204,17 @@ def _color(v: Any) -> tuple[float, float, float]:
     return tuple(float(x) for x in arr)
 
 
+def _span(block: dict, what: str, dim: int) -> tuple[tuple[float, ...], tuple[float, ...]]:
+    """A block's ``start`` and ``end``, cut to ``dim`` entries; a vector
+    shorter than ``dim`` raises (the reference takes the shorter length
+    and the run fails later in the cell binning)."""
+    for key in ("start", "end"):
+        if len(block[key]) < dim:
+            raise ValueError(f"{what}: {key} has {len(block[key])} entries, the scene's dim "
+                             f"is {dim}")
+    return _tup(block["start"][:dim], dim), _tup(block["end"][:dim], dim)
+
+
 def scene_from_dict(raw: dict[str, Any], base_dir: str = ".") -> SceneConfig:
     """Build a :class:`SceneConfig` from the reference JSON schema dict."""
     cfg = raw.get("configuration", {})
@@ -216,20 +227,20 @@ def scene_from_dict(raw: dict[str, Any], base_dir: str = ".") -> SceneConfig:
 
     pr = float(cfg.get("particleRadius", 0.01))
     fluid_blocks = []
-    for fb in raw.get("fluidBlocks", []) or []:
-        d = min(dim, len(fb["start"]))
+    for i, fb in enumerate(raw.get("fluidBlocks", []) or []):
+        start, end = _span(fb, f"fluidBlocks[{i}]", dim)
         sp = fb.get("spacing")
         if sp == "diameter":
             sp = 2.0 * pr
         fluid_blocks.append(
             FluidBlock(
-                start=_tup(fb["start"][:d], d),
-                end=_tup(fb["end"][:d], d),
-                velocity=_tup(fb.get("velocity"), d),
+                start=start,
+                end=end,
+                velocity=_tup(fb.get("velocity"), dim),
                 density=float(fb.get("density", _DEFAULT_DENSITY0) or _DEFAULT_DENSITY0),
                 color=_color(fb.get("color")),
-                translation=_tup(fb["translation"][:d], d) if fb.get("translation") else None,
-                scale=_tup(fb["scale"][:d], d) if fb.get("scale") else None,
+                translation=_tup(fb["translation"][:dim], dim) if fb.get("translation") else None,
+                scale=_tup(fb["scale"][:dim], dim) if fb.get("scale") else None,
                 object_id=int(fb.get("objectId", 0)),
                 spacing=float(sp) if sp is not None else None,
             )
@@ -252,25 +263,25 @@ def scene_from_dict(raw: dict[str, Any], base_dir: str = ".") -> SceneConfig:
         )
 
     boundary_blocks = []
-    for bb in raw.get("boundaryBlocks", []) or []:
-        d = min(dim, len(bb["start"]))
+    for i, bb in enumerate(raw.get("boundaryBlocks", []) or []):
+        start, end = _span(bb, f"boundaryBlocks[{i}]", dim)
         boundary_blocks.append(
             BoundaryBlock(
-                start=_tup(bb["start"][:d], d),
-                end=_tup(bb["end"][:d], d),
+                start=start,
+                end=end,
                 density=float(bb.get("density", _DEFAULT_DENSITY0)),
                 color=_color(bb.get("color")),
             )
         )
 
     emitters = []
-    for em in raw.get("emitters", []) or []:
-        d = min(dim, len(em["start"]))
+    for i, em in enumerate(raw.get("emitters", []) or []):
+        start, end = _span(em, f"emitters[{i}]", dim)
         emitters.append(
             Emitter(
-                start=_tup(em["start"][:d], d),
-                end=_tup(em["end"][:d], d),
-                velocity=_tup(em.get("velocity"), d),
+                start=start,
+                end=end,
+                velocity=_tup(em.get("velocity"), dim),
                 interval=int(em.get("interval", 50)),
                 density=float(em.get("density", _DEFAULT_DENSITY0)),
                 color=_color(em.get("color")),

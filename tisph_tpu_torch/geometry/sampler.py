@@ -30,3 +30,9 @@ def cube_lattice(
     if translation is not None:
         pts = pts + np.asarray(translation, dtype=np.float32)
     return pts
+
+
+def count_cube_particles(start: Sequence[float], end: Sequence[float], spacing: float) -> int:
+    """Exact lattice count (reference compute_cube_particles_num,
+    partice_systemv4.py:160-168)."""
+    return int(np.prod([len(np.arange(s, e, spacing)) for s, e in zip(start, end)]))

@@ -13,6 +13,12 @@ applies; at R > 1 each group rebuilds once, then every substep emits and
 applies, so a batch emitted inside a group joins the neighbour structure
 at the next rebuild.
 
+On a CUDA ``WCSPH`` or ``WCSPHRigid`` each R-group of ``step``,
+``rollout``, ``run`` and the coupled ones is one replay of a CUDA graph
+(``models.graphs``, the counterpart of ``tisph_tpu``'s jitted rollout);
+``graphs=False`` keeps the eager loop, which the CPU and every class
+whose group reads the host (``eager_loop``) run.
+
 ``run`` (and every solver's ``run_coupled``) is the long-run entry point:
 ``rollout`` in chunks of ``check_every`` steps through the one chunk loop
 ``_run_chunks``, with a per-chunk hook ``_after_chunk`` in which the
@@ -31,6 +37,7 @@ import torch
 
 from tisph_tpu_torch.config import SceneConfig, SolverParams
 from tisph_tpu_torch.geometry.emitter import EmitterState, maybe_emit
+from tisph_tpu_torch.models.graphs import GroupRunner
 from tisph_tpu_torch.models.state import SimState
 from tisph_tpu_torch.ops import grid as gridops
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
@@ -46,6 +53,9 @@ class SolverBase:
     boundary_mode = "static"
     # sweep layouts the solver runs (see __init__)
     layouts = ("seg", "linear")
+    # why the class's R-group runs the eager loop, or None when it reads
+    # nothing on the host and replays as one CUDA graph (models.graphs)
+    eager_loop: str | None = "the base class's group is not known to be capturable"
 
     def __init__(
         self,
@@ -57,6 +67,7 @@ class SolverBase:
         layout: str = "seg",
         boundary_mode: str | None = None,
         params: SolverParams | None = None,
+        graphs: bool | None = None,
     ):
         """``resort_every``: substeps per neighbour-structure rebuild (R).
         ``fast_math``: approximate reciprocals on the gradient sweeps'
@@ -73,7 +84,11 @@ class SolverBase:
         (sph_basev2.py:212), which moving bodies need.  None takes the
         class's default.
         ``params``: the physics parameters; None takes
-        ``SolverParams.from_scene(scene, compat)``."""
+        ``SolverParams.from_scene(scene, compat)``.
+        ``graphs``: each R-group one CUDA graph replay (``models.graphs``);
+        None is on for a CUDA solver whose class allows it (``eager_loop``
+        None), False the eager loop, True raises where the graph path does
+        not run (the CPU, such a class, ``rollout_emit``)."""
         if boundary_mode is None:
             boundary_mode = type(self).boundary_mode
         if boundary_mode not in ("static", "per_step"):
@@ -96,6 +111,16 @@ class SolverBase:
             support_length=scene.support_length,
         )
         self._bound = False
+        if graphs and self.eager_loop is not None:
+            raise ValueError(f"graphs=True: {type(self).__name__} runs the eager loop "
+                             f"({self.eager_loop})")
+        if graphs and self.device.type != "cuda":
+            raise ValueError(f"graphs=True needs a CUDA device, the solver is on {self.device}")
+        self._graphs_asked = graphs is True
+        if graphs is None:
+            graphs = self.device.type == "cuda" and self.eager_loop is None
+        self.graphs = bool(graphs)
+        self._runner: GroupRunner | None = None
 
     def _check_resort(self, R: int) -> None:
         if R < 1:
@@ -173,7 +198,12 @@ class SolverBase:
         A batch emitted inside a group is fluid from then on but joins no
         sweep until the next rebuild: it keeps its density, gets no
         acceleration and flies at its emission velocity, as in
-        ``tisph_tpu`` (its ``keep = back_valid & fl``)."""
+        ``tisph_tpu`` (its ``keep = back_valid & fl``).  It runs the eager
+        loop: the emitters count on the host and change ``num_active``, a
+        host int (``geometry/emitter.py``)."""
+        if self._graphs_asked:
+            raise ValueError("graphs=True: rollout_emit runs the eager loop (the emitters "
+                             "count on the host and change num_active)")
         return self._groups((state, list(emitters)), num_steps, self.resort_every,
                             self._substep, emit=self._maybe_emit)
 
@@ -182,13 +212,18 @@ class SolverBase:
         of R, rebuilding the neighbour structure of ``carry[0]`` (the
         SimState, which the rebuild sorts) before each group.  ``emit(carry)
         -> carry`` runs once per substep: before the rebuild at R = 1,
-        before each substep after it at R > 1."""
+        before each substep after it at R > 1.  With ``self.graphs`` (and
+        no ``emit``) the groups are replays of the runner's graphs."""
         self._check_resort(R)
         state = carry[0]
         if not self._bound:
             state = self.bind(state)
         self._check_device(state)
         carry = (state,) + tuple(carry[1:])
+        if self.graphs and emit is None:
+            if self._runner is None:
+                self._runner = GroupRunner(self)
+            return self._runner.rollout(carry, num_steps, R, substep)
         done = 0
         while done < num_steps:
             if emit is not None and R == 1:
@@ -204,7 +239,7 @@ class SolverBase:
         return carry
 
     # -- long runs -------------------------------------------------------
-    def run(self, state: SimState, num_steps: int, check_every: int = 400,
+    def run(self, state: SimState, num_steps: int, check_every: int = 400, *,
             verbose: bool = False) -> SimState:
         """``num_steps`` substeps through ``rollout`` in chunks of
         ``check_every``.  A chunk that ends inside an R-group makes the

@@ -96,6 +96,7 @@ def advance(state: SimState, rho: torch.Tensor, pressure: torch.Tensor, dv: torc
 
 
 class WCSPH(SolverBase):
+    eager_loop = None  # a group reads nothing on the host: one CUDA graph replay
     def _build(self, state: SimState) -> tuple[SimState, GroupCache]:
         state, ids, _, bounds = cuda_bounds.sort_and_bound(state, self.spec)
         return state, self._group_cache(state, ids, bounds)

@@ -39,6 +39,7 @@ from tisph_tpu_torch.ops.neighbors import candidates, pack4
 
 class WCSPHLegacy(SolverBase):
     layouts = ("seg",)
+    eager_loop = "its pair sums run torch.nonzero, a host read (_pairs)"
 
     def _check_resort(self, R: int) -> None:
         super()._check_resort(R)

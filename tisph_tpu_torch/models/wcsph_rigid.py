@@ -69,7 +69,7 @@ class WCSPHRigid(WCSPH):
                             self._coupled_substep)
 
     def run_coupled(self, state: SimState, rigid: RigidState, num_steps: int,
-                    check_every: int = 400, verbose: bool = False
+                    check_every: int = 400, *, verbose: bool = False
                     ) -> tuple[SimState, RigidState]:
         """``SolverBase.run`` over the ``(state, rigid)`` carry with
         ``rollout_coupled``; binds an unbound state first."""

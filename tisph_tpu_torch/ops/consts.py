@@ -17,6 +17,11 @@ import torch
 
 @functools.lru_cache(maxsize=None)
 def _cached(values: tuple, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        # a host copy cannot be captured, and the tensor would live in the
+        # graph's pool: models.graphs warms a group up before its capture
+        raise RuntimeError(f"device_constant: first use of {values} inside a CUDA graph "
+                           "capture (warm up first)")
     return torch.tensor(values, dtype=dtype, device=device)
 
 

@@ -87,6 +87,7 @@ def _launch(name: str, sorted_ids, perm, spec: GridSpec, src=(), dst=()) -> torc
         err = build.load().tisph_rebuild(
             sorted_ids.data_ptr(), perm.data_ptr() if perm is not None else None,
             sorted_ids.shape[0], spec.num_cells, out.data_ptr(), ITEMS_PER_CTA, len(src),
+            # the stream read at every call: the capture stream under torch.cuda.graph
             table.buffer_info()[0], torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, name)

@@ -100,7 +100,13 @@ def build() -> tuple[Path, float]:
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """Build if needed, then load the library and declare its functions."""
+    """Build if needed, then load the library and declare its functions.
+    Never first called inside a CUDA graph capture (``models.graphs``
+    warms a group up before its capture)."""
+    import torch
+
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("build.load: first call inside a CUDA graph capture (warm up first)")
     path, _ = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():

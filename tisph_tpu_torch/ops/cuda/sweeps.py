@@ -156,6 +156,7 @@ def _launch(mode: str, pos, vel, aux, ids, bounds, material,
             _ptr(vel), _ptr(aux), ids.data_ptr(), bounds.data_ptr(), material.data_ptr(),
             _ptr(irows), out.data_ptr(), row0, n, ids.shape[0],
             *_grid_args(spec), *_phys_args(mode in _GRAD, spec, params),
+            # read at every call: the capture stream under torch.cuda.graph
             torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, name)
@@ -189,6 +190,7 @@ def _launch_linear(mode: str, pos, vel, aux, ids, bounds, material, spec: GridSp
             _LINEAR_MODES[mode], dim, int(fast_math), pos.data_ptr(), _ptr(vel), _ptr(aux),
             ids.data_ptr(), bounds.data_ptr(), material.data_ptr(), out.data_ptr(),
             _ptr(windows), row0, n, *_grid_args(spec), spec.num_cells,
+            # the stream read at every call: the capture stream under torch.cuda.graph
             *_phys_args(grad, spec, params), torch.cuda.current_stream().cuda_stream,
         )
     build.check(err, name)

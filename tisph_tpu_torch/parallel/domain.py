@@ -285,7 +285,7 @@ class MeshSolver(SolverBase):
                             self._coupled_substep)
 
     def run_coupled(self, shards, rigid: RigidState, num_steps: int, check_every: int = 400,
-                    verbose: bool = False):
+                    *, verbose: bool = False):
         """``run`` over the ``(shards, rigid)`` carry with
         ``rollout_coupled``: the same chunks and the same steering after
         each (``tisph_tpu``'s ``run_coupled``)."""
@@ -306,6 +306,7 @@ class ShardedWCSPH(MeshSolver):
     its live rows first, so shard s holds rows [s R, (s+1) R) of it)."""
 
     layouts = ("seg", "linear")
+    eager_loop = "the exchange resort's seam guard reads the host once a group (_build)"
 
     def __init__(
         self,

@@ -127,6 +127,8 @@ class ShardedWCSPHRect(MeshSolver):
     when a call returns (live rows first in each shard)."""
 
     layouts = ("seg",)
+    eager_loop = ("its _groups spans the shards' devices; its group reads nothing on the "
+                  "host, and its graph is a later step")
 
     def __init__(
         self,
@@ -591,7 +593,7 @@ class ShardedWCSPHRect(MeshSolver):
         """The flags of ``metrics`` back to 0."""
         self._flags = torch.zeros_like(self._flags)
 
-    def run(self, shards, num_steps: int, check_every: int = 400, verbose: bool = False,
+    def run(self, shards, num_steps: int, check_every: int = 400, *, verbose: bool = False,
             warn_frac: float = 0.9) -> list[SimState]:
         """``SolverBase.run``, and after each chunk one read of the flags
         (``_after_chunk``); ``warn_frac``: the busiest shard's share of its
@@ -600,7 +602,7 @@ class ShardedWCSPHRect(MeshSolver):
                                 warn_frac=warn_frac)[0]
 
     def run_coupled(self, shards, rigid: RigidState, num_steps: int, check_every: int = 400,
-                    verbose: bool = False, warn_frac: float = 0.9):
+                    *, verbose: bool = False, warn_frac: float = 0.9):
         """``run`` over the ``(shards, rigid)`` carry with
         ``rollout_coupled``; a rebalance passes the bodies through."""
         return self._run_chunks((shards, rigid), num_steps, self._roll_coupled, check_every,
