@@ -89,8 +89,9 @@ Phases, each of which raises on failure (nothing is caught):
    bind, density and force every substep, the rebuild once per group and
    at bind, force_react and reaction never; emitted and num_active equal
    the host's count of the cadence, the emitted rows are fluid with
-   object_id 10,000, no NaN, CFL < 1; one R=2 group that emits must queue
-   without a host wait; then, on a state captured right after an emission
+   object_id 10,000, no NaN, CFL < 1; the groups are graph replays, one
+   capture per fire pattern and group length; one R=2 group that emits
+   must queue without a host wait; then, on a state captured right after an emission
    on a group's second substep: the sweep kernels with the group's
    sort-time material against their plain versions at phase 4's
    tolerances, fast_math off and on (the emitted rows outside every
@@ -141,9 +142,10 @@ Phases, each of which raises on failure (nothing is caught):
    shard and substep, a density and a force launch of kernel A with an
    i-row map, and per shard and group one rebuild pass and one bounds-only
    launch; no NaN, CFL < 1, no halo overflow, migration trip or dropped
-   row; one R=2 group (build and substeps) queued behind the device spin
-   without a host wait, and one host read per rollout call (its check of
-   the live rows and the dropped rows); then on shard 1 of the 2x2, kernel
+   row; one R=2 group (build and substeps, one graph replay) queued behind
+   the device spin without a host wait, and its build and a substep
+   called eagerly, each alone; one host read per rollout call (its check
+   of the live rows and the dropped rows); then on shard 1 of the 2x2, kernel
    A with the i-row map against its plain version at phase 4's
    tolerances, its time and its bound; and run_sharded --mesh2d 2x2
    --profile 20 (device operations, busy time and idle share a step);
@@ -188,12 +190,24 @@ Phases, each of which raises on failure (nothing is caught):
    paths in turns (eager, graph, graph, eager): particle-steps/s, host ms
    a step to queue, the profile's device operations, busy ms and idle
    share a step, the capture's time and the memory of the first eager
-   and graph group.
+   and graph group;
+24. rollout_emit on one device and the rectangle decomposition's groups
+   as graph replays against graphs=False from the same start, bitwise:
+   bench_3d_mesh_500k 300 steps at R=2 (emissions at steps 0, 100 and
+   200; the emitter counters and num_active too, against the host's
+   cadence; captures no more than its keys, and none more over 300
+   further steps and 3 more emissions), demo_3d on 2x2 and 2x2x2 (100
+   steps; the flags and live-row counts too) and bench_3d_rigid coupled
+   on 2x2 (100 steps; the bodies too), with launch counts that count
+   replays equal on both paths; an emitting graph group and a 2x2 graph
+   group queued behind the spin, one host read per 2x2 call; then the
+   emitter scene (300 steps) and 2x2 (100) in turns, as phase 23.
 
-The solvers of phases 5-10, 16, 20, 21, 22's WCSPHRigid and 23 run the
-graph path (the default of a CUDA WCSPH and WCSPHRigid); the emitter path
-(11, 12), the legacy solver (13) and the sharded ones (14, 15, 17-19,
-22's shards) the eager loop.
+The solvers of phases 5-12, 16, 17, 18, 20, 21, 22's WCSPHRigid, 23 and
+24 run the graph path (the default of a CUDA WCSPH and WCSPHRigid, and of
+a rectangle whose shards share one card); the legacy solver (13), the
+slab solver (14, 15, 19, 22's shards) and the rectangle's rollout_emit
+the eager loop.
 
 Every kernel's entry in the JSON line has a bound: the larger of the bytes
 it must move (each input read once, each output written once) over 3.35
@@ -205,9 +219,9 @@ torch.searchsorted plus one index_select per field (no PyTorch call
 computes a sweep).
 
 The launches in the JSON line are the sums of the main paths' runs:
-phases 5, 11, 12 and 13 with 14, 15, 17, 18 and 20-23 for kernel A's
-density and force and kernel B (and 19 for B), 7, 15, 18, 22 and 23 for
-bvol and force_react, 9, 19 and 23 for kernel C.  A's max_abs_err folds in its
+phases 5, 11, 12 and 13 with 14, 15, 17, 18 and 20-24 for kernel A's
+density and force and kernel B (and 19 for B), 7, 15, 18, 22, 23 and 24
+for bvol and force_react, 9, 19 and 23 for kernel C.  A's max_abs_err folds in its
 checks over a row range (phase 14), with an i-row map (17) and, for
 density and force, on demo_3d after 10,000 steps (20); C's over a row
 range (19).
@@ -268,7 +282,10 @@ GRAPH_NO_WAIT = 200  # phase 23: steps of a graph rollout queued behind the spin
 # phase 23: (label, scene, steps) of eager against graph in turns, at R=2
 GRAPH_TURNS = (("demo_3d", DEMO_3D, 200), ("bench_3d_rigid", RIGID_3D, 200),
                ("bench_3d_1m", LARGE_3D, 40))
-GRAPH_PROFILE = 20  # phase 23: profiled steps per path
+GRAPH_PROFILE = 20  # phases 23 and 24: profiled steps per path
+# phase 24: the emitter scene at R=2 (emissions at steps 0, 100 and 200),
+# and the rectangle's runs
+EMIT_GRAPH_STEPS, RECT_GRAPH_STEPS = 300, 100
 SPIN_CYCLES = 2_000_000_000  # about a second at the H100's clocks
 
 # tests/test_rigid_dynamics.py::test_buoyancy's pool and box
@@ -982,33 +999,6 @@ def hold_to_single(label: str, got, want) -> tuple[float, float, float]:
     return dx, dv, drho
 
 
-def launches_behind_spin(label: str, fn) -> None:
-    """Prints how many kernel launches ``fn()`` makes behind a device-side
-    spin of about a second, the host time they take, the part of it spent
-    inside cudaLaunchKernel, and whether the spin outlasted them: a
-    measurement of the launch queue's depth, which fails nothing."""
-    from torch.profiler import ProfilerActivity, profile
-
-    spun = torch.cuda.Event()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
-        # the profiler starts before the spin: its start may wait for the
-        # device
-        torch.cuda.synchronize()
-        torch.cuda._sleep(SPIN_CYCLES)
-        spun.record()
-        t0 = time.perf_counter()
-        fn()
-        host_ms = (time.perf_counter() - t0) * 1e3
-        spin_running = not spun.query()
-    torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.key == "cudaLaunchKernel"]
-    n = rows[0].count if rows else 0
-    in_launch = rows[0].cpu_time_total / 1e3 if rows else 0.0
-    print(f"  {label} behind the spin: {n} cudaLaunchKernel calls recorded by the "
-          f"profiler, {host_ms:.1f} ms of host time, {in_launch:.1f} ms of it inside "
-          f"cudaLaunchKernel; spin still running when it returned: {spin_running}")
-
-
 def count_host_waits(fn) -> int:
     """How many times ``fn()`` made the host wait for the device: torch's
     sync debug mode warns once per synchronising call."""
@@ -1339,10 +1329,11 @@ def rect_demo(tt, kernels, scene, card_line: str):
         if g_waits != 0 or waits != 1:
             raise AssertionError(f"{label}: {g_waits} host waits in a group, {waits} in a call")
         if len(shape) == 2:
-            # a group's 1,400-odd launches overfill the launch queue behind
-            # the spin (cudaLaunchKernel then blocks until the device drains
-            # it), so its build and a substep queue behind it each alone
-            launches_behind_spin(f"{label}, a whole R=2 group", group)
+            # the group is one graph replay on one card; its build and a
+            # substep, called eagerly as a mesh over several devices runs
+            # them, queue behind the spin each alone (a whole eager group's
+            # 1,400-odd launches overfill the launch queue)
+            assert_no_host_wait(f"{label}, a whole R=2 group (a graph replay)", group)
             st_b, caches = sh._build(shards)
             assert_no_host_wait(f"{label}, a group's build", lambda: sh._build(shards))
             assert_no_host_wait(f"{label}, a substep", lambda: sh._substep((st_b,), caches))
@@ -1760,28 +1751,17 @@ def graph_path(tt, kernels, card_line: str):
     loop (graphs=False): bitwise equal on three paths, with launch counts
     that count replays; a graph rollout queued behind the spin; then both
     paths in turns on three scenes.  Returns the graph runs' launches."""
-    from tisph_tpu_torch.bench import profile_steps
-
     total = {k: 0 for k in kernels}
     for label, path, layout, R, steps in GRAPH_BITWISE:
         g, e, state, rigid = graph_pair(tt, path, layout, R)
-        reset_counts(kernels)
-        got, got_rigid, _ = tt.advance(g, state, rigid, steps)
-        torch.cuda.synchronize()
-        counted = {k: f.launches for k, f in kernels.items()}
-        reset_counts(kernels)
-        want, want_rigid, _ = tt.advance(e, state, rigid, steps)
-        torch.cuda.synchronize()
-        eager = {k: f.launches for k, f in kernels.items()}
         sweeps = ((("linear.density", "linear.force") if layout == "linear"
                    else ("sweep.density", "sweep.bvol", "sweep.force_react") if rigid is not None
                    else ("sweep.density", "sweep.force")))
-        expect = {k: 0 for k in kernels} | {"rebuild": -(-steps // R)} | {k: steps for k in sweeps}
-        print(f"  {label}, {steps} steps: {g._runner.captures} captures in "
-              f"{g._runner.capture_seconds:.3f} s; launches {counted}")
-        if counted != expect or eager != expect:
-            raise AssertionError(f"{label}: launch counts {counted} (graph), {eager} (eager), "
-                                 f"expected {expect}")
+        (got, got_rigid, _), (want, want_rigid, _), counted = graph_against_eager(
+            kernels, f"{label}, {steps} steps", lambda: tt.advance(g, state, rigid, steps),
+            lambda: tt.advance(e, state, rigid, steps),
+            {"rebuild": -(-steps // R)} | {k: steps for k in sweeps})
+        print(f"  {label}: {g._runner.captures} captures in {g._runner.capture_seconds:.3f} s")
         same_bits(label, got, want)
         if rigid is not None:
             same_bits(f"{label} bodies", got_rigid, want_rigid)
@@ -1796,46 +1776,242 @@ def graph_path(tt, kernels, card_line: str):
 
     for label, path, steps in GRAPH_TURNS:
         g, e, state, rigid = graph_pair(tt, path, "seg", 2)
-        n = state.num_active
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.max_memory_allocated()
-        tt.advance(e, state, rigid, 2)
-        torch.cuda.synchronize()
-        eager_peak = torch.cuda.max_memory_allocated() - base
-        torch.cuda.reset_peak_memory_stats()
-        base, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
-        tt.advance(g, state, rigid, 2)  # warm-up, capture, one replay
-        torch.cuda.synchronize()
-        graph_peak = torch.cuda.max_memory_allocated() - base
-        held = torch.cuda.memory_allocated() - held
-        rates = {}
-        for name, solver in (("eager", e), ("graph", g), ("graph", g), ("eager", e)):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            tt.advance(solver, state, rigid, steps)
-            host = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            rates.setdefault(name, []).append((n * steps / wall, host * 1e3 / steps))
-        prof = {name: profile_steps(solver, state, rigid, None, GRAPH_PROFILE, 2)
-                for name, solver in (("eager", e), ("graph", g))}
-        for name in ("eager", "graph"):
-            (pps_a, host_a), (pps_b, host_b) = rates[name]
-            p = prof[name]
-            print(f"  turns {label} {name}: {pps_a:.6e} / {pps_b:.6e} particle-steps/s, host "
-                  f"{host_a:.4f} / {host_b:.4f} ms a step to queue, {steps} steps; profile "
-                  f"({GRAPH_PROFILE} steps): {p['device_ops_per_step']:.1f} device operations, "
-                  f"{p['device_busy_ms_per_step']:.4f} ms busy, idle share "
-                  f"{p['device_idle_share']:.4f}, wall {p['wall_ms_per_step']:.4f} ms a step; "
-                  f"on {card_line}")
-        print(f"  turns {label}: {n} particles; capture (warm-up and capture) "
-              f"{g._runner.capture_seconds:.4f} s; peak memory over the start's "
-              f"max_memory_allocated: eager group {eager_peak / 2**20:.1f} MiB, first graph "
-              f"group {graph_peak / 2**20:.1f} MiB (the warm-up's copies, the buffers and the "
-              f"capture); still allocated after it +{held / 2**20:.1f} MiB (the buffers and "
-              f"what the capture keeps); on {card_line}")
+        graph_turns(tt, label, g, e, state, rigid, None, steps, card_line)
         del g, e, state, rigid
+    return total
+
+
+def graph_turns(tt, label: str, g, e, state, rigid, ems, steps: int, card_line: str,
+                queue=None) -> None:
+    """The graph solver ``g`` (nothing captured yet) and the eager ``e``
+    from ``state`` (with ``rigid`` and ``ems`` where not None) at R=2:
+    the memory peak of each path's first group over the start's, one
+    untimed run of ``steps`` on the graph path (it captures every key the
+    run meets), then ``steps`` steps of each in turns (eager, graph, graph,
+    eager): particle-steps/s and host ms a step to queue; then the profile
+    of each path (device operations, busy ms and idle share a step) and
+    the capture's seconds.  ``queue(solver, steps)``, where a call ends in
+    a host read (the rectangle's), queues the groups alone: its host ms a
+    step are printed for each path."""
+    from tisph_tpu_torch.bench import profile_steps
+
+    n = g._num_particles(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.max_memory_allocated()
+    tt.advance(e, state, rigid, 2, ems)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    base, held = torch.cuda.max_memory_allocated(), torch.cuda.memory_allocated()
+    tt.advance(g, state, rigid, 2, ems)  # warm-up, capture, one replay
+    torch.cuda.synchronize()
+    graph_peak = torch.cuda.max_memory_allocated() - base
+    held = torch.cuda.memory_allocated() - held
+    tt.advance(g, state, rigid, steps, ems)
+    rates = {}
+    for name, solver in (("eager", e), ("graph", g), ("graph", g), ("eager", e)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tt.advance(solver, state, rigid, steps, ems)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rates.setdefault(name, []).append((n * steps / wall, host * 1e3 / steps))
+    prof = {name: profile_steps(solver, state, rigid, ems, GRAPH_PROFILE, 2)
+            for name, solver in (("eager", e), ("graph", g))}
+    for name in ("eager", "graph"):
+        (pps_a, host_a), (pps_b, host_b) = rates[name]
+        p = prof[name]
+        print(f"  turns {label} {name}: {pps_a:.6e} / {pps_b:.6e} particle-steps/s, host "
+              f"{host_a:.4f} / {host_b:.4f} ms a step to queue, {steps} steps; profile "
+              f"({GRAPH_PROFILE} steps): {p['device_ops_per_step']:.1f} device operations, "
+              f"{p['device_busy_ms_per_step']:.4f} ms busy, idle share "
+              f"{p['device_idle_share']:.4f}, wall {p['wall_ms_per_step']:.4f} ms a step; "
+              f"on {card_line}")
+    for name, solver in (("eager", e), ("graph", g)) if queue is not None else ():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        queue(solver, steps)
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        print(f"  turns {label} {name}: host {host * 1e3 / steps:.4f} ms a step to queue "
+              f"the groups alone (without the call's one read), {steps} steps")
+    print(f"  turns {label}: {n} particles; {g._runner.captures} captures (warm-up and "
+          f"capture) {g._runner.capture_seconds:.4f} s; peak memory over the start's "
+          f"max_memory_allocated: eager group {eager_peak / 2**20:.1f} MiB, first graph "
+          f"group {graph_peak / 2**20:.1f} MiB (the warm-up's copies, the buffers and the "
+          f"capture); still allocated after it +{held / 2**20:.1f} MiB (the buffers and "
+          f"what the capture keeps); on {card_line}")
+
+
+def launch_counts(kernels) -> dict[str, int]:
+    """Every kernel's launches and, where it has them, its launches over
+    part of the arrays (``<name>.part``)."""
+    return {k: f.launches for k, f in kernels.items()} | {
+        f"{k}.part": f.part_launches for k, f in kernels.items() if hasattr(f, "part_launches")}
+
+
+def graph_against_eager(kernels, label: str, run_graph, run_eager, expect: dict):
+    """``run_graph()`` and ``run_eager()`` from the same start, each with
+    the launch counters at 0: both must count ``expect`` (the part
+    launches too); returns both outputs and the graph run's counts."""
+    out, counts = [], []
+    for run in (run_graph, run_eager):
+        reset_counts(kernels)
+        out.append(run())
+        torch.cuda.synchronize()
+        counts.append(launch_counts(kernels))
+    full = {k: 0 for k in counts[0]} | expect
+    print(f"  {label}: launches {counts[0]} (graph), equal on the eager path: "
+          f"{counts[0] == counts[1]}")
+    if counts[0] != full or counts[1] != full:
+        raise AssertionError(f"{label}: launch counts {counts[0]} (graph), {counts[1]} (eager), "
+                             f"expected {full}")
+    return out[0], out[1], counts[0]
+
+
+def emit_rect_graphs(tt, kernels, e_scene, e_start, ems0, scene, r_scene, card_line: str):
+    """Phase 24: ``rollout_emit`` on one device and the rectangle's groups
+    as graph replays against the eager loop (graphs=False), bitwise, with
+    launch counts that count replays; an emitting graph group and a 2x2
+    graph group behind the spin; then both paths in turns on the emitter
+    scene and on 2x2.  Returns the graph runs' launches."""
+    from tisph_tpu_torch.models.solver_base import SolverBase
+    from tisph_tpu_torch.parallel import ShardedWCSPHRect, make_mesh2d, make_mesh3d
+
+    total = {k: 0 for k in kernels}
+
+    def add(counted):
+        for k in kernels:
+            total[k] += counted[k]
+
+    # the emitter scene: 3 emissions in 300 steps, each on a group's first
+    # substep
+    g = tt.WCSPH(e_scene, device=DEVICE, resort_every=2)
+    e = tt.WCSPH(e_scene, device=DEVICE, resort_every=2, graphs=False)
+    start = g.bind(e_start)
+    e.bind(start)
+    steps = EMIT_GRAPH_STEPS
+    groups = steps // 2
+    (got, got_ems), (want, want_ems), counted = graph_against_eager(
+        kernels, f"bench_3d_mesh_500k rollout_emit, {steps} steps at R=2",
+        lambda: g.rollout_emit(start, ems0, steps), lambda: e.rollout_emit(start, ems0, steps),
+        {"rebuild": groups, "sweep.density": steps, "sweep.force": steps})
+    add(counted)
+    same_bits("bench_3d_mesh_500k rollout_emit", got, want)
+    es, es_e = got_ems[0], want_ems[0]
+    cadence = emission_cadence(ems0[0], start.num_active, start.capacity, steps)
+    keys = sorted(map(str, g._runner._graphs))
+    print(f"  emitter: graph {es.step} steps, {es.emitted} emitted, num_active "
+          f"{got.num_active}; eager {es_e.step}, {es_e.emitted}, {want.num_active}; host "
+          f"cadence {cadence}; {g._runner.captures} captures in "
+          f"{g._runner.capture_seconds:.3f} s, keys {keys}")
+    if ((es.step, es.emitted) != (es_e.step, es_e.emitted)
+            or (got.num_active, es.emitted) != cadence or es.emitted != 3 * es.batch_size):
+        raise AssertionError("rollout_emit: the graph path's emitter counters or num_active "
+                             "differ from the eager path's or from the host's cadence")
+    if g._runner.captures != len(keys) or len(keys) > 3:
+        raise AssertionError(f"rollout_emit: {g._runner.captures} captures for keys {keys}")
+    print("  bench_3d_mesh_500k rollout_emit: graphs=True bitwise equal to graphs=False in "
+          "every field")
+    assert_no_host_wait("bench_3d_mesh_500k, one emitting graph group",
+                        lambda: g.rollout_emit(start, ems0, 2))
+    captures = g._runner.captures
+    more, more_ems = g.rollout_emit(got, got_ems, steps)
+    torch.cuda.synchronize()
+    print(f"  {steps} more steps: {more_ems[0].emitted} emitted in all, "
+          f"{g._runner.captures} captures")
+    if g._runner.captures != captures or more_ems[0].emitted != 6 * es.batch_size:
+        raise AssertionError("the captures grew with the emissions")
+    del g, e, got, want, more
+
+    # the rectangle: demo_3d on 2x2 and 2x2x2, bench_3d_rigid coupled on 2x2
+    rect = None
+    d_start = tt.build_state(scene, device=DEVICE)
+    for shape in ((2, 2), (2, 2, 2)):
+        d = math.prod(shape)
+        label = "x".join(map(str, shape))
+        make = make_mesh2d if len(shape) == 2 else make_mesh3d
+        g = ShardedWCSPHRect(scene, make(*shape, devices=[DEVICE] * d), resort_every=2)
+        e = ShardedWCSPHRect(scene, make(*shape, devices=[DEVICE] * d), resort_every=2,
+                             graphs=False)
+        sg, se = g.bind(d_start), e.bind(d_start)
+        steps, groups = RECT_GRAPH_STEPS, RECT_GRAPH_STEPS // 2
+        got, want, counted = graph_against_eager(
+            kernels, f"demo_3d on {label}, {steps} steps at R=2",
+            lambda: g.rollout(sg, steps), lambda: e.rollout(se, steps),
+            {"rebuild": groups * d, "csr_bounds": groups * d, "sweep.density": steps * d,
+             "sweep.force": steps * d, "sweep.density.part": steps * d,
+             "sweep.force.part": steps * d})
+        add(counted)
+        for s, (a, b) in enumerate(zip(got, want)):
+            same_bits(f"{label} shard {s}", a, b)
+        if not (torch.equal(g._flags, e._flags) and torch.equal(g._counts, e._counts)):
+            raise AssertionError(f"{label}: the flags or live-row counts differ")
+        print(f"  demo_3d on {label}: graphs=True bitwise equal to graphs=False in every "
+              f"field of every shard, flags {g._flags.tolist()} equal; {g._runner.captures} "
+              f"captures in {g._runner.capture_seconds:.3f} s")
+        if len(shape) == 2:
+            rect = (g, got)
+    g, shards = rect
+    assert_no_host_wait("2x2, one graph group (its build and two substeps)",
+                        lambda: SolverBase._groups(g, (shards,), 2, 2, g._substep))
+    waits = count_host_waits(lambda: g.rollout(shards, 2))
+    print(f"  2x2: host reads in one graph rollout call: {waits}")
+    if waits != 1:
+        raise AssertionError(f"2x2 graph rollout call: {waits} host waits, want 1")
+    del rect, g, e, shards, got, want
+
+    r_start = tt.build_state(r_scene, device=DEVICE)
+    g = ShardedWCSPHRect(r_scene, make_mesh2d(2, 2, devices=[DEVICE] * 4), resort_every=2)
+    e = ShardedWCSPHRect(r_scene, make_mesh2d(2, 2, devices=[DEVICE] * 4), resort_every=2,
+                         graphs=False)
+    sg, se = g.bind(r_start), e.bind(r_start)
+    rg = g.init_rigid(sg)
+    steps, groups = RECT_GRAPH_STEPS, RECT_GRAPH_STEPS // 2
+    sweeps = ("sweep.bvol", "sweep.density", "sweep.force_react")
+    (got, got_rg), (want, want_rg), counted = graph_against_eager(
+        kernels, f"bench_3d_rigid coupled on 2x2, {steps} steps at R=2",
+        lambda: g.rollout_coupled(sg, rg, steps), lambda: e.rollout_coupled(se, rg, steps),
+        {"rebuild": groups * 4, "csr_bounds": groups * 4}
+        | {k: steps * 4 for k in sweeps} | {f"{k}.part": steps * 4 for k in sweeps})
+    add(counted)
+    for s, (a, b) in enumerate(zip(got, want)):
+        same_bits(f"coupled 2x2 shard {s}", a, b)
+    same_bits("coupled 2x2 bodies", got_rg, want_rg)
+    print(f"  bench_3d_rigid coupled on 2x2: graphs=True bitwise equal to graphs=False in "
+          f"every field of every shard and every body field; {g._runner.captures} captures")
+    del g, e, sg, se, got, want
+
+    # both paths in turns: the emitter scene, 2x2 (and, at half the steps,
+    # 2x2x2 and the coupled 2x2)
+    g = tt.WCSPH(e_scene, device=DEVICE, resort_every=2)
+    e = tt.WCSPH(e_scene, device=DEVICE, resort_every=2, graphs=False)
+    start = g.bind(e_start)
+    e.bind(start)
+    graph_turns(tt, "bench_3d_mesh_500k (emitting)", g, e, start, None, ems0,
+                EMIT_GRAPH_STEPS, card_line)
+    del g, e, start
+    for label, sc, start, shape, steps in (
+            ("demo_3d on 2x2", scene, d_start, (2, 2), RECT_GRAPH_STEPS),
+            ("demo_3d on 2x2x2", scene, d_start, (2, 2, 2), RECT_GRAPH_STEPS // 2),
+            ("bench_3d_rigid coupled on 2x2", r_scene, r_start, (2, 2), RECT_GRAPH_STEPS // 2)):
+        make = make_mesh2d if len(shape) == 2 else make_mesh3d
+        mesh = [DEVICE] * math.prod(shape)
+        g = ShardedWCSPHRect(sc, make(*shape, devices=mesh), resort_every=2)
+        e = ShardedWCSPHRect(sc, make(*shape, devices=mesh), resort_every=2, graphs=False)
+        sg = g.bind(start)
+        e.bind(start)
+        rigid = g.init_rigid(sg) if sc is r_scene else None
+        substep = g._coupled_substep if rigid is not None else g._substep
+
+        def queue(solver, k, sg=sg, rigid=rigid, substep=substep):
+            carry = (sg,) if rigid is None else (sg, rigid)
+            SolverBase._groups(solver, carry, k, 2, getattr(solver, substep.__name__))
+
+        graph_turns(tt, label, g, e, sg, rigid, None, steps, card_line, queue)
+        del g, e, sg
     return total
 
 
@@ -2325,6 +2501,10 @@ def main() -> int:
         "sweep.density": e_steps, "sweep.force": e_steps}
     if e_launches != e_want:
         raise AssertionError(f"emitter path launch counts {e_launches}, expected {e_want}")
+    if not e_solver.graphs:
+        raise AssertionError("the emitter path's solver is not on the graph path")
+    print(f"  graph path: {e_solver._runner.captures} captures (one per fire pattern and "
+          f"group length) in {e_solver._runner.capture_seconds:.3f} s")
     want_n, want_emitted = emission_cadence(es0, en0, ecap, e_steps)
     es = ems[0]
     emitted_rows = (e_state.object_id == EMITTER_OBJECT_ID)
@@ -2431,7 +2611,7 @@ def main() -> int:
           "run bitwise equal to the uninterrupted run's, emitter counters equal; "
           f"launches {c_launches}")
     launches = {k: launches[k] + c_launches[k] for k in kernels}
-    del e_start, e_state, ck_a, ck_b, half, loaded
+    del e_state, ck_a, ck_b, half, loaded
 
     phase(f"13 legacy V1 solver: demo_2d, {LEGACY_CHECK} steps card vs CPU, then "
           f"{LEGACY_STEPS} on the card")
@@ -2511,6 +2691,12 @@ def main() -> int:
           f"bench_3d_rigid, a graph rollout behind the spin, both paths in turns")
     s23 = graph_path(tt, kernels, card_line)
     launches = {k: launches[k] + s23[k] for k in kernels}
+    phase(f"24 rollout_emit and the rectangle as graphs against graphs=False: bitwise on "
+          f"bench_3d_mesh_500k ({EMIT_GRAPH_STEPS} steps), demo_3d on 2x2 and 2x2x2 and "
+          f"bench_3d_rigid on 2x2 ({RECT_GRAPH_STEPS}), both paths in turns")
+    s24 = emit_rect_graphs(tt, kernels, e_scene, e_start, ems0, scene, r_scene, card_line)
+    launches = {k: launches[k] + s24[k] for k in kernels}
+    del e_start
     print(f"  run_sharded --mesh2d 2x2 --profile 20 (phase 17): "
           f"{rect_prof['device_ops_per_step']:.1f} device operations, "
           f"{rect_prof['device_busy_ms_per_step']:.4f} ms busy, idle share "

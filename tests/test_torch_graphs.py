@@ -2,9 +2,13 @@
 
 On the CPU (the eager loop; no capture without a card):
 
-- ``graphs=True`` raises on a CPU solver, on ``rollout_emit`` and on a
-  class that keeps the eager loop; None is on for a CUDA ``WCSPH`` and
-  ``WCSPHRigid`` and off elsewhere;
+- ``graphs=True`` raises on a CPU solver, on a class that keeps the
+  eager loop (the slab solver, ``WCSPHLegacy``, a rectangle over several
+  devices) and on the rectangle's ``rollout_emit``; None is on for a CUDA
+  ``WCSPH`` and ``WCSPHRigid`` and a rectangle on one card, off
+  elsewhere; ``rollout_emit`` takes the graph path on a ``WCSPH``
+  (``tests/test_torch_graphs_emit_rect.py`` holds it and the rectangle's
+  plumbing);
 - the runner's plumbing (copy in, group on the static buffers, write back,
   tail group, copy out), with a direct call of the group in place of each
   replay, equals the eager ``_groups`` bitwise: ``WCSPH`` at R=2 over 1, 2,
@@ -78,6 +82,9 @@ def _direct(solver):
 # -- choosing the path ---------------------------------------------------------
 
 def test_graphs_default_and_refusals(tmp_path):
+    """None is on for a CUDA WCSPH and WCSPHRigid; ``rollout_emit`` with
+    graphs=True no longer refuses: it takes the graph path, so a CPU state
+    reaches the device check."""
     scene = pt.scene_from_dict(SCENE)
     assert pt.WCSPH(scene, device="cuda").graphs
     assert not pt.WCSPH(scene, device="cuda", graphs=False).graphs
@@ -89,7 +96,6 @@ def test_graphs_default_and_refusals(tmp_path):
         pt.WCSPH(scene, device="cpu", graphs=True)
     with pytest.raises(ValueError, match="WCSPHLegacy runs the eager loop"):
         pt.WCSPHLegacy(scene, device="cuda", graphs=True)
-    # the check comes before the state is touched, so a CPU state serves
     solver = pt.WCSPH(scene, device="cuda", resort_every=2, graphs=True)
     raw = dict(SCENE, emitters=[{"start": [0.6, 0.8, 0.4], "end": [0.7, 0.8001, 0.5],
                                  "velocity": [0.0, -1.0, 0.0], "interval": 3,
@@ -97,16 +103,47 @@ def test_graphs_default_and_refusals(tmp_path):
     em_scene = pt.scene_from_dict(raw)
     state = pt.build_state(em_scene, device="cpu")
     ems = [make_emitter_state(em_scene.emitters[0], em_scene, "cpu")]
-    with pytest.raises(ValueError, match="rollout_emit runs the eager loop"):
+    assert pt.WCSPH.emit_eager_loop is None
+    with pytest.raises(ValueError, match="state is on cpu, solver on cuda"):
         solver.rollout_emit(state, ems, 2)
 
 
 def test_sharded_solvers_keep_the_eager_loop():
-    from tisph_tpu_torch.parallel import ShardedWCSPH, ShardedWCSPHRect
+    """What keeps the eager loop, each with its reason, and refuses
+    graphs=True: the slab solver (its seam guard), the legacy solver
+    (torch.nonzero), a rectangle over several devices and the rectangle's
+    ``rollout_emit`` (its room test).  A rectangle on one card replays its
+    groups; on the CPU it runs the eager loop."""
+    from tisph_tpu_torch.parallel import (
+        ShardedWCSPH,
+        ShardedWCSPHRect,
+        make_mesh,
+        make_mesh2d,
+    )
 
-    for cls in (ShardedWCSPH, ShardedWCSPHRect):
-        assert cls.eager_loop
+    scene = pt.scene_from_dict(SCENE)
     assert pt.WCSPH.eager_loop is None and pt.WCSPHRigid.eager_loop is None
+    assert "seam guard" in ShardedWCSPH.eager_loop
+    assert "torch.nonzero" in pt.WCSPHLegacy.eager_loop
+    one = ["cuda:0"] * 4
+    slab = make_mesh(devices=one)
+    assert not ShardedWCSPH(scene, slab).graphs
+    with pytest.raises(ValueError, match="ShardedWCSPH runs the eager loop"):
+        ShardedWCSPH(scene, slab, graphs=True)
+    assert ShardedWCSPHRect.eager_loop is None and ShardedWCSPHRect.emit_eager_loop
+    rect = ShardedWCSPHRect(scene, make_mesh2d(2, 2, devices=one))
+    assert rect.graphs and rect.eager_loop is None
+    assert not ShardedWCSPHRect(scene, make_mesh2d(2, 2, devices=one), graphs=False).graphs
+    assert not ShardedWCSPHRect(scene, make_mesh2d(2, 2, devices=["cpu"] * 4)).graphs
+    several = make_mesh2d(2, 2, devices=["cuda:0", "cuda:1", "cuda:0", "cuda:1"])
+    multi = ShardedWCSPHRect(scene, several)
+    assert not multi.graphs and "several devices" in multi.eager_loop
+    with pytest.raises(ValueError, match="ShardedWCSPHRect runs the eager loop"):
+        ShardedWCSPHRect(scene, several, graphs=True)
+    # the refusal comes before the state is touched
+    rect = ShardedWCSPHRect(scene, make_mesh2d(2, 2, devices=one), graphs=True)
+    with pytest.raises(ValueError, match="ShardedWCSPHRect.rollout_emit runs the eager loop"):
+        rect.rollout_emit([], [], 2)
 
 
 # -- the plumbing, bitwise against the eager groups ---------------------------

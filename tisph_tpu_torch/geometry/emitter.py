@@ -13,7 +13,9 @@ The bookkeeping (``step``, ``emitted``, ``interval``, ``max_particles``)
 is plain host ints, and so is ``SimState.num_active``, which only emission
 changes: the host decides whether a batch fires without reading anything
 back from the device, and the device does one out-of-place write of the
-nine per-particle fields.
+nine per-particle fields.  The write's start row may be a 0-d device
+tensor, so a captured CUDA graph (``models.graphs``) reads it at every
+replay where a host int would be frozen into the capture.
 """
 
 from __future__ import annotations
@@ -72,14 +74,16 @@ def make_emitter_state(em: Emitter, scene: SceneConfig,
     )
 
 
-def activate_seeds(fields: dict[str, torch.Tensor], start: int, seeds: torch.Tensor,
-                   velocity: torch.Tensor, color: torch.Tensor, density: torch.Tensor,
-                   volume0: float) -> dict[str, torch.Tensor]:
+def activate_seeds(fields: dict[str, torch.Tensor], start: int | torch.Tensor,
+                   seeds: torch.Tensor, velocity: torch.Tensor, color: torch.Tensor,
+                   density: torch.Tensor, volume0: float) -> dict[str, torch.Tensor]:
     """The nine EMIT_FIELDS with rows ``[start, start + b)`` set to one
     seed batch, as new tensors: the given ones are shared with the caller's
-    state and stay as they are."""
+    state and stay as they are.  ``start`` is a host int or a 0-d int64
+    tensor on the fields' device; both write the same rows."""
     b, dim = seeds.shape
     like = fields["density"]
+    at = torch.arange(b, dtype=torch.int64, device=like.device) + start
     vol = torch.full((b,), volume0, dtype=torch.float32, device=like.device)
     rows = {
         "x": seeds,
@@ -92,8 +96,16 @@ def activate_seeds(fields: dict[str, torch.Tensor], start: int, seeds: torch.Ten
         "color": color.expand(b, 3),
         "object_id": fields["object_id"].new_full((b,), EMITTER_OBJECT_ID),
     }
-    return {k: torch.slice_scatter(fields[k], rows[k].contiguous(), 0, start, start + b)
-            for k in EMIT_FIELDS}
+    return {k: fields[k].index_copy(0, at, rows[k].contiguous()) for k in EMIT_FIELDS}
+
+
+def activate(state: SimState, es: EmitterState, start: int | torch.Tensor,
+             volume0: float) -> SimState:
+    """``state`` with one batch of ``es`` in rows ``[start, start + b)``
+    (``activate_seeds``); ``num_active`` is the caller's to count."""
+    fields = activate_seeds({k: getattr(state, k) for k in EMIT_FIELDS}, start, es.seeds_x,
+                            es.velocity, es.color, es.density, volume0)
+    return dataclasses.replace(state, **fields)
 
 
 def count_step(es: EmitterState, room: bool) -> tuple[bool, EmitterState]:
@@ -116,6 +128,5 @@ def maybe_emit(state: SimState, es: EmitterState,
     fire, es2 = count_step(es, state.num_active + b <= state.capacity)
     if not fire:
         return state, es2
-    fields = activate_seeds({k: getattr(state, k) for k in EMIT_FIELDS}, state.num_active,
-                            es.seeds_x, es.velocity, es.color, es.density, volume0)
-    return dataclasses.replace(state, num_active=state.num_active + b, **fields), es2
+    state = activate(state, es, state.num_active, volume0)
+    return dataclasses.replace(state, num_active=state.num_active + b), es2

@@ -1,17 +1,29 @@
 """One R-group, one CUDA graph replay: the port's counterpart of
 ``tisph_tpu``'s one-dispatch rollout (``solver_base.py:8-12``, ``:277-326``,
 a jitted ``lax.fori_loop`` over groups; ``wcsph_rigid.py:143-186`` for the
-coupled step).
+coupled step; ``solver_base.py:338-390`` for ``rollout_emit``;
+``parallel/domain2d.py``'s jitted ``shard_map`` for the rectangle).
 
 :class:`GroupRunner` owns a solver's static carry (the tensor fields of
-the ``SimState``, and of the ``RigidState`` on the coupled path), one
-``torch.cuda.CUDAGraph`` per group length k (R, and the tail ``num_steps
-% R``) and one memory pool the graphs share.  A captured group is the
-eager group's body: ``_build`` (cell ids, ``torch.sort``, the rebuild
-kernel) and k substeps, which end by writing the new carry back into the
-static buffers inside the graph, so replays chain with no host step
-between them.  A rollout copies the carry in once, replays its groups and
-clones the carry out once, with no synchronisation.
+every carry element: the ``SimState``, or a list of per-shard ones, the
+``RigidState`` on the coupled path, and the emitters' seed tensors), one
+``torch.cuda.CUDAGraph`` per group key and one memory pool the graphs
+share.  A captured group is the eager group's body: ``_build`` and k
+substeps, which end by writing the new carry back into the static buffers
+inside the graph, so replays chain with no host step between them.  A
+rollout copies the carry in once, replays its groups and clones the carry
+out once, with no synchronisation.
+
+Emission (``emitters=``): whether a batch fires depends only on host
+counters and on ``num_active``, a host int, so before each group the host
+counts the emitters' steps (``geometry.emitter.count_step``), as the eager
+loop does, and gets the group's fire pattern (per emission slot, which
+emitters fire; a slot is before the rebuild at R = 1, before each substep
+at R > 1) and each batch's start row.  The pattern is part of the key; the
+start rows go into 0-d int64 buffers, one per (slot, emitter), which the
+host fills on the stream before the replay.  The emitters' seed tensors
+are graph inputs, copied in at every call as the state is; their counters
+and ``num_active`` stay host ints.
 
 Where a capture could go wrong, and what the runner does about it:
 
@@ -21,6 +33,9 @@ Where a capture could go wrong, and what the runner does about it:
   each capture one warm-up group runs eagerly on a side stream, on
   throwaway copies of the buffers, so the state never advances twice;
   both caches also refuse a first fill inside a capture;
+- state outside the carry: tensors a group updates in place (the
+  rectangle's live-row counts and flags, ``SolverBase._inplace``) keep
+  their addresses for the graph, and the warm-up's updates are undone;
 - streams: every kernel wrapper reads ``torch.cuda.current_stream()`` at
   call time, which inside ``torch.cuda.graph`` is the capture stream;
 - failure: a capture that fails raises, naming the part of the group
@@ -35,9 +50,10 @@ Where a capture could go wrong, and what the runner does about it:
   shapes in the same order (``launch_shape`` reads only the row count),
   so it equals the eager group bitwise, not within a tolerance.
 
-``capture=False`` runs the same plumbing (copy in, group on the buffers,
-write back, tail group, copy out) with a direct call of the group in
-place of each replay: the CPU tests drive it so.
+``capture=False`` runs the same plumbing (copy in, the host's emission
+count, group on the buffers, write back, tail group, copy out) with a
+direct call of the group in place of each replay: the CPU tests drive it
+so.
 """
 
 from __future__ import annotations
@@ -48,6 +64,7 @@ from typing import Callable
 
 import torch
 
+from tisph_tpu_torch.geometry.emitter import activate, count_step
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.grid import state_fields
@@ -74,8 +91,20 @@ def _set_counters(values: list[int]) -> None:
 
 
 def _tensors(obj) -> dict[str, torch.Tensor]:
-    """A carry element's tensor fields by name, in field order."""
+    """A carry leaf's tensor fields by name, in field order."""
     return {n: getattr(obj, n) for n in state_fields(obj)}
+
+
+def _leaves(carry) -> list:
+    """The carry's dataclasses in order, a list element (the shards) flattened."""
+    return [x for c in carry for x in (c if isinstance(c, (list, tuple)) else [c])]
+
+
+def _unflatten(carry, leaves: list) -> tuple:
+    """``leaves`` in the structure of ``carry``."""
+    it = iter(leaves)
+    return tuple([next(it) for _ in c] if isinstance(c, (list, tuple)) else next(it)
+                 for c in carry)
 
 
 class GroupRunner:
@@ -85,96 +114,167 @@ class GroupRunner:
     def __init__(self, solver, capture: bool = True):
         self.solver = solver
         self.capture = capture
-        self._base: tuple | None = None  # the key without k of the buffers
-        self._bufs: tuple[dict[str, torch.Tensor], ...] = ()
-        self._graphs: dict[int, tuple[torch.cuda.CUDAGraph, list[int]]] = {}
+        self._base: tuple | None = None  # the key without the group's part
+        self._bufs: list[dict[str, torch.Tensor]] = []  # one per carry leaf, then emitter
+        self._starts: dict[tuple[int, int], torch.Tensor] = {}  # (slot, emitter) start rows
+        # group key -> (graph, launches its capture counted); None without capture
+        self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, list[int]] | None] = {}
         self._pool = None
         self._part = ""  # the part of the group being captured, for errors
         self.captures = 0          # graphs captured so far
         self.capture_seconds = 0.0  # host seconds of their warm-ups and captures
 
-    def key(self, carry: tuple, k: int, substep: Callable) -> tuple:
-        """Everything the captured launches depend on: the carry's field
-        shapes, dtypes and devices (capacity and the number of bodies among
-        them), the substep, the layout, ``boundary_mode``, ``fast_math``,
-        the physics and the grid, and last the group length k."""
-        s = self.solver
+    def key(self, carry: tuple, k: int, substep: Callable, emitters=(),
+            pattern: tuple | None = None) -> tuple:
+        """Everything the captured launches depend on: the field shapes,
+        dtypes and devices of the carry and the emitters (capacity, shard
+        rows, the number of bodies and batch sizes among them), the
+        substep, the solver's ``_capture_key`` (layout, ``boundary_mode``,
+        ``fast_math``, the physics and the grid; the rectangle's cuts and
+        caps), then the group's part: the emission pattern (None without
+        emitters) and the group length k."""
         fields = tuple(
             (type(c).__name__,
              tuple((n, tuple(t.shape), t.dtype, t.device) for n, t in _tensors(c).items()))
-            for c in carry)
-        return (fields, substep.__name__, s.layout, s.boundary_mode, s.fast_math, s.params,
-                s.spec, k)
+            for c in _leaves(carry) + list(emitters))
+        return (fields, substep.__name__) + self.solver._capture_key() + (pattern, k)
 
-    def rollout(self, carry: tuple, num_steps: int, R: int, substep: Callable) -> tuple:
-        """``num_steps`` substeps of ``carry`` (a bound state first) in
-        groups of R: the carry copied in, a replay per group (R, then the
-        tail), the carry cloned out."""
-        base = self.key(carry, 0, substep)[:-1]
+    def rollout(self, carry: tuple, num_steps: int, R: int, substep: Callable,
+                emitters: list | None = None) -> tuple:
+        """``num_steps`` substeps of ``carry`` (a bound state, or the list
+        of shards, first) in groups of R: the carry copied in, a replay per
+        group (R, then the tail), the carry cloned out.  With ``emitters``
+        (a one-device ``SimState`` carry) each substep emits, on the
+        schedule of ``SolverBase._groups``, and the emitters with their new
+        counters are returned after the carry."""
+        ems = list(emitters or ())
+        base = self.key(carry, 0, substep, ems)[:-2]
         if base != self._base:
             # a new key: new buffers and pool, and no stale graph replays
-            self._graphs = {}
-            self._bufs = tuple({n: torch.empty_like(t) for n, t in _tensors(c).items()}
-                               for c in carry)
+            self._graphs, self._starts = {}, {}
+            self._bufs = [{n: torch.empty_like(t) for n, t in _tensors(c).items()}
+                          for c in _leaves(carry) + ems]
             self._pool = torch.cuda.graph_pool_handle() if self.capture else None
             self._base = base
-        for buf, c in zip(self._bufs, carry):
+        for buf, c in zip(self._bufs, _leaves(carry) + ems):
             for n, t in _tensors(c).items():
                 buf[n].copy_(t)
+        n_active = carry[0].num_active if emitters is not None else None
         done = 0
         while done < num_steps:
             k = min(R, num_steps - done)
-            if not self.capture:
-                self._group(self._bufs, carry, k, substep)
-            else:
-                if k not in self._graphs:
-                    self._capture(carry, k, substep)
-                graph, counted = self._graphs[k]
+            pattern = None
+            if emitters is not None:
+                pattern, n_active = self._count(ems, n_active, carry[0].capacity,
+                                                1 if R == 1 else k, R == 1)
+            key = (k, pattern)
+            if key not in self._graphs:
+                self._graphs[key] = (self._capture(carry, ems, k, substep, pattern)
+                                     if self.capture else None)
+            if self.capture:
+                graph, counted = self._graphs[key]
                 graph.replay()
                 _set_counters([a + b for a, b in zip(_read_counters(), counted)])
+            else:
+                self._group(self._bufs, carry, ems, k, substep, pattern)
             done += k
-        return tuple(dataclasses.replace(c, **{n: t.clone() for n, t in buf.items()})
-                     for buf, c in zip(self._bufs, carry))
+        leaves = [dataclasses.replace(c, **{n: t.clone() for n, t in buf.items()})
+                  for buf, c in zip(self._bufs, _leaves(carry))]
+        out = _unflatten(carry, leaves)
+        if emitters is None:
+            return out
+        return (dataclasses.replace(out[0], num_active=n_active),) + out[1:] + (ems,)
 
-    def _group(self, bufs: tuple, template: tuple, k: int, substep: Callable) -> None:
-        """The group's body on ``bufs``: rebuild, k substeps, then the new
-        carry written back into ``bufs``.  ``template`` gives the carry's
-        host fields (``num_active``), which no group reads."""
+    def _count(self, ems: list, n_active: int, capacity: int, slots: int,
+               before: bool) -> tuple[tuple, int]:
+        """The host's count of one group's emission slots, as the eager
+        loop's ``maybe_emit`` counts them: advances ``ems`` in place, fills
+        the start rows of the batches that fire, and returns the group's
+        pattern ``(before, fires per slot)``, None when no batch fires (the
+        group is then the plain one), and the new ``num_active``."""
+        fires = []
+        for slot in range(slots):
+            row = []
+            for e, es in enumerate(ems):
+                fire, ems[e] = count_step(es, n_active + es.batch_size <= capacity)
+                if fire:
+                    start = self._starts.get((slot, e))
+                    if start is None:
+                        start = self._starts[(slot, e)] = torch.zeros(
+                            (), dtype=torch.int64, device=es.seeds_x.device)
+                    start.fill_(n_active)  # queued on the stream: no host wait
+                    n_active += es.batch_size
+                row.append(fire)
+            fires.append(tuple(row))
+        if not any(any(row) for row in fires):
+            return None, n_active
+        return (before, tuple(fires)), n_active
+
+    def _group(self, bufs: list, template: tuple, ems: list, k: int, substep: Callable,
+               pattern: tuple | None) -> None:
+        """The group's body on ``bufs``: emission before the rebuild
+        (R = 1), the rebuild, k substeps each after its emission (R > 1),
+        then the new carry written back into ``bufs``.  ``template`` gives
+        the carry's host fields (``num_active``), which no group reads."""
         solver = self.solver
-        carry = tuple(dataclasses.replace(c, **b) for c, b in zip(template, bufs))
+        n = len(_leaves(template))
+        carry = _unflatten(template, [dataclasses.replace(c, **b) for c, b in
+                                      zip(_leaves(template), bufs)])
+        seeds = [dataclasses.replace(es, **b) for es, b in zip(ems, bufs[n:])]
+        before, fires = pattern if pattern is not None else (False, ())
+
+        def emit(carry, slot):
+            self._part = f"the emission of slot {slot}"
+            state = carry[0]
+            for e, fire in enumerate(fires[slot]):
+                if fire:
+                    state = activate(state, seeds[e], self._starts[(slot, e)],
+                                     solver.scene.particle_volume0)
+            return (state,) + tuple(carry[1:])
+
+        if before:
+            carry = emit(carry, 0)
         self._part = "the rebuild"
         state, cache = solver._build(carry[0])
         carry = (state,) + tuple(carry[1:])
         for i in range(k):
+            if fires and not before:
+                carry = emit(carry, i)
             self._part = f"substep {i + 1} of {k}"
             carry = substep(carry, cache)
         self._part = "the write-back"
-        for buf, c in zip(bufs, carry):
-            for n, t in _tensors(c).items():
-                if t is not buf[n]:  # a field the group passed through is in place
-                    buf[n].copy_(t)
+        for buf, c in zip(bufs, _leaves(carry)):
+            for name, t in _tensors(c).items():
+                if t is not buf[name]:  # a field the group passed through is in place
+                    buf[name].copy_(t)
 
-    def _capture(self, template: tuple, k: int, substep: Callable) -> None:
+    def _capture(self, template: tuple, ems: list, k: int, substep: Callable,
+                 pattern: tuple | None) -> tuple[torch.cuda.CUDAGraph, list[int]]:
         """Warm up, then capture one group of k substeps on the buffers."""
         t0 = time.perf_counter()
         before = _read_counters()
         dev = self.solver.device
+        held = self.solver._inplace()
         try:
             # the warm-up: first uses (device_constant, the kernel library,
             # torch.sort's workspace) happen here, on copies, never in the
-            # capture; its results are thrown away
+            # capture; its results are thrown away, and what it updated in
+            # place outside the carry is put back
+            saved = [t.clone() for t in held]
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
-                scratch = tuple({n: t.clone() for n, t in b.items()} for b in self._bufs)
-                self._group(scratch, template, k, substep)
+                scratch = [{n: t.clone() for n, t in b.items()} for b in self._bufs]
+                self._group(scratch, template, ems, k, substep, pattern)
             torch.cuda.current_stream(dev).wait_stream(side)
-            del scratch
+            for t, v in zip(held, saved):
+                t.copy_(v)
+            del scratch, saved
             _set_counters(before)
             graph = torch.cuda.CUDAGraph()
             try:
                 with torch.cuda.graph(graph, pool=self._pool):
-                    self._group(self._bufs, template, k, substep)
+                    self._group(self._bufs, template, ems, k, substep, pattern)
             except Exception as e:
                 raise RuntimeError(
                     f"{type(self.solver).__name__}: {self._part} broke the capture of a group "
@@ -182,6 +282,6 @@ class GroupRunner:
             counted = [a - b for a, b in zip(_read_counters(), before)]
         finally:
             _set_counters(before)  # neither the warm-up nor the capture launched
-        self._graphs[k] = (graph, counted)
         self.captures += 1
         self.capture_seconds += time.perf_counter() - t0
+        return graph, counted

@@ -14,10 +14,13 @@ applies, so a batch emitted inside a group joins the neighbour structure
 at the next rebuild.
 
 On a CUDA ``WCSPH`` or ``WCSPHRigid`` each R-group of ``step``,
-``rollout``, ``run`` and the coupled ones is one replay of a CUDA graph
-(``models.graphs``, the counterpart of ``tisph_tpu``'s jitted rollout);
-``graphs=False`` keeps the eager loop, which the CPU and every class
-whose group reads the host (``eager_loop``) run.
+``rollout``, ``rollout_emit``, ``run`` and the coupled ones is one replay
+of a CUDA graph (``models.graphs``, the counterpart of ``tisph_tpu``'s
+jitted rollout), and so is a group of the rectangle decomposition whose
+shards share one card; ``graphs=False`` keeps the eager loop, which the
+CPU and every class whose group reads the host (``eager_loop``) run.
+The emitters still count on the host: ``tisph_tpu`` keeps those counters
+on the device, and the host knows all they depend on.
 
 ``run`` (and every solver's ``run_coupled``) is the long-run entry point:
 ``rollout`` in chunks of ``check_every`` steps through the one chunk loop
@@ -56,6 +59,9 @@ class SolverBase:
     # why the class's R-group runs the eager loop, or None when it reads
     # nothing on the host and replays as one CUDA graph (models.graphs)
     eager_loop: str | None = "the base class's group is not known to be capturable"
+    # why its emitting group runs the eager loop where its plain one
+    # replays, or None
+    emit_eager_loop: str | None = None
 
     def __init__(
         self,
@@ -88,7 +94,8 @@ class SolverBase:
         ``graphs``: each R-group one CUDA graph replay (``models.graphs``);
         None is on for a CUDA solver whose class allows it (``eager_loop``
         None), False the eager loop, True raises where the graph path does
-        not run (the CPU, such a class, ``rollout_emit``)."""
+        not run (the CPU, such a class, and ``rollout_emit`` on a class
+        with an ``emit_eager_loop``)."""
         if boundary_mode is None:
             boundary_mode = type(self).boundary_mode
         if boundary_mode not in ("static", "per_step"):
@@ -174,6 +181,16 @@ class SolverBase:
         passes through."""
         return (self._apply(carry[0], cache),) + tuple(carry[1:])
 
+    def _capture_key(self) -> tuple:
+        """What a captured group bakes in beyond the carry's shapes (part
+        of ``GroupRunner.key``)."""
+        return (self.layout, self.boundary_mode, self.fast_math, self.params, self.spec)
+
+    def _inplace(self) -> tuple[torch.Tensor, ...]:
+        """Tensors outside the carry that a group updates in place: a
+        graph keeps their addresses, and its warm-up restores them."""
+        return ()
+
     def _maybe_emit(self, carry: tuple) -> tuple:
         """One step of every emitter on the carry ``(state, emitters)``."""
         state, ems = carry
@@ -198,32 +215,41 @@ class SolverBase:
         A batch emitted inside a group is fluid from then on but joins no
         sweep until the next rebuild: it keeps its density, gets no
         acceleration and flies at its emission velocity, as in
-        ``tisph_tpu`` (its ``keep = back_valid & fl``).  It runs the eager
-        loop: the emitters count on the host and change ``num_active``, a
-        host int (``geometry/emitter.py``)."""
-        if self._graphs_asked:
-            raise ValueError("graphs=True: rollout_emit runs the eager loop (the emitters "
-                             "count on the host and change num_active)")
+        ``tisph_tpu`` (its ``keep = back_valid & fl``).  The emitters
+        count on the host, and a batch's start row is ``num_active``, a
+        host int (``geometry/emitter.py``); on the graph path each group
+        replays the graph of its fire pattern (``models.graphs``)."""
+        if self._graphs_asked and self.emit_eager_loop:
+            raise ValueError(f"graphs=True: {type(self).__name__}.rollout_emit runs the eager "
+                             f"loop ({self.emit_eager_loop})")
         return self._groups((state, list(emitters)), num_steps, self.resort_every,
                             self._substep, emit=self._maybe_emit)
+
+    def _replays(self, emit) -> bool:
+        """Whether a call's groups are graph replays (with ``emit``, an
+        emitting call's)."""
+        return self.graphs and (emit is None or self.emit_eager_loop is None)
 
     def _groups(self, carry: tuple, num_steps: int, R: int, substep, emit=None) -> tuple:
         """Run ``num_steps`` of ``substep(carry, cache) -> carry`` in groups
         of R, rebuilding the neighbour structure of ``carry[0]`` (the
         SimState, which the rebuild sorts) before each group.  ``emit(carry)
         -> carry`` runs once per substep: before the rebuild at R = 1,
-        before each substep after it at R > 1.  With ``self.graphs`` (and
-        no ``emit``) the groups are replays of the runner's graphs."""
+        before each substep after it at R > 1.  Where ``_replays`` says so
+        the groups are replays of the runner's graphs, which emit on the
+        same schedule (``carry`` then is ``(state, emitters)``)."""
         self._check_resort(R)
         state = carry[0]
         if not self._bound:
             state = self.bind(state)
         self._check_device(state)
         carry = (state,) + tuple(carry[1:])
-        if self.graphs and emit is None:
+        if self._replays(emit):
             if self._runner is None:
                 self._runner = GroupRunner(self)
-            return self._runner.rollout(carry, num_steps, R, substep)
+            if emit is None:
+                return self._runner.rollout(carry, num_steps, R, substep)
+            return self._runner.rollout(carry[:1], num_steps, R, substep, emitters=carry[1])
         done = 0
         while done < num_steps:
             if emit is not None and R == 1:

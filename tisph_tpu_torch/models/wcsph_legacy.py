@@ -39,7 +39,8 @@ from tisph_tpu_torch.ops.neighbors import candidates, pack4
 
 class WCSPHLegacy(SolverBase):
     layouts = ("seg",)
-    eager_loop = "its pair sums run torch.nonzero, a host read (_pairs)"
+    eager_loop = ("its pair sums run torch.nonzero, a host read (_pairs); fixed-shape pair "
+                  "lists in its place are later work")
 
     def _check_resort(self, R: int) -> None:
         super()._check_resort(R)

@@ -161,7 +161,7 @@ class MeshSolver(SolverBase):
 
     def __init__(self, scene: SceneConfig, mesh: Mesh, compat: str, resort_every: int,
                  fast_math: bool, layout: str, boundary_mode: str | None,
-                 params: SolverParams | None):
+                 params: SolverParams | None, *, graphs: bool | None = None):
         dynamic = any(rb.is_dynamic for rb in scene.rigid_bodies)
         if boundary_mode is None:
             boundary_mode = "per_step" if dynamic else "static"
@@ -170,7 +170,7 @@ class MeshSolver(SolverBase):
             raise ValueError(f"a scene with a dynamic body runs layout='seg', not {layout!r}")
         super().__init__(scene, compat=compat, device=mesh.devices[0], resort_every=resort_every,
                          fast_math=fast_math, layout=layout, boundary_mode=boundary_mode,
-                         params=params)
+                         params=params, graphs=graphs)
         self.mesh = mesh
         self.n_shards = mesh.size
         self.shard_rows: int | None = None
@@ -306,7 +306,8 @@ class ShardedWCSPH(MeshSolver):
     its live rows first, so shard s holds rows [s R, (s+1) R) of it)."""
 
     layouts = ("seg", "linear")
-    eager_loop = "the exchange resort's seam guard reads the host once a group (_build)"
+    eager_loop = ("the exchange resort's seam guard reads the host once a group (_build); "
+                  "a device-side branch in its place is later work")
 
     def __init__(
         self,
@@ -321,6 +322,7 @@ class ShardedWCSPH(MeshSolver):
         resort: str = "exchange",
         resort_edge: int | None = None,
         layout: str = "seg",
+        graphs: bool | None = None,
     ):
         """``halo``: rows each side of a shard's own in its window (None:
         twice the furthest stencil reach across a shard boundary at bind).
@@ -329,13 +331,14 @@ class ShardedWCSPH(MeshSolver):
         halo's).  ``boundary_mode`` None: ``"per_step"`` when the scene has
         a dynamic body, else ``"static"``.  ``layout``: ``"seg"`` (kernel
         A) or ``"linear"`` (kernel C, R = 1 only; a dynamic scene refuses
-        it).  The rest as ``SolverBase``."""
+        it).  ``graphs``: True raises (``eager_loop``).  The rest as
+        ``SolverBase``."""
         if resort not in ("exchange", "global"):
             raise ValueError(f"resort must be 'exchange' or 'global', got {resort!r}")
         if len(mesh.shape) != 1:
             raise ValueError(f"ShardedWCSPH needs a 1-D mesh, got shape {mesh.shape}")
         super().__init__(scene, mesh, compat, resort_every, fast_math, layout, boundary_mode,
-                         params)
+                         params, graphs=graphs)
         self.halo = halo
         self.resort = resort
         self.resort_edge = resort_edge

@@ -45,6 +45,16 @@ rows the cut dropped (a call raises on any).  An emitting call reads the
 live rows once per group as well: a shard's count changes with every
 migration, and the host decides whether a batch fires.
 
+When every shard lives on one CUDA device, each R-group of ``rollout`` and
+``rollout_coupled`` (and of ``step``, ``run`` and the coupled ones) is one
+CUDA graph replay (``models.graphs``): the shards' tensors are the graph's
+static carry, the live-row counts and the flags are static tensors the
+group updates in place, and everything a capture bakes in that the
+steering of ``run`` changes (the rows of a shard, the halo and migration
+caps, the cuts) is in the graph's key, so a rebalance or a regrow captures
+anew.  ``rollout_emit`` keeps the eager loop (``emit_eager_loop``), and so
+does a mesh over several devices (``eager_loop``).
+
 Two faults of ``tisph_tpu``'s rectangle solver are not copied: its
 substeps call ``tait_pressure`` directly and skip the density mode of
 single-device ``WCSPH`` (``domain2d.py:947``, ``:1085``), where this one
@@ -127,8 +137,10 @@ class ShardedWCSPHRect(MeshSolver):
     when a call returns (live rows first in each shard)."""
 
     layouts = ("seg",)
-    eager_loop = ("its _groups spans the shards' devices; its group reads nothing on the "
-                  "host, and its graph is a later step")
+    eager_loop = None  # on one card; a mesh over several devices sets its reason
+    emit_eager_loop = ("its room test reads the shards' live rows on the host once per "
+                       "emitting group (_maybe_emit), where tisph_tpu decides with a device "
+                       "pmin; a device-side room test is later work")
 
     def __init__(
         self,
@@ -143,13 +155,17 @@ class ShardedWCSPHRect(MeshSolver):
         buffer_slack: float = 2.0,
         emit_frac: float = 0.9,
         layout: str = "seg",
+        graphs: bool | None = None,
     ):
         """``balance_slack``: a shard's rows over the worst bind-time
         shard's particles (and over the mean); ``buffer_slack``: the halo
         and migration caps over the worst pools measured at bind;
         ``emit_frac``: a batch fires only while every owner shard stays
         under this share of its rows, the share ``run`` rebalances at, so
-        emission never eats the migrants' headroom.  The rest as
+        emission never eats the migrants' headroom.  ``graphs``: each
+        R-group one CUDA graph replay; None is on when every shard lives on
+        the same CUDA device, True raises on a mesh over several devices
+        (a graph per device is later work).  The rest as
         ``ShardedWCSPH``."""
         n_ax = len(mesh.shape)
         if n_ax not in (2, 3):
@@ -157,8 +173,11 @@ class ShardedWCSPHRect(MeshSolver):
         if scene.dim < 2 or n_ax > scene.dim:
             raise ValueError(f"a {n_ax}-axis mesh cuts the first {n_ax} grid axes; the scene "
                              f"has dim={scene.dim}")
+        if len(set(mesh.devices)) > 1:
+            self.eager_loop = ("its shards span several devices, and a group is one graph on "
+                               "one device; a graph per device is later work")
         super().__init__(scene, mesh, compat, resort_every, fast_math, layout, boundary_mode,
-                         params)
+                         params, graphs=graphs)
         self.n_ax = n_ax
         self.sizes = mesh.shape
         self.balance_slack = float(balance_slack)
@@ -175,6 +194,12 @@ class ShardedWCSPHRect(MeshSolver):
         self.cap_h: list[int] = []
         self.cap_m: list[int] = []
         self._owned: dict = {}
+        # on shard 0's device from the first bind on, updated in place (a
+        # graph keeps their addresses): each shard's live rows at its last
+        # build, and the flags [busiest shard's rows, dropped rows, builds
+        # with a migration trip, halo overflow]
+        self._counts: torch.Tensor | None = None
+        self._flags: torch.Tensor | None = None
 
     # -- mesh geometry -----------------------------------------------------
     def _neighbour(self, s: int, a: int, d: int) -> int | None:
@@ -217,6 +242,9 @@ class ShardedWCSPHRect(MeshSolver):
         if any(res[a] < self.sizes[a] for a in range(self.n_ax)):
             raise ValueError(f"grid {res} too small for a {'x'.join(map(str, self.sizes))} mesh")
         state = _state_to(state, self.mesh.devices[0])
+        if self._flags is None:
+            self._counts = torch.zeros(self.n_shards, dtype=torch.int64, device=state.device)
+            self._flags = torch.zeros(4, dtype=torch.int64, device=state.device)
         if self.boundary_mode == "static":
             state = self._precompute_boundary_volumes(state)
         self._make_cuts(state)
@@ -227,7 +255,7 @@ class ShardedWCSPHRect(MeshSolver):
         self.shard_rows = -(-rows // BLOCK) * BLOCK
         shards = self._distribute(state, ValueError)
         self._measure_buffers(state)
-        self._flags = torch.zeros(4, dtype=torch.int64, device=self.mesh.devices[0])
+        self._flags.zero_()
         self._bound = True
         return shards
 
@@ -293,7 +321,7 @@ class ShardedWCSPHRect(MeshSolver):
             shards.append(_state_to(st, dev))
         # each shard's live rows at its last build (device), rows emitted
         # into it since (host), and their sum on the host (None until read)
-        self._counts = torch.tensor(counts, dtype=torch.int64, device=self.mesh.devices[0])
+        self._counts.copy_(torch.tensor(counts, dtype=torch.int64))
         self._emitted = [0] * S
         self._live = list(counts)
         return shards
@@ -493,11 +521,12 @@ class ShardedWCSPHRect(MeshSolver):
         # [live, dropped, migration trips, halo overflow] per shard, folded
         # into the flags on shard 0's device
         per = _cat_to([torch.stack(v)[None] for v in stats], devs[0])
-        self._counts = per[:, 0]
-        self._flags = torch.stack([
+        self._counts.copy_(per[:, 0])
+        self._flags.copy_(torch.stack([
             torch.maximum(self._flags[0], per[:, 0].max()), self._flags[1] + per[:, 1].sum(),
             self._flags[2] + (per[:, 2].sum() > 0), torch.maximum(
-                self._flags[3], (per[:, 3].sum() > 0).to(torch.int64))])
+                self._flags[3], (per[:, 3].sum() > 0).to(torch.int64))]))
+        # host bookkeeping a replay does not run: _groups resets it then
         self._live, self._emitted = None, [0] * self.n_shards
         return new, caches
 
@@ -516,9 +545,22 @@ class ShardedWCSPHRect(MeshSolver):
             cur = self._exchange(cur, ups, downs, a)
         return [t.index_select(0, c.perm) for t, c in zip(cur, caches)]
 
+    def _capture_key(self) -> tuple:
+        """Beyond ``SolverBase``'s: the shard rows, the caps (the shapes
+        ``_select`` gives) and the cuts (the cell-to-shard tables and the
+        edge layers a build reads), which ``run``'s steering changes."""
+        return super()._capture_key() + (self.shard_rows, tuple(self.cap_h),
+                                         tuple(self.cap_m), self._cuts_made)
+
+    def _inplace(self) -> tuple[torch.Tensor, ...]:
+        return self._counts, self._flags
+
     def _groups(self, carry, num_steps, R, substep, emit=None):
         """``SolverBase._groups``, then the call's one read: each shard's
         live rows, and a raise if the fixed cut dropped any row."""
+        if num_steps > 0 and self._replays(emit):
+            # every group rebuilds, which resets this on the eager path
+            self._live, self._emitted = None, [0] * self.n_shards
         carry = super()._groups(carry, num_steps, R, substep, emit)
         vals = torch.cat([self._counts, self._flags[1:2]]).tolist()
         if vals[-1]:
@@ -590,8 +632,8 @@ class ShardedWCSPHRect(MeshSolver):
         return shards
 
     def reset_flags(self) -> None:
-        """The flags of ``metrics`` back to 0."""
-        self._flags = torch.zeros_like(self._flags)
+        """The flags of ``metrics`` back to 0 (in place)."""
+        self._flags.zero_()
 
     def run(self, shards, num_steps: int, check_every: int = 400, *, verbose: bool = False,
             warn_frac: float = 0.9) -> list[SimState]:
