@@ -201,13 +201,34 @@ Phases, each of which raises on failure (nothing is caught):
    on 2x2 (100 steps; the bodies too), with launch counts that count
    replays equal on both paths; an emitting graph group and a 2x2 graph
    group queued behind the spin, one host read per 2x2 call; then the
-   emitter scene (300 steps) and 2x2 (100) in turns, as phase 23.
+   emitter scene (300 steps) and 2x2 (100) in turns, as phase 23;
+25. the slab solver's groups and both decompositions' rollout_emit as
+   graph replays against graphs=False from the same start, bitwise, with
+   launch counts that count replays (the graph path runs the exchange
+   resort and the global sort in every group, the eager loop the global
+   sort only when the seam guard trips) and the seam guard's trips
+   counted on the device equal to the eager loop's host count: demo_3d on
+   2 and 4 slabs (100 steps at R=2; the halo flag too), on 2 slabs at R=1
+   on the linear layout (50), from a shuffled start with a 128-row edge
+   (20 steps: the guard trips), bench_3d_rigid coupled on 2 slabs (100;
+   the bodies too), bench_3d_mesh_500k through rollout_emit on 2 slabs
+   and on 2x2 (300 steps, 3 emissions; the emitter counters and the live
+   rows too) and on 2x2 with an emit_frac that lets the busiest owner
+   shard take one batch (its room test refuses the next); a 2-slab graph
+   group queued behind the spin and no host read in a slab call, one in
+   a 2x2 emitting call; the resort's branches timed alone; both paths in
+   turns on demo_3d on 2 and 4 slabs and the emitter scene on 2 slabs and
+   2x2, as phase 23; then demo_3d 10,000 steps through ShardedWCSPH.run
+   on 2 slabs and ShardedWCSPHRect.run on 2x2 on the graph path (chunks
+   of 250: each steering event and the captures it caused printed; no
+   NaN, CFL < 1, every particle live; the 2x2 at balance_slack 2.5), the
+   end states beside phase 20's.
 
-The solvers of phases 5-12, 16, 17, 18, 20, 21, 22's WCSPHRigid, 23 and
-24 run the graph path (the default of a CUDA WCSPH and WCSPHRigid, and of
-a rectangle whose shards share one card); the legacy solver (13), the
-slab solver (14, 15, 19, 22's shards) and the rectangle's rollout_emit
-the eager loop.
+The solvers of phases 5-12, 16, 17, 18, 20, 21, 22's WCSPHRigid and 23-25
+run the graph path (the default of a CUDA WCSPH and WCSPHRigid, and of a
+slab or rectangle whose shards share one card); the legacy solver (13)
+and the slab solvers of phases 14, 15, 19 and 22 (graphs=False, as they
+ran before phase 25 existed) the eager loop.
 
 Every kernel's entry in the JSON line has a bound: the larger of the bytes
 it must move (each input read once, each output written once) over 3.35
@@ -219,9 +240,9 @@ torch.searchsorted plus one index_select per field (no PyTorch call
 computes a sweep).
 
 The launches in the JSON line are the sums of the main paths' runs:
-phases 5, 11, 12 and 13 with 14, 15, 17, 18 and 20-24 for kernel A's
-density and force and kernel B (and 19 for B), 7, 15, 18, 22, 23 and 24
-for bvol and force_react, 9, 19 and 23 for kernel C.  A's max_abs_err folds in its
+phases 5, 11, 12 and 13 with 14, 15, 17, 18 and 20-25 for kernel A's
+density and force and kernel B (and 19 for B), 7, 15, 18, 22-25 for bvol
+and force_react, 9, 19, 23 and 25 for kernel C.  A's max_abs_err folds in its
 checks over a row range (phase 14), with an i-row map (17) and, for
 density and force, on demo_3d after 10,000 steps (20); C's over a row
 range (19).
@@ -286,6 +307,11 @@ GRAPH_PROFILE = 20  # phases 23 and 24: profiled steps per path
 # phase 24: the emitter scene at R=2 (emissions at steps 0, 100 and 200),
 # and the rectangle's runs
 EMIT_GRAPH_STEPS, RECT_GRAPH_STEPS = 300, 100
+# phase 25: demo_3d and bench_3d_rigid on slabs at R=2, the linear layout
+# at R=1, and the run from a shuffled start
+SLAB_GRAPH_STEPS, SLAB_LINEAR_STEPS, SLAB_TRIP_STEPS = 100, 50, 20
+SHARD_LONG_CHUNK = 250  # phase 25: run's chunk on 2 slabs and 2x2 (10,000 steps)
+RECT_LONG_SLACK = 2.5  # phase 25: the 2x2 long run's balance_slack
 SPIN_CYCLES = 2_000_000_000  # about a second at the H100's clocks
 
 # tests/test_rigid_dynamics.py::test_buoyancy's pool and box
@@ -1151,14 +1177,14 @@ def sharded_demo(tt, kernels, scene, card_line: str):
     ref_check = ref_solver.rollout(ref_solver.bind(sh_start), SHARD_CHECK)
     sharded = {}
     for d in (2, 4):
-        sh = ShardedWCSPH(scene, make_mesh(devices=[DEVICE] * d), resort_every=2)
+        sh = ShardedWCSPH(scene, make_mesh(devices=[DEVICE] * d), resort_every=2, graphs=False)
         shards = sh.bind(sh_start)
         windows = [sh._window(s) for s in range(d)]
         print(f"  {d} shards of {sh.shard_rows} rows on {[str(x) for x in sh.mesh.devices]}: "
               f"halo {sh.halo} rows ({sh.halo_path}), exchange edge {sh.resort_edge} rows, "
               f"windows {[b - a for a, b in windows]} rows")
         reset_counts(kernels)
-        sh.occ_resort = 0
+        sh.occ_resort.zero_()
         shards = sh.rollout(shards, SHARD_CHECK)
         hold_to_single(f"{d} shards, {SHARD_CHECK} steps", sh.gather_state(shards), ref_check)
         torch.cuda.synchronize()
@@ -1167,7 +1193,7 @@ def sharded_demo(tt, kernels, scene, card_line: str):
         torch.cuda.synchronize()
         swall = time.perf_counter() - t0
         s_launches = {k: f.launches for k, f in kernels.items()}
-        groups, fb = SHARD_STEPS // 2, sh.occ_resort
+        groups, fb = SHARD_STEPS // 2, int(sh.occ_resort)
         s_want = {k: 0 for k in kernels} | {
             "rebuild": (groups - fb) * d + fb, "csr_bounds": groups * d,
             "sweep.density": SHARD_STEPS * d, "sweep.force": SHARD_STEPS * d}
@@ -1193,9 +1219,9 @@ def sharded_demo(tt, kernels, scene, card_line: str):
         spps = n14 * (SHARD_STEPS - SHARD_CHECK) / swall
         print(f"  {n14} particles on {d} shards: {spps:.6e} particle-steps/s "
               f"({swall * 1e3 / (SHARD_STEPS - SHARD_CHECK):.4f} ms/step) on {card_line}")
-        sh.occ_resort = 0
+        sh.occ_resort.zero_()
         ex = sh.gather_state(sh.rollout(shards, SHARD_BITWISE))
-        ex_fb = sh.occ_resort
+        ex_fb = int(sh.occ_resort)
         sh.resort = "global"
         gl = sh.gather_state(sh.rollout(shards, SHARD_BITWISE))
         sh.resort = "exchange"
@@ -1221,7 +1247,7 @@ def sharded_rigid(tt, kernels, r_scene, card_line: str):
     r_start = tagged(tt.build_state(r_scene, device=DEVICE))
     ref_r, ref_st, ref_rg = tt.make_solver(r_scene, r_start, device=DEVICE, resort_every=2)
     ref_st, ref_rg = ref_r.rollout_coupled(ref_st, ref_rg, SHARD_CHECK)
-    sh = ShardedWCSPH(r_scene, make_mesh(devices=[DEVICE] * 2), resort_every=2)
+    sh = ShardedWCSPH(r_scene, make_mesh(devices=[DEVICE] * 2), resort_every=2, graphs=False)
     shards = sh.bind(r_start)
     rg = sh.init_rigid(shards)
     sel0 = (r_start.object_id == 0) & r_start.boundary_mask
@@ -1230,7 +1256,7 @@ def sharded_rigid(tt, kernels, r_scene, card_line: str):
     print(f"  boundary_mode {sh.boundary_mode}, {sh.shard_rows} rows a shard, halo {sh.halo} "
           f"({sh.halo_path}), edge {sh.resort_edge}")
     reset_counts(kernels)
-    sh.occ_resort = 0
+    sh.occ_resort.zero_()
     shards, rg = sh.rollout_coupled(shards, rg, SHARD_CHECK)
     hold_to_single(f"coupled, 2 shards, {SHARD_CHECK} steps", sh.gather_state(shards), ref_st)
     body = {k: float((getattr(rg, k) - getattr(ref_rg, k)).abs().max())
@@ -1244,7 +1270,7 @@ def sharded_rigid(tt, kernels, r_scene, card_line: str):
     torch.cuda.synchronize()
     cwall = time.perf_counter() - t0
     c15 = {k: f.launches for k, f in kernels.items()}
-    groups, fb = SHARD_RIGID // 2, sh.occ_resort
+    groups, fb = SHARD_RIGID // 2, int(sh.occ_resort)
     c_want = {k: 0 for k in kernels} | {
         "rebuild": (groups - fb) * 2 + fb, "csr_bounds": groups * 2,
         "sweep.bvol": SHARD_RIGID * 2, "sweep.density": SHARD_RIGID * 2,
@@ -1435,10 +1461,10 @@ def linear_sharded(tt, kernels, scene, card_line: str):
     ref_check = ref.rollout(ref.bind(start), RECT_CHECK)
     total, runs = {k: 0 for k in kernels}, {}
     for d in (2, 4):
-        sh = ShardedWCSPH(scene, make_mesh(devices=[DEVICE] * d), layout="linear")
+        sh = ShardedWCSPH(scene, make_mesh(devices=[DEVICE] * d), layout="linear", graphs=False)
         shards = sh.bind(start)
         reset_counts(kernels)
-        sh.occ_resort = 0
+        sh.occ_resort.zero_()
         shards = sh.rollout(shards, RECT_CHECK)
         errs = hold_to_single(f"linear, {d} shards, {RECT_CHECK} steps", sh.gather_state(shards),
                               ref_check)
@@ -1450,7 +1476,7 @@ def linear_sharded(tt, kernels, scene, card_line: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = {k: f.launches for k, f in kernels.items()}
-        fb = sh.occ_resort
+        fb = int(sh.occ_resort)
         want = {k: 0 for k in kernels} | {
             "rebuild": (LIN_SHARD_STEPS - fb) * d + fb, "csr_bounds": LIN_SHARD_STEPS * d,
             "linear.density": LIN_SHARD_STEPS * d, "linear.force": LIN_SHARD_STEPS * d}
@@ -1566,7 +1592,8 @@ def soak_run(kernels, path: str, steps: int, chunk: int, card_line: str):
 def long_run(tt, kernels, times5: dict, card_line: str):
     """Phase 20: demo_3d 10,000 steps and bench_3d_1m 2,500 through
     ``tools.soak``, then kernel A's density and force on demo_3d's end
-    state; returns the launch counts and A's errors there."""
+    state; returns the launch counts, A's errors there and demo_3d's end
+    metrics."""
     from tisph_tpu_torch.ops import neighbors
     from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 
@@ -1604,7 +1631,7 @@ def long_run(tt, kernels, times5: dict, card_line: str):
 
     rec, _, _, got = soak_run(kernels, LARGE_3D, SOAK_1M_STEPS, SOAK_1M_CHUNK, card_line)
     launches = {k: launches[k] + got[k] for k in kernels}
-    return launches, errs
+    return launches, errs, m
 
 
 def cadence_and_compat(kernels, card_line: str):
@@ -1664,7 +1691,7 @@ def coupled_long_runs(tt, kernels, r_scene, card_line: str):
     with tempfile.TemporaryDirectory() as tmp:
         for density, d in ((200.0, 1), (5000.0, 1), (200.0, 2)):
             scene = pool_scene(tt, density, tmp)
-            sh = ShardedWCSPH(scene, make_mesh(devices=[DEVICE] * d))
+            sh = ShardedWCSPH(scene, make_mesh(devices=[DEVICE] * d), graphs=False)
             shards = sh.bind(tt.build_state(scene, device=DEVICE))
             rigid = sh.init_rigid(shards)
             reset_counts(kernels)
@@ -2012,6 +2039,341 @@ def emit_rect_graphs(tt, kernels, e_scene, e_start, ems0, scene, r_scene, card_l
 
         graph_turns(tt, label, g, e, sg, rigid, None, steps, card_line, queue)
         del g, e, sg
+    return total
+
+
+def slab_flags(sh) -> tuple[int, int]:
+    """A slab solver's (halo flag, seam-guard trips), one read."""
+    return tuple(torch.stack([sh.occ_halo, sh.occ_resort]).tolist())
+
+
+def steered_run(label: str, sh, shards, steps: int, chunk: int, card_line: str):
+    """``sh.run(shards, steps, check_every=chunk, verbose=True)`` on the
+    graph path; each chunk that captured or steered (``_after_chunk``) is
+    printed with what it changed and the captures it made.  Returns the
+    end shards."""
+    runner_of = lambda: sh._runner  # noqa: E731
+    after = sh._after_chunk
+    seen = {"chunk": 0, "captures": 0}
+
+    def knobs():
+        if hasattr(sh, "cap_h"):
+            return {"shard_rows": sh.shard_rows, "cap_h": list(sh.cap_h),
+                    "cap_m": list(sh.cap_m), "cuts": sh._cuts_made}
+        return {"halo": sh.halo, "halo_path": sh.halo_path, "resort_edge": sh.resort_edge,
+                "resort": sh.resort}
+
+    def hook(carry, k, verbose, **kw):
+        seen["chunk"] += 1
+        caps = runner_of().captures
+        before = knobs()
+        out = after(carry, k, verbose, **kw)
+        now = knobs()
+        changed = {key: (before[key], now[key]) for key in now if before[key] != now[key]}
+        if changed or caps > seen["captures"]:
+            print(f"  {label}: chunk {seen['chunk']} ({k} steps): {caps - seen['captures']} "
+                  f"captures in it; steering after it: {changed or 'none'}")
+        seen["captures"] = caps
+        return out
+
+    sh._after_chunk = hook
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shards = sh.run(shards, steps, check_every=chunk, verbose=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del sh._after_chunk
+    n = sum(st.num_active for st in shards)
+    print(f"  {label}: {steps} steps in {wall:.3f} s, {n * steps / wall:.6e} particle-steps/s "
+          f"over the run (captures included), {sh._runner.captures} captures in "
+          f"{sh._runner.capture_seconds:.3f} s; on {card_line}")
+    return shards
+
+
+def slab_emit_graphs(tt, kernels, e_scene, e_start, ems0, scene, r_scene, soak_m: dict,
+                     card_line: str):
+    """Phase 25: the slab solver's groups and both decompositions'
+    ``rollout_emit`` as graph replays against the eager loop
+    (graphs=False), bitwise, with launch counts that count replays and the
+    seam guard's trips counted on the device; both paths in turns; the
+    global branch's cost alone; then demo_3d 10,000 steps through
+    ``ShardedWCSPH.run`` on 2 slabs and ``ShardedWCSPHRect.run`` on 2x2 on
+    the graph path.  Returns the graph runs' launches."""
+    from tisph_tpu_torch.geometry.emitter import EMITTER_OBJECT_ID
+    from tisph_tpu_torch.ops import grid as gridops
+    from tisph_tpu_torch.parallel import ShardedWCSPH, ShardedWCSPHRect, make_mesh, make_mesh2d
+
+    total = {k: 0 for k in kernels}
+
+    def slab(sc, d, **kw):
+        mesh = make_mesh(devices=[DEVICE] * d)
+        g, e = ShardedWCSPH(sc, mesh, **kw), ShardedWCSPH(sc, mesh, graphs=False, **kw)
+        if not (g.graphs and g.eager_loop is None and not e.graphs):
+            raise AssertionError(f"slab on one card: graphs {g.graphs} / {e.graphs}")
+        return g, e
+
+    def rect(sc, **kw):
+        mesh = make_mesh2d(2, 2, devices=[DEVICE] * 4)
+        return (ShardedWCSPHRect(sc, mesh, resort_every=2, **kw),
+                ShardedWCSPHRect(sc, mesh, resort_every=2, graphs=False, **kw))
+
+    def both(label, g, e, run_g, run_e, expect):
+        """Each path from the same start with the counters and flags at 0;
+        ``expect(path, trips)`` gives the launches each must count."""
+        out, counts, trips = [], [], []
+        for sol, run in ((g, run_g), (e, run_e)):
+            sol.reset_flags()
+            reset_counts(kernels)
+            out.append(run())
+            torch.cuda.synchronize()
+            counts.append(launch_counts(kernels))
+            trips.append(int(sol.occ_resort) if hasattr(sol, "occ_resort") else 0)
+        for path, c, t in (("graph", counts[0], trips[0]), ("eager", counts[1], trips[1])):
+            want = {k: 0 for k in c} | expect(path, t)
+            if c != want:
+                raise AssertionError(f"{label}: {path} launch counts {c}, expected {want}")
+        print(f"  {label}: launches {counts[0]} (graph), {counts[1]} (eager); seam-guard "
+              f"trips {trips[0]} on the device, {trips[1]} on the eager loop's host")
+        if trips[0] != trips[1]:
+            raise AssertionError(f"{label}: the device counted {trips[0]} trips, the eager "
+                                 f"loop {trips[1]}")
+        for k in kernels:
+            total[k] += counts[0][k]
+        return out[0], out[1], trips[0]
+
+    def slab_expect(d, steps, R, sweeps, part=()):
+        groups = -(-steps // R)
+
+        def expect(path, fb):
+            rebuild = groups * (d + 1) if path == "graph" else (groups - fb) * d + fb
+            return ({"rebuild": rebuild, "csr_bounds": groups * d}
+                    | {k: steps * d for k in sweeps} | {f"{k}.part": steps * d for k in part})
+        return expect
+
+    def same_shards(label, got, want):
+        for s, (a, b) in enumerate(zip(got, want)):
+            same_bits(f"{label} shard {s}", a, b)
+
+    # bitwise: demo_3d on 2 and 4 slabs at R=2, linear on 2 at R=1, the
+    # coupled 2 slabs, a shuffled start that trips the seam guard
+    d_start = tagged(tt.build_state(scene, device=DEVICE))
+    steps = SLAB_GRAPH_STEPS
+    for d in (2, 4):
+        g, e = slab(scene, d, resort_every=2)
+        sg, se = g.bind(d_start), e.bind(d_start)
+        got, want, _ = both(f"demo_3d on {d} slabs, {steps} steps at R=2", g, e,
+                            lambda: g.rollout(sg, steps), lambda: e.rollout(se, steps),
+                            slab_expect(d, steps, 2, ("sweep.density", "sweep.force")))
+        same_shards(f"{d} slabs", got, want)
+        if slab_flags(g) != slab_flags(e):
+            raise AssertionError(f"{d} slabs: flags {slab_flags(g)} / {slab_flags(e)}")
+        print(f"  demo_3d on {d} slabs: graphs=True bitwise equal to graphs=False in every "
+              f"field of every shard, flags {slab_flags(g)} equal; {g._runner.captures} "
+              f"captures in {g._runner.capture_seconds:.3f} s")
+        if d == 2:
+            assert_no_host_wait("2 slabs, one graph group (both resorts and two substeps)",
+                                lambda: g.rollout(got, 2))
+            waits = count_host_waits(lambda: g.rollout(got, 2))
+            print(f"  2 slabs: host reads in one graph rollout call: {waits}")
+            if waits:
+                raise AssertionError(f"2 slabs graph rollout call: {waits} host waits")
+        del g, e, sg, se, got, want
+
+    g, e = slab(scene, 2, layout="linear")
+    sg, se = g.bind(d_start), e.bind(d_start)
+    n = SLAB_LINEAR_STEPS
+    got, want, _ = both(f"demo_3d linear on 2 slabs, {n} steps at R=1", g, e,
+                        lambda: g.rollout(sg, n), lambda: e.rollout(se, n),
+                        slab_expect(2, n, 1, ("linear.density", "linear.force"),
+                                    ("linear.density", "linear.force")))
+    same_shards("linear 2 slabs", got, want)
+    print("  demo_3d linear on 2 slabs: graphs=True bitwise equal to graphs=False")
+    del g, e, sg, se, got, want
+
+    r_start = tt.build_state(r_scene, device=DEVICE)
+    g, e = slab(r_scene, 2, resort_every=2)
+    sg, se = g.bind(r_start), e.bind(r_start)
+    rg = g.init_rigid(sg)
+    sweeps = ("sweep.bvol", "sweep.density", "sweep.force_react")
+    (got, got_rg), (want, want_rg), _ = both(
+        f"bench_3d_rigid coupled on 2 slabs, {steps} steps at R=2", g, e,
+        lambda: g.rollout_coupled(sg, rg, steps), lambda: e.rollout_coupled(se, rg, steps),
+        slab_expect(2, steps, 2, sweeps))
+    same_shards("coupled 2 slabs", got, want)
+    same_bits("coupled 2 slabs bodies", got_rg, want_rg)
+    print("  bench_3d_rigid coupled on 2 slabs: graphs=True bitwise equal to graphs=False in "
+          "every field of every shard and every body field")
+    del g, e, sg, se, got, want
+
+    g, e = slab(scene, 2, resort_every=2, resort_edge=128)
+    sg = g.bind(d_start)
+    e.bind(d_start)
+    whole = g.gather_state(sg)
+    perm = torch.randperm(whole.capacity, generator=torch.Generator().manual_seed(7)).to(DEVICE)
+    shuffled = g.shard_state(dataclasses.replace(
+        whole, **{k: getattr(whole, k)[perm] for k in gridops.state_fields(whole)}))
+    n = SLAB_TRIP_STEPS
+    got, want, trips = both(f"demo_3d on 2 slabs from a shuffled start, edge 128, {n} steps",
+                            g, e, lambda: g.rollout(shuffled, n), lambda: e.rollout(shuffled, n),
+                            slab_expect(2, n, 2, ("sweep.density", "sweep.force")))
+    same_shards("shuffled 2 slabs", got, want)
+    if trips < 1:
+        raise AssertionError("the shuffled start did not trip the seam guard")
+    print(f"  the seam guard tripped {trips} times: graphs=True (both resorts, the global one "
+          "selected on the device) bitwise equal to graphs=False (its early return)")
+    del g, e, sg, got, want, shuffled, whole
+
+    # the cost of the global branch alone, and of the exchange's, per group
+    for d in (2, 4):
+        g, _ = slab(scene, d, resort_every=2)
+        sg = g.rollout(g.bind(d_start), 20)
+        # few repetitions: every call's launches must queue inside cuda_ms's
+        # spin, or the host's pace is timed
+        order_ms = cuda_ms(lambda: g._exchange_order(sg), 5)
+        exch_ms = cuda_ms(lambda: g._exchange_gather(sg, g._exchange_order(sg)[0]), 5)
+        glob_ms = cuda_ms(lambda: g._global_resort(sg), 5)
+        resort_ms = cuda_ms(lambda: g._resort(sg), 5)
+        print(f"  resort on {d} slabs (demo_3d after 20 steps), device ms a group: exchange "
+              f"{exch_ms:.4f} (its order and guard {order_ms:.4f}), global branch alone "
+              f"{glob_ms:.4f}, both and the select (the graph path's _resort) {resort_ms:.4f}; "
+              f"at R=2 the global branch adds {glob_ms / 2:.4f} ms a step; on {card_line}")
+        del g, sg
+
+    # rollout_emit: bench_3d_mesh_500k on 2 slabs and on 2x2
+    n = EMIT_GRAPH_STEPS
+    es0 = ems0[0]
+    g, e = slab(e_scene, 2, resort_every=2)
+    sg, se = g.bind(e_start), e.bind(e_start)
+    (got, got_ems), (want, want_ems), _ = both(
+        f"bench_3d_mesh_500k rollout_emit on 2 slabs, {n} steps at R=2", g, e,
+        lambda: g.rollout_emit(sg, ems0, n), lambda: e.rollout_emit(se, ems0, n),
+        slab_expect(2, n, 2, ("sweep.density", "sweep.force")))
+    same_shards("emitting 2 slabs", got, want)
+    cadence = emission_cadence(es0, e_start.num_active, g._capacity(sg), n)
+    live = sum(st.num_active for st in got)
+    if ((got_ems[0].step, got_ems[0].emitted) != (want_ems[0].step, want_ems[0].emitted)
+            or (live, got_ems[0].emitted) != cadence or got_ems[0].emitted != 3 * es0.batch_size
+            or [st.num_active for st in got] != [st.num_active for st in want]):
+        raise AssertionError("emitting 2 slabs: the emitter counters or live rows differ")
+    whole = g.gather_state(got)
+    emitted_rows = int((whole.object_id[whole.active_mask] == EMITTER_OBJECT_ID).sum())
+    print(f"  emitting 2 slabs: graphs=True bitwise equal to graphs=False; {got_ems[0].emitted} "
+          f"emitted ({emitted_rows} live rows of the emitter), num_active {live} (host cadence "
+          f"{cadence}); {g._runner.captures} captures, keys {sorted(map(str, g._runner._graphs))}")
+    assert_no_host_wait("2 slabs, one emitting graph group", lambda: g.rollout_emit(sg, ems0, 2))
+    del g, e, sg, se, got, want, whole
+
+    def rect_expect(steps):
+        groups = -(-steps // 2)
+        sw = ("sweep.density", "sweep.force")
+        return lambda path, fb: ({"rebuild": groups * 4, "csr_bounds": groups * 4}
+                                 | {k: steps * 4 for k in sw}
+                                 | {f"{k}.part": steps * 4 for k in sw})
+
+    g, e = rect(e_scene)
+    sg, se = g.bind(e_start), e.bind(e_start)
+    (got, got_ems), (want, want_ems), _ = both(
+        f"bench_3d_mesh_500k rollout_emit on 2x2, {n} steps at R=2", g, e,
+        lambda: g.rollout_emit(sg, ems0, n), lambda: e.rollout_emit(se, ems0, n),
+        rect_expect(n))
+    same_shards("emitting 2x2", got, want)
+    if not (torch.equal(g._flags, e._flags) and torch.equal(g._counts, e._counts)
+            and got_ems[0].emitted == want_ems[0].emitted == 3 * es0.batch_size
+            and [st.num_active for st in got] == [st.num_active for st in want]):
+        raise AssertionError("emitting 2x2: flags, live rows or emitter counters differ")
+    print(f"  emitting 2x2: graphs=True bitwise equal to graphs=False, flags "
+          f"{g._flags.tolist()} and live rows {g._counts.tolist()} equal; "
+          f"{got_ems[0].emitted} emitted; {g._runner.captures} captures, keys "
+          f"{sorted(map(str, g._runner._graphs))}")
+    waits = count_host_waits(lambda: g.rollout_emit(got, got_ems, 2))
+    print(f"  emitting 2x2: host reads in one graph rollout_emit call: {waits}")
+    if waits != 1:
+        raise AssertionError(f"emitting 2x2 graph call: {waits} host waits, want 1")
+    rows = g.shard_rows
+    counts = g._counts.tolist()
+    lin = g._shard_of(gridops.cell_coords(es0.seeds_x, g.spec))[0]
+    owned = [int((lin == s).sum()) for s in range(4)]
+    del g, e, sg, se, got, want
+
+    # a room test that refuses: the busiest owner shard has room for one batch
+    frac = (max(c + k for c, k in zip(counts, owned) if k > 0) + 1) / rows
+    g, e = rect(e_scene, emit_frac=frac)
+    sg, se = g.bind(e_start), e.bind(e_start)
+    (got, got_ems), (want, want_ems), _ = both(
+        f"bench_3d_mesh_500k rollout_emit on 2x2, emit_frac {frac:.6f}, {n} steps", g, e,
+        lambda: g.rollout_emit(sg, ems0, n), lambda: e.rollout_emit(se, ems0, n),
+        rect_expect(n))
+    same_shards("refusing 2x2", got, want)
+    em_g, em_e = got_ems[0].emitted, want_ems[0].emitted
+    if not (em_g == em_e < 3 * es0.batch_size
+            and [st.num_active for st in got] == [st.num_active for st in want]
+            and sum(st.num_active for st in got) == e_start.num_active + em_g):
+        raise AssertionError(f"refusing 2x2: emitted {em_g} / {em_e}, live rows differ")
+    print(f"  refusing 2x2 (live rows {counts}, seeds owned {owned}, {rows} rows a shard): "
+          f"{em_g // es0.batch_size} of 3 due batches fired on both paths, num_active "
+          f"{sum(st.num_active for st in got)} equal, every field bitwise equal")
+    del g, e, sg, se, got, want
+
+    # both paths in turns
+    for label, sc, start, d, ems, turn_steps in (
+            ("demo_3d on 2 slabs", scene, d_start, 2, None, 200),
+            ("demo_3d on 4 slabs", scene, d_start, 4, None, 100),
+            ("bench_3d_mesh_500k on 2 slabs (emitting)", e_scene, e_start, 2, ems0, n)):
+        g, e = slab(sc, d, resort_every=2)
+        sg = g.bind(start)
+        e.bind(start)
+        graph_turns(tt, label, g, e, sg, None, ems, turn_steps, card_line)
+        del g, e, sg
+    g, e = rect(e_scene)
+    sg = g.bind(e_start)
+    e.bind(e_start)
+
+    def queue(solver, k):
+        from tisph_tpu_torch.models.solver_base import SolverBase
+        SolverBase._groups(solver, (sg, list(ems0)), k, 2, solver._substep,
+                           emit=solver._maybe_emit)
+
+    graph_turns(tt, "bench_3d_mesh_500k on 2x2 (emitting)", g, e, sg, None, ems0, n, card_line,
+                queue)
+    del g, e, sg
+
+    # the long runs on the graph path
+    print(f"  long runs, {SOAK_STEPS} steps in chunks of {SHARD_LONG_CHUNK} at R=2, each "
+          "chunk's steering and the captures it made:")
+    plain = tt.build_state(scene, device=DEVICE)
+    ends = {}
+    # the rectangle at a balance_slack of 2.5: at the default 1.5 its third
+    # rebalance (after 6,000 steps) found a shard of 97,901 particles for
+    # 80,384 rows and raised, as tisph_tpu's rebalance does; a quantile cut
+    # leaves a shard at most about half the particles
+    for label, sh in (("demo_3d on 2 slabs", ShardedWCSPH(scene, make_mesh(
+                          devices=[DEVICE] * 2), resort_every=2)),
+                      ("demo_3d on 2x2", ShardedWCSPHRect(scene, make_mesh2d(
+                          2, 2, devices=[DEVICE] * 4), resort_every=2,
+                          balance_slack=RECT_LONG_SLACK))):
+        shards = sh.bind(plain)
+        print(f"  {label}: {sh.shard_rows} rows a shard")
+        reset_counts(kernels)
+        shards = steered_run(label, sh, shards, SOAK_STEPS, SHARD_LONG_CHUNK, card_line)
+        got = {k: f.launches for k, f in kernels.items()}
+        d = sh.n_shards
+        m = sh.metrics(shards)
+        print(f"  {label}: launches {got}; metrics {m}")
+        if got["sweep.density"] != SOAK_STEPS * d or got["sweep.force"] != SOAK_STEPS * d:
+            raise AssertionError(f"{label}: sweep launches {got}")
+        if (m["nan_count"] != 0 or m["cfl"] >= 1.0 or m["num_active"] != plain.num_active
+                or sum(st.num_active for st in shards) != plain.num_active):
+            raise AssertionError(f"{label} unhealthy after {SOAK_STEPS} steps: {m}")
+        for k in kernels:
+            total[k] += got[k]
+        ends[label] = m
+        del sh, shards
+    print("  end states beside phase 20's one-device soak of the same run:")
+    for k in ("max_velocity", "cfl", "avg_density_error", "max_density_error"):
+        print(f"    {k:<18} " + "  ".join(f"{label} {m[k]:.6f}" for label, m in ends.items())
+              + f"  one device {soak_m[k]:.6f}")
     return total
 
 
@@ -2679,7 +3041,7 @@ def main() -> int:
     launches = {k: launches[k] + s17[k] + s18[k] + s19[k] for k in kernels}
     phase(f"20 long runs: demo_3d {SOAK_STEPS} steps and bench_3d_1m {SOAK_1M_STEPS} at R=2 "
           "through tools.soak")
-    s20, soak_errs = long_run(tt, kernels, times, card_line)
+    s20, soak_errs, soak_m = long_run(tt, kernels, times, card_line)
     phase(f"21 the cadence and the compat gap: compare_resort on demo_3d ({RESORT_STEPS} steps, "
           "R=2 and R=3), compare_compat on demo_2d")
     s21 = cadence_and_compat(kernels, card_line)
@@ -2696,6 +3058,13 @@ def main() -> int:
           f"bench_3d_rigid on 2x2 ({RECT_GRAPH_STEPS}), both paths in turns")
     s24 = emit_rect_graphs(tt, kernels, e_scene, e_start, ems0, scene, r_scene, card_line)
     launches = {k: launches[k] + s24[k] for k in kernels}
+    phase(f"25 the slab solver and both decompositions' rollout_emit as graphs against "
+          f"graphs=False: bitwise on demo_3d (2 and 4 slabs, linear, a tripped seam guard), "
+          f"bench_3d_rigid and bench_3d_mesh_500k (2 slabs, 2x2, a refused batch), both paths "
+          f"in turns, demo_3d {SOAK_STEPS} steps through run on 2 slabs and 2x2")
+    s25 = slab_emit_graphs(tt, kernels, e_scene, e_start, ems0, scene, r_scene, soak_m,
+                           card_line)
+    launches = {k: launches[k] + s25[k] for k in kernels}
     del e_start
     print(f"  run_sharded --mesh2d 2x2 --profile 20 (phase 17): "
           f"{rect_prof['device_ops_per_step']:.1f} device operations, "

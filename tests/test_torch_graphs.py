@@ -2,12 +2,12 @@
 
 On the CPU (the eager loop; no capture without a card):
 
-- ``graphs=True`` raises on a CPU solver, on a class that keeps the
-  eager loop (the slab solver, ``WCSPHLegacy``, a rectangle over several
-  devices) and on the rectangle's ``rollout_emit``; None is on for a CUDA
-  ``WCSPH`` and ``WCSPHRigid`` and a rectangle on one card, off
-  elsewhere; ``rollout_emit`` takes the graph path on a ``WCSPH``
-  (``tests/test_torch_graphs_emit_rect.py`` holds it and the rectangle's
+- ``graphs=True`` raises on a CPU solver and on a class that keeps the
+  eager loop (``WCSPHLegacy``, a slab or rectangle over several
+  devices); None is on for a CUDA ``WCSPH`` and ``WCSPHRigid`` and a slab
+  or rectangle on one card, off elsewhere; ``rollout_emit`` takes the
+  graph path wherever the groups do (``tests/test_torch_graphs_emit_rect.py``
+  and ``tests/test_torch_graphs_slab.py`` hold it and the decompositions'
   plumbing);
 - the runner's plumbing (copy in, group on the static buffers, write back,
   tail group, copy out), with a direct call of the group in place of each
@@ -103,17 +103,18 @@ def test_graphs_default_and_refusals(tmp_path):
     em_scene = pt.scene_from_dict(raw)
     state = pt.build_state(em_scene, device="cpu")
     ems = [make_emitter_state(em_scene.emitters[0], em_scene, "cpu")]
-    assert pt.WCSPH.emit_eager_loop is None
+    assert not hasattr(pt.WCSPH, "emit_eager_loop")
     with pytest.raises(ValueError, match="state is on cpu, solver on cuda"):
         solver.rollout_emit(state, ems, 2)
 
 
 def test_sharded_solvers_keep_the_eager_loop():
     """What keeps the eager loop, each with its reason, and refuses
-    graphs=True: the slab solver (its seam guard), the legacy solver
-    (torch.nonzero), a rectangle over several devices and the rectangle's
-    ``rollout_emit`` (its room test).  A rectangle on one card replays its
-    groups; on the CPU it runs the eager loop."""
+    graphs=True: the legacy solver (torch.nonzero), and a slab or a
+    rectangle over several devices.  On one card the slab and the
+    rectangle replay their groups, ``rollout_emit`` too (no class keeps an
+    eager loop for emission); on the CPU they run the eager loop."""
+    from tisph_tpu_torch.models.solver_base import SolverBase
     from tisph_tpu_torch.parallel import (
         ShardedWCSPH,
         ShardedWCSPHRect,
@@ -123,27 +124,22 @@ def test_sharded_solvers_keep_the_eager_loop():
 
     scene = pt.scene_from_dict(SCENE)
     assert pt.WCSPH.eager_loop is None and pt.WCSPHRigid.eager_loop is None
-    assert "seam guard" in ShardedWCSPH.eager_loop
     assert "torch.nonzero" in pt.WCSPHLegacy.eager_loop
+    assert not hasattr(SolverBase, "emit_eager_loop")
     one = ["cuda:0"] * 4
-    slab = make_mesh(devices=one)
-    assert not ShardedWCSPH(scene, slab).graphs
-    with pytest.raises(ValueError, match="ShardedWCSPH runs the eager loop"):
-        ShardedWCSPH(scene, slab, graphs=True)
-    assert ShardedWCSPHRect.eager_loop is None and ShardedWCSPHRect.emit_eager_loop
-    rect = ShardedWCSPHRect(scene, make_mesh2d(2, 2, devices=one))
-    assert rect.graphs and rect.eager_loop is None
-    assert not ShardedWCSPHRect(scene, make_mesh2d(2, 2, devices=one), graphs=False).graphs
-    assert not ShardedWCSPHRect(scene, make_mesh2d(2, 2, devices=["cpu"] * 4)).graphs
-    several = make_mesh2d(2, 2, devices=["cuda:0", "cuda:1", "cuda:0", "cuda:1"])
-    multi = ShardedWCSPHRect(scene, several)
-    assert not multi.graphs and "several devices" in multi.eager_loop
-    with pytest.raises(ValueError, match="ShardedWCSPHRect runs the eager loop"):
-        ShardedWCSPHRect(scene, several, graphs=True)
-    # the refusal comes before the state is touched
-    rect = ShardedWCSPHRect(scene, make_mesh2d(2, 2, devices=one), graphs=True)
-    with pytest.raises(ValueError, match="ShardedWCSPHRect.rollout_emit runs the eager loop"):
-        rect.rollout_emit([], [], 2)
+    several = ["cuda:0", "cuda:1", "cuda:0", "cuda:1"]
+    for cls, make in ((ShardedWCSPH, lambda d: make_mesh(devices=d)),
+                      (ShardedWCSPHRect, lambda d: make_mesh2d(2, 2, devices=d))):
+        assert cls.eager_loop is None
+        solver = cls(scene, make(one))
+        assert solver.graphs and solver.eager_loop is None
+        assert cls(scene, make(one), graphs=True).graphs
+        assert not cls(scene, make(one), graphs=False).graphs
+        assert not cls(scene, make(["cpu"] * 4)).graphs
+        multi = cls(scene, make(several))
+        assert not multi.graphs and "several devices" in multi.eager_loop
+        with pytest.raises(ValueError, match=f"{cls.__name__} runs the eager loop"):
+            cls(scene, make(several), graphs=True)
 
 
 # -- the plumbing, bitwise against the eager groups ---------------------------

@@ -299,10 +299,10 @@ def test_rect_run_steering_through_runner(steer):
 
 
 def test_rect_graph_rollout_after_eager_emit():
-    """The rectangle's ``rollout_emit`` stays eager (its room test reads
-    the host), and leaves rows emitted after the last rebuild in its host
-    bookkeeping; a graph ``rollout`` after it gives each shard the live
-    rows the eager path gives."""
+    """The rectangle's ``rollout_emit`` (the eager loop, and through the
+    runner) grows the device live-row counts in place by the batch emitted
+    after the last rebuild; a graph ``rollout`` after it gives each shard
+    the live rows the eager path gives."""
     out = []
     for direct in (False, True):
         scene, start = trect._start(trect._emit_raw(), extra_capacity=512)
@@ -313,7 +313,9 @@ def test_rect_graph_rollout_after_eager_emit():
         es = pt.make_emitter_state(scene.emitters[0], scene, "cpu")
         # emissions at steps 0 and 5: the second after the last rebuild
         shards, ems = solver.rollout_emit(shards, [es], 6)
-        assert sum(solver._emitted) == es.batch_size
+        assert ems[0].emitted == 2 * es.batch_size
+        assert int(solver._counts.sum()) == sum(st.num_active for st in shards) \
+            == start.num_active + 2 * es.batch_size
         out.append((solver.rollout(shards, 3), ems[0]))
     assert runner._base is not None and (2, None) in runner._graphs
     (want, w_es), (got, g_es) = out

@@ -181,11 +181,11 @@ def exchange_and_global():
     for mode in ("global", "exchange"):
         solver = ShardedWCSPH(scene, _cpu(4), resort=mode)
         shards = solver.step(solver.bind(pt.build_state(scene, device="cpu")))
-        solver.occ_resort = 0  # the first rebuild may fall back (lattice order)
+        solver.occ_resort.zero_()  # the first rebuild may fall back (lattice order)
         for _ in range(5):
             shards = solver.step(shards)
         outs[mode] = solver.gather_state(shards)
-        later[mode] = (solver.occ_resort, solver.metrics(shards)["resort_fallbacks"],
+        later[mode] = (int(solver.occ_resort), solver.metrics(shards)["resort_fallbacks"],
                        solver.halo_path, [solver._window(s) for s in range(4)],
                        int(solver.occ_halo))
     single = pt.WCSPH(scene, device="cpu")
@@ -235,12 +235,12 @@ def test_exchange_resort_guard_catches_shuffle():
         perm = torch.from_numpy(np.random.default_rng(7).permutation(whole.capacity))
         whole = dataclasses.replace(whole, **{k: getattr(whole, k)[perm]
                                               for k in gridops.state_fields(whole)})
-        solver.occ_resort = 0
+        solver.occ_resort.zero_()
         return solver, solver.gather_state(solver.step(solver.shard_state(whole)))
 
     _, out_g = run("global")
     solver_e, out_e = run("exchange")
-    assert solver_e.occ_resort >= 1, "seam guard did not trip on a shuffle"
+    assert int(solver_e.occ_resort) >= 1, "seam guard did not trip on a shuffle"
     for f in gridops.state_fields(out_g):
         assert torch.equal(getattr(out_g, f), getattr(out_e, f)), f
 
@@ -250,11 +250,11 @@ def test_exchange_resort_run_deepens_edge():
     scene = pt.scene_from_dict(_raw(0.04))
     solver = ShardedWCSPH(scene, _cpu(4), resort_edge=128)
     shards = solver.step(solver.bind(pt.build_state(scene, device="cpu")))
-    solver.occ_resort = 10
+    solver.occ_resort.fill_(10)
     old = solver.resort_edge
     solver.run(shards, 1)
     assert solver.resort_edge > old
-    assert solver.occ_resort == 0  # reset after the check
+    assert int(solver.occ_resort) == 0  # reset after the check
 
 
 def test_halo_overflow_detected_and_regrown():

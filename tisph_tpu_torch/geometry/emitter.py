@@ -15,7 +15,12 @@ changes: the host decides whether a batch fires without reading anything
 back from the device, and the device does one out-of-place write of the
 nine per-particle fields.  The write's start row may be a 0-d device
 tensor, so a captured CUDA graph (``models.graphs``) reads it at every
-replay where a host int would be frozen into the capture.
+replay where a host int would be frozen into the capture.  The write is
+by row index (:func:`activate_rows`), and an index past the end writes
+nothing: the sharded solvers write every shard with the same launches
+whether the batch lands there or not, and the rectangle, whose room test
+runs on the device, writes a refused batch nowhere (:func:`due_step`
+counts its cadence alone).
 """
 
 from __future__ import annotations
@@ -74,16 +79,19 @@ def make_emitter_state(em: Emitter, scene: SceneConfig,
     )
 
 
-def activate_seeds(fields: dict[str, torch.Tensor], start: int | torch.Tensor,
-                   seeds: torch.Tensor, velocity: torch.Tensor, color: torch.Tensor,
-                   density: torch.Tensor, volume0: float) -> dict[str, torch.Tensor]:
-    """The nine EMIT_FIELDS with rows ``[start, start + b)`` set to one
-    seed batch, as new tensors: the given ones are shared with the caller's
-    state and stay as they are.  ``start`` is a host int or a 0-d int64
-    tensor on the fields' device; both write the same rows."""
+def activate_rows(fields: dict[str, torch.Tensor], at: torch.Tensor, seeds: torch.Tensor,
+                  velocity: torch.Tensor, color: torch.Tensor, density: torch.Tensor,
+                  volume0: float) -> dict[str, torch.Tensor]:
+    """The nine EMIT_FIELDS with seed i of one batch in row ``at[i]`` (a
+    (b,) int64 tensor on the fields' device), as new tensors: the given
+    ones are shared with the caller's state and stay as they are.  An
+    ``at`` equal to the fields' row count writes nothing (``tisph_tpu``'s
+    scatter ``mode="drop"``): the same launches whichever rows a batch
+    lands in, or none.  The rows are written into a copy with one spare
+    row past the end, where the dropped seeds land, and which is cut
+    off."""
     b, dim = seeds.shape
     like = fields["density"]
-    at = torch.arange(b, dtype=torch.int64, device=like.device) + start
     vol = torch.full((b,), volume0, dtype=torch.float32, device=like.device)
     rows = {
         "x": seeds,
@@ -96,15 +104,20 @@ def activate_seeds(fields: dict[str, torch.Tensor], start: int | torch.Tensor,
         "color": color.expand(b, 3),
         "object_id": fields["object_id"].new_full((b,), EMITTER_OBJECT_ID),
     }
-    return {k: fields[k].index_copy(0, at, rows[k].contiguous()) for k in EMIT_FIELDS}
+    n = like.shape[0]
+    return {k: torch.cat([fields[k], rows[k][:1]]).index_copy_(0, at, rows[k].contiguous())[:n]
+            for k in EMIT_FIELDS}
 
 
 def activate(state: SimState, es: EmitterState, start: int | torch.Tensor,
              volume0: float) -> SimState:
     """``state`` with one batch of ``es`` in rows ``[start, start + b)``
-    (``activate_seeds``); ``num_active`` is the caller's to count."""
-    fields = activate_seeds({k: getattr(state, k) for k in EMIT_FIELDS}, start, es.seeds_x,
-                            es.velocity, es.color, es.density, volume0)
+    (``activate_rows``); ``start`` is a host int or a 0-d int64 tensor on
+    the state's device, and both write the same rows.  ``num_active`` is
+    the caller's to count."""
+    at = torch.arange(es.batch_size, dtype=torch.int64, device=state.device) + start
+    fields = activate_rows({k: getattr(state, k) for k in EMIT_FIELDS}, at, es.seeds_x,
+                           es.velocity, es.color, es.density, volume0)
     return dataclasses.replace(state, **fields)
 
 
@@ -117,6 +130,12 @@ def count_step(es: EmitterState, room: bool) -> tuple[bool, EmitterState]:
             and (es.max_particles <= 0 or es.emitted + b <= es.max_particles))
     return fire, dataclasses.replace(es, emitted=es.emitted + (b if fire else 0),
                                      step=es.step + 1)
+
+
+def due_step(es: EmitterState) -> tuple[bool, EmitterState]:
+    """(due, es counted one step): the cadence alone, for a solver whose
+    room and quota test runs on the device (``ShardedWCSPHRect``)."""
+    return es.step % es.interval == 0, dataclasses.replace(es, step=es.step + 1)
 
 
 def maybe_emit(state: SimState, es: EmitterState,

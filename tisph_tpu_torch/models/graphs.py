@@ -15,15 +15,20 @@ rollout copies the carry in once, replays its groups and clones the carry
 out once, with no synchronisation.
 
 Emission (``emitters=``): whether a batch fires depends only on host
-counters and on ``num_active``, a host int, so before each group the host
-counts the emitters' steps (``geometry.emitter.count_step``), as the eager
-loop does, and gets the group's fire pattern (per emission slot, which
-emitters fire; a slot is before the rebuild at R = 1, before each substep
-at R > 1) and each batch's start row.  The pattern is part of the key; the
-start rows go into 0-d int64 buffers, one per (slot, emitter), which the
-host fills on the stream before the replay.  The emitters' seed tensors
-are graph inputs, copied in at every call as the state is; their counters
-and ``num_active`` stay host ints.
+counters and on the live rows (``num_active``, host ints), so before each
+group the host counts the emitters' steps (``geometry.emitter.
+count_step``), as the eager loop does, and gets the group's fire pattern
+(per emission slot, which emitters fire; a slot is before the rebuild at
+R = 1, before each substep at R > 1) and each batch's start row, a global
+row on a list of shards.  The pattern is part of the key; the start rows
+go into 0-d int64 buffers, one per (slot, emitter), which the host fills
+on the stream before the replay.  The solver writes a batch from its start
+row (``_emit_batch``: the slab's a fixed-shape scatter into every shard).
+The emitters' seed tensors are graph inputs, copied in at every call as
+the state is; their counters and ``num_active`` stay host ints.  A solver
+that tests a batch's room on the device (``emit_on_device``, the
+rectangle) gets from the host only the cadence: the pattern is which
+emitters are due, and the solver's device counters say what fired.
 
 Where a capture could go wrong, and what the runner does about it:
 
@@ -34,8 +39,9 @@ Where a capture could go wrong, and what the runner does about it:
   throwaway copies of the buffers, so the state never advances twice;
   both caches also refuse a first fill inside a capture;
 - state outside the carry: tensors a group updates in place (the
-  rectangle's live-row counts and flags, ``SolverBase._inplace``) keep
-  their addresses for the graph, and the warm-up's updates are undone;
+  rectangle's live-row counts, flags and emitted rows, the slab's halo
+  flag and seam-guard count, ``SolverBase._inplace``) keep their
+  addresses for the graph, and the warm-up's updates are undone;
 - streams: every kernel wrapper reads ``torch.cuda.current_stream()`` at
   call time, which inside ``torch.cuda.graph`` is the capture stream;
 - failure: a capture that fails raises, naming the part of the group
@@ -64,7 +70,7 @@ from typing import Callable
 
 import torch
 
-from tisph_tpu_torch.geometry.emitter import activate, count_step
+from tisph_tpu_torch.geometry.emitter import count_step, due_step
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.grid import state_fields
@@ -129,24 +135,28 @@ class GroupRunner:
         """Everything the captured launches depend on: the field shapes,
         dtypes and devices of the carry and the emitters (capacity, shard
         rows, the number of bodies and batch sizes among them), the
-        substep, the solver's ``_capture_key`` (layout, ``boundary_mode``,
-        ``fast_math``, the physics and the grid; the rectangle's cuts and
-        caps), then the group's part: the emission pattern (None without
-        emitters) and the group length k."""
+        emitters' quotas (a device room test reads them), the substep, the
+        solver's ``_capture_key`` (layout, ``boundary_mode``,
+        ``fast_math``, the physics and the grid; the decompositions' rows,
+        depths and caps), then the group's part: the emission pattern
+        (None without emitters) and the group length k."""
         fields = tuple(
             (type(c).__name__,
              tuple((n, tuple(t.shape), t.dtype, t.device) for n, t in _tensors(c).items()))
             for c in _leaves(carry) + list(emitters))
-        return (fields, substep.__name__) + self.solver._capture_key() + (pattern, k)
+        quotas = tuple(es.max_particles for es in emitters)
+        return (fields, quotas, substep.__name__) + self.solver._capture_key() + (pattern, k)
 
     def rollout(self, carry: tuple, num_steps: int, R: int, substep: Callable,
                 emitters: list | None = None) -> tuple:
         """``num_steps`` substeps of ``carry`` (a bound state, or the list
         of shards, first) in groups of R: the carry copied in, a replay per
         group (R, then the tail), the carry cloned out.  With ``emitters``
-        (a one-device ``SimState`` carry) each substep emits, on the
-        schedule of ``SolverBase._groups``, and the emitters with their new
-        counters are returned after the carry."""
+        each substep emits, on the schedule of ``SolverBase._groups``, and
+        the emitters with their new counters are returned after the carry
+        (with ``emit_on_device`` the solver resolves their ``emitted`` and
+        the live rows)."""
+        solver = self.solver
         ems = list(emitters or ())
         base = self.key(carry, 0, substep, ems)[:-2]
         if base != self._base:
@@ -159,13 +169,13 @@ class GroupRunner:
         for buf, c in zip(self._bufs, _leaves(carry) + ems):
             for n, t in _tensors(c).items():
                 buf[n].copy_(t)
-        n_active = carry[0].num_active if emitters is not None else None
+        n_active = solver._num_particles(carry[0]) if emitters is not None else None
         done = 0
         while done < num_steps:
             k = min(R, num_steps - done)
             pattern = None
             if emitters is not None:
-                pattern, n_active = self._count(ems, n_active, carry[0].capacity,
+                pattern, n_active = self._count(ems, n_active, solver._capacity(carry[0]),
                                                 1 if R == 1 else k, R == 1)
             key = (k, pattern)
             if key not in self._graphs:
@@ -183,19 +193,25 @@ class GroupRunner:
         out = _unflatten(carry, leaves)
         if emitters is None:
             return out
-        return (dataclasses.replace(out[0], num_active=n_active),) + out[1:] + (ems,)
+        part = out[0] if solver.emit_on_device else solver._with_live(out[0], n_active)
+        return (part,) + out[1:] + (ems,)
 
     def _count(self, ems: list, n_active: int, capacity: int, slots: int,
                before: bool) -> tuple[tuple, int]:
         """The host's count of one group's emission slots, as the eager
-        loop's ``maybe_emit`` counts them: advances ``ems`` in place, fills
+        loop's ``_maybe_emit`` counts them: advances ``ems`` in place, fills
         the start rows of the batches that fire, and returns the group's
         pattern ``(before, fires per slot)``, None when no batch fires (the
-        group is then the plain one), and the new ``num_active``."""
+        group is then the plain one), and the new ``num_active``.  With
+        ``emit_on_device`` a slot's fires are the due emitters alone."""
         fires = []
         for slot in range(slots):
             row = []
             for e, es in enumerate(ems):
+                if self.solver.emit_on_device:
+                    fire, ems[e] = due_step(es)
+                    row.append(fire)
+                    continue
                 fire, ems[e] = count_step(es, n_active + es.batch_size <= capacity)
                 if fire:
                     start = self._starts.get((slot, e))
@@ -225,12 +241,11 @@ class GroupRunner:
 
         def emit(carry, slot):
             self._part = f"the emission of slot {slot}"
-            state = carry[0]
+            part = carry[0]
             for e, fire in enumerate(fires[slot]):
                 if fire:
-                    state = activate(state, seeds[e], self._starts[(slot, e)],
-                                     solver.scene.particle_volume0)
-            return (state,) + tuple(carry[1:])
+                    part = solver._emit_batch(part, seeds[e], e, self._starts.get((slot, e)))
+            return (part,) + tuple(carry[1:])
 
         if before:
             carry = emit(carry, 0)

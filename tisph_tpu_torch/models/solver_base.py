@@ -16,11 +16,13 @@ at the next rebuild.
 On a CUDA ``WCSPH`` or ``WCSPHRigid`` each R-group of ``step``,
 ``rollout``, ``rollout_emit``, ``run`` and the coupled ones is one replay
 of a CUDA graph (``models.graphs``, the counterpart of ``tisph_tpu``'s
-jitted rollout), and so is a group of the rectangle decomposition whose
-shards share one card; ``graphs=False`` keeps the eager loop, which the
-CPU and every class whose group reads the host (``eager_loop``) run.
-The emitters still count on the host: ``tisph_tpu`` keeps those counters
-on the device, and the host knows all they depend on.
+jitted rollout), and so is a group of the slab and the rectangle
+decompositions whose shards share one card; ``graphs=False`` keeps the
+eager loop, which the CPU and every class whose group reads the host
+(``eager_loop``) run.  The emitters' cadence counts on the host, which
+knows all it depends on; where a batch fires is decided on the host too
+(``_emit_batch`` writes it from a start row), except on the rectangle,
+whose room test runs on the device (``emit_on_device``).
 
 ``run`` (and every solver's ``run_coupled``) is the long-run entry point:
 ``rollout`` in chunks of ``check_every`` steps through the one chunk loop
@@ -39,7 +41,7 @@ import time
 import torch
 
 from tisph_tpu_torch.config import SceneConfig, SolverParams
-from tisph_tpu_torch.geometry.emitter import EmitterState, maybe_emit
+from tisph_tpu_torch.geometry.emitter import EmitterState, activate, count_step, due_step
 from tisph_tpu_torch.models.graphs import GroupRunner
 from tisph_tpu_torch.models.state import SimState
 from tisph_tpu_torch.ops import grid as gridops
@@ -59,9 +61,9 @@ class SolverBase:
     # why the class's R-group runs the eager loop, or None when it reads
     # nothing on the host and replays as one CUDA graph (models.graphs)
     eager_loop: str | None = "the base class's group is not known to be capturable"
-    # why its emitting group runs the eager loop where its plain one
-    # replays, or None
-    emit_eager_loop: str | None = None
+    # whether a due batch fires by a test on the device (the rectangle's
+    # room test) rather than by the host's count (see ``_maybe_emit``)
+    emit_on_device = False
 
     def __init__(
         self,
@@ -94,8 +96,7 @@ class SolverBase:
         ``graphs``: each R-group one CUDA graph replay (``models.graphs``);
         None is on for a CUDA solver whose class allows it (``eager_loop``
         None), False the eager loop, True raises where the graph path does
-        not run (the CPU, such a class, and ``rollout_emit`` on a class
-        with an ``emit_eager_loop``)."""
+        not run (the CPU, such a class)."""
         if boundary_mode is None:
             boundary_mode = type(self).boundary_mode
         if boundary_mode not in ("static", "per_step"):
@@ -123,7 +124,6 @@ class SolverBase:
                              f"({self.eager_loop})")
         if graphs and self.device.type != "cuda":
             raise ValueError(f"graphs=True needs a CUDA device, the solver is on {self.device}")
-        self._graphs_asked = graphs is True
         if graphs is None:
             graphs = self.device.type == "cuda" and self.eager_loop is None
         self.graphs = bool(graphs)
@@ -191,13 +191,40 @@ class SolverBase:
         graph keeps their addresses, and its warm-up restores them."""
         return ()
 
+    def _capacity(self, state: SimState) -> int:
+        """Rows the emitters' pool may fill."""
+        return state.capacity
+
+    def _with_live(self, state: SimState, num_active: int) -> SimState:
+        """``state`` holding ``num_active`` live rows, first."""
+        return dataclasses.replace(state, num_active=num_active)
+
+    def _emit_batch(self, state: SimState, es: EmitterState, e: int, start) -> SimState:
+        """``state`` with emitter ``e``'s batch ``es`` in rows ``[start,
+        start + b)``; ``start`` is a host int on the eager loop and a 0-d
+        device tensor in a replay (``models.graphs``), the same rows."""
+        return activate(state, es, start, self.scene.particle_volume0)
+
     def _maybe_emit(self, carry: tuple) -> tuple:
-        """One step of every emitter on the carry ``(state, emitters)``."""
-        state, ems = carry
-        ems = list(ems)
-        for k, es in enumerate(ems):
-            state, ems[k] = maybe_emit(state, es, self.scene.particle_volume0)
-        return state, ems
+        """One step of every emitter on the carry ``(state, emitters)``:
+        the host counts the step and, unless ``emit_on_device``, decides
+        whether the batch fires (due, room in the pool, under the quota)
+        and where (at the live rows' end), as ``geometry.emitter.
+        maybe_emit``; with ``emit_on_device`` a due batch goes to
+        ``_emit_batch``, which decides on the device."""
+        part, ems = carry[0], list(carry[1])
+        for e, es in enumerate(ems):
+            start = None
+            if self.emit_on_device:
+                fire, ems[e] = due_step(es)
+            else:
+                start = self._num_particles(part)
+                fire, ems[e] = count_step(es, start + es.batch_size <= self._capacity(part))
+            if fire:
+                part = self._emit_batch(part, es, e, start)
+                if start is not None:
+                    part = self._with_live(part, start + es.batch_size)
+        return part, ems
 
     # -- public API ------------------------------------------------------
     def step(self, state: SimState) -> SimState:
@@ -217,34 +244,27 @@ class SolverBase:
         acceleration and flies at its emission velocity, as in
         ``tisph_tpu`` (its ``keep = back_valid & fl``).  The emitters
         count on the host, and a batch's start row is ``num_active``, a
-        host int (``geometry/emitter.py``); on the graph path each group
-        replays the graph of its fire pattern (``models.graphs``)."""
-        if self._graphs_asked and self.emit_eager_loop:
-            raise ValueError(f"graphs=True: {type(self).__name__}.rollout_emit runs the eager "
-                             f"loop ({self.emit_eager_loop})")
+        host int (``geometry/emitter.py``; the rectangle decides on the
+        device, ``emit_on_device``); on the graph path each group replays
+        the graph of its fire pattern (``models.graphs``)."""
         return self._groups((state, list(emitters)), num_steps, self.resort_every,
                             self._substep, emit=self._maybe_emit)
-
-    def _replays(self, emit) -> bool:
-        """Whether a call's groups are graph replays (with ``emit``, an
-        emitting call's)."""
-        return self.graphs and (emit is None or self.emit_eager_loop is None)
 
     def _groups(self, carry: tuple, num_steps: int, R: int, substep, emit=None) -> tuple:
         """Run ``num_steps`` of ``substep(carry, cache) -> carry`` in groups
         of R, rebuilding the neighbour structure of ``carry[0]`` (the
         SimState, which the rebuild sorts) before each group.  ``emit(carry)
         -> carry`` runs once per substep: before the rebuild at R = 1,
-        before each substep after it at R > 1.  Where ``_replays`` says so
-        the groups are replays of the runner's graphs, which emit on the
-        same schedule (``carry`` then is ``(state, emitters)``)."""
+        before each substep after it at R > 1.  With ``graphs`` the groups
+        are replays of the runner's graphs, which emit on the same schedule
+        (``carry`` then is ``(state, emitters)``)."""
         self._check_resort(R)
         state = carry[0]
         if not self._bound:
             state = self.bind(state)
         self._check_device(state)
         carry = (state,) + tuple(carry[1:])
-        if self._replays(emit):
+        if self.graphs:
             if self._runner is None:
                 self._runner = GroupRunner(self)
             if emit is None:

@@ -19,11 +19,15 @@ One R-group (``SolverBase._groups``, as the single-device solver):
   between shards.  ``resort="exchange"`` (``_exchange_resort``): each
   shard stably sorts [left neighbour's last E rows, own rows, right
   neighbour's first E rows] by cell id and keeps its own count of rows
-  from the left edge on; a seam guard, one scalar read on the host for all
-  shards (the sharded path's only host wait per group), proves the result
-  is the global stable sort, else the global sort runs instead and counts
-  in ``occ_resort``.  ``resort="global"``: the whole array sorted on shard
-  0's device and cut (``_global_resort``).  Then per shard the ids of its
+  from the left edge on; a seam guard, one device scalar for all shards,
+  proves the result is the global stable sort, else the global sort's
+  result is taken and the trip counts in ``occ_resort``.  On the graph
+  path both run and every field is selected on the device (``tisph_tpu``'s
+  ``lax.cond``, ``domain.py:492-502``, with both branches run); the eager
+  loop reads the guard on the host (its one host wait per group) and runs
+  the global sort only when it trips.  ``resort="global"``: the whole
+  array sorted on shard 0's device and cut (``_global_resort``).  Then per
+  shard the ids of its
   halo-extended window (own rows plus ``halo`` rows each side, cut at the
   array's ends) and their CSR bounds (kernel B), the window's sort-time
   material and the group's masses;
@@ -45,6 +49,13 @@ window covers the sort-time stencil of every live row it holds
 (``occ_halo``), and :meth:`run` deepens the halo (and the resort's edge)
 when that trips, as ``tisph_tpu``'s ``run`` does.  With a halo of more
 than two shards the window is the whole array (JAX's all-gather path).
+
+When every shard lives on one CUDA device, each R-group (of ``rollout``,
+``rollout_coupled``, ``rollout_emit``, ``step`` and ``run``) is one CUDA
+graph replay (``models.graphs``): ``occ_halo`` and ``occ_resort`` are
+device scalars updated in place, and what ``run``'s steering changes (the
+halo, its path, the edge, the resort) is in the graph's key.  A mesh over
+several devices keeps the eager loop (``eager_loop``).
 """
 
 from __future__ import annotations
@@ -56,7 +67,7 @@ from typing import NamedTuple
 import torch
 
 from tisph_tpu_torch.config import SceneConfig, SolverParams
-from tisph_tpu_torch.geometry.emitter import EMIT_FIELDS, activate_seeds, count_step
+from tisph_tpu_torch.geometry.emitter import EMIT_FIELDS, EmitterState, activate_rows
 from tisph_tpu_torch.models.rigid import (
     RigidState,
     body_sums,
@@ -157,11 +168,18 @@ class MeshSolver(SolverBase):
     per-shard SimStates, shard s on ``mesh.devices[s]`` with
     ``shard_rows`` rows; the substep (``_apply``) and the coupled substep
     run every shard over its extended arrays, which ``_halo`` makes and
-    whose rows each cache's ``rows`` names."""
+    whose rows each cache's ``rows`` names.  On one device a group
+    replays as one CUDA graph; a mesh over several devices sets
+    ``eager_loop``."""
+
+    eager_loop = None
 
     def __init__(self, scene: SceneConfig, mesh: Mesh, compat: str, resort_every: int,
                  fast_math: bool, layout: str, boundary_mode: str | None,
                  params: SolverParams | None, *, graphs: bool | None = None):
+        if len(set(mesh.devices)) > 1:
+            self.eager_loop = ("its shards span several devices, and a group is one graph on "
+                               "one device; a graph per device is later work")
         dynamic = any(rb.is_dynamic for rb in scene.rigid_bodies)
         if boundary_mode is None:
             boundary_mode = "per_step" if dynamic else "static"
@@ -299,6 +317,9 @@ class MeshSolver(SolverBase):
     def _num_particles(self, shards) -> int:
         return sum(st.num_active for st in shards)
 
+    def _capacity(self, shards) -> int:
+        return self.n_shards * self.shard_rows
+
 
 class ShardedWCSPH(MeshSolver):
     """WCSPH over a 1-D mesh; the state is a list of per-shard SimStates,
@@ -306,8 +327,6 @@ class ShardedWCSPH(MeshSolver):
     its live rows first, so shard s holds rows [s R, (s+1) R) of it)."""
 
     layouts = ("seg", "linear")
-    eager_loop = ("the exchange resort's seam guard reads the host once a group (_build); "
-                  "a device-side branch in its place is later work")
 
     def __init__(
         self,
@@ -331,8 +350,9 @@ class ShardedWCSPH(MeshSolver):
         halo's).  ``boundary_mode`` None: ``"per_step"`` when the scene has
         a dynamic body, else ``"static"``.  ``layout``: ``"seg"`` (kernel
         A) or ``"linear"`` (kernel C, R = 1 only; a dynamic scene refuses
-        it).  ``graphs``: True raises (``eager_loop``).  The rest as
-        ``SolverBase``."""
+        it).  ``graphs``: each R-group one CUDA graph replay; None is on
+        when every shard lives on the same CUDA device, True raises on a
+        mesh over several devices.  The rest as ``SolverBase``."""
         if resort not in ("exchange", "global"):
             raise ValueError(f"resort must be 'exchange' or 'global', got {resort!r}")
         if len(mesh.shape) != 1:
@@ -343,8 +363,11 @@ class ShardedWCSPH(MeshSolver):
         self.resort = resort
         self.resort_edge = resort_edge
         self.halo_path: str | None = None  # "neighbours" or "all_gather", set at bind
-        self.occ_resort = 0    # seam-guard fallbacks since the last reset (host count)
-        self.occ_halo: torch.Tensor | None = None  # () i32 on shard 0's device
+        # () i32 on shard 0's device from the first bind on, updated in place
+        # (a graph keeps their addresses): the halo flag, and the seam
+        # guard's trips since the last reset
+        self.occ_halo: torch.Tensor | None = None
+        self.occ_resort: torch.Tensor | None = None
 
     # -- placement -------------------------------------------------------
     def bind(self, state: SimState) -> list[SimState]:
@@ -368,7 +391,10 @@ class ShardedWCSPH(MeshSolver):
             e = self.resort_edge if self.resort_edge is not None else self.halo
             self.resort_edge = min(max(BLOCK, -(-int(e) // BLOCK) * BLOCK), rps)
         self.halo_path = "neighbours" if self._hops() <= 2 else "all_gather"
-        self.occ_halo = torch.zeros((), dtype=torch.int32, device=dev0)
+        if self.occ_halo is None:
+            self.occ_halo = torch.zeros((), dtype=torch.int32, device=dev0)
+            self.occ_resort = torch.zeros((), dtype=torch.int32, device=dev0)
+        self.occ_halo.zero_()
         self._bound = True
         return self.shard_state(state)
 
@@ -444,12 +470,26 @@ class ShardedWCSPH(MeshSolver):
 
     def _resort(self, shards: list[SimState]) -> tuple[list[SimState], list[torch.Tensor]]:
         """The shards in global stable cell order and their sorted ids."""
-        if self.resort == "exchange" and self.n_shards > 1:
-            out = self._exchange_resort(shards)
-            if out is not None:
-                return out
-            self.occ_resort += 1
-        return self._global_resort(shards)
+        if self.resort != "exchange" or self.n_shards == 1:
+            return self._global_resort(shards)
+        order, bad = self._exchange_order(shards)
+        self.occ_resort.add_(bad.to(torch.int32))
+        if not self.graphs:
+            if bool(bad):  # the host wait of an eager group
+                return self._global_resort(shards)
+            return self._exchange_gather(shards, order)
+        # tisph_tpu's lax.cond(bad > 0, global sort, exchange) with both
+        # branches run: the exchange's gather reads only each shard's own
+        # window, so a tripped guard leaves rows that are thrown away here
+        x_st, x_ids = self._exchange_gather(shards, order)
+        g_st, g_ids = self._global_resort(shards)
+        out, ids = [], []
+        for x, g, xi, gi, dev in zip(x_st, g_st, x_ids, g_ids, self.mesh.devices):
+            take = bad.to(dev, non_blocking=True)
+            out.append(dataclasses.replace(x, **{k: torch.where(take, getattr(g, k), getattr(x, k))
+                                                 for k in gridops.state_fields(x)}))
+            ids.append(torch.where(take, gi, xi))
+        return out, ids
 
     def _global_resort(self, shards):
         """The whole array sorted on shard 0's device (the rebuild kernel
@@ -460,9 +500,10 @@ class ShardedWCSPH(MeshSolver):
                  for s, dev in enumerate(self.mesh.devices)]
         return self.shard_state(st), ids_l
 
-    def _exchange_resort(self, shards):
-        """``tisph_tpu``'s edge-exchange resort (``domain.py:398-510``), or
-        None when its seam guard trips.
+    def _exchange_order(self, shards):
+        """``tisph_tpu``'s edge-exchange resort (``domain.py:398-510``): per
+        shard its kept (sorted ids, permutation of its edged window), and
+        the () bool seam guard on shard 0's device, True when it trips.
 
         The array is sorted from the last rebuild, so a row's global rank
         moves by few rows per group.  Shard s stably sorts the cell ids of
@@ -473,8 +514,7 @@ class ShardedWCSPH(MeshSolver):
         part of the global stable sort.  Guard: every seam between shards
         strictly increasing in (cell id, previous global index) makes the
         concatenation a permutation of the rows in sorted order, which is
-        then the stable sort; a lost or duplicated row breaks some seam.
-        The guard's one scalar is read on the host before any row moves."""
+        then the stable sort; a lost or duplicated row breaks some seam."""
         rps, E = self.shard_rows, self.resort_edge
         ids = [self._cell_ids(st) for st in shards]
         order, ends = [], []
@@ -492,8 +532,12 @@ class ShardedWCSPH(MeshSolver):
         prev_id, prev_src = ends[:-1, 0, 1], ends[:-1, 1, 1]
         first_id, first_src = ends[1:, 0, 0], ends[1:, 1, 0]
         ok = (prev_id < first_id) | ((prev_id == first_id) & (prev_src < first_src))
-        if not bool(ok.all()):  # the host wait of the group
-            return None
+        return order, ~ok.all()
+
+    def _exchange_gather(self, shards, order):
+        """Each shard's rows in the order ``_exchange_order`` kept, gathered
+        from its edged window by the rebuild kernel, and its sorted ids."""
+        E = self.resort_edge
         total = sum(st.num_active for st in shards)
         out = []
         for s, (k_ids, k_perm) in enumerate(order):
@@ -545,35 +589,36 @@ class ShardedWCSPH(MeshSolver):
             short = short | ((lo_min < spec.num_cells) & (ids_e[0] >= lo_min))
         if g1 < self.shard_rows * self.n_shards:
             short = short | ((hi_max >= 0) & (ids_e[-1] <= hi_max))
-        self.occ_halo = torch.maximum(
-            self.occ_halo, short.to(torch.int32).to(self.mesh.devices[0], non_blocking=True))
+        self.occ_halo.copy_(torch.maximum(
+            self.occ_halo, short.to(torch.int32).to(self.mesh.devices[0], non_blocking=True)))
 
     def _halo(self, parts, caches):
         return [self._extend(parts, s) for s in range(self.n_shards)]
 
     # -- emitters: the global tail pool -----------------------------------
-    def _maybe_emit(self, carry: tuple) -> tuple:
-        """One step of every emitter.  A batch fills global rows
-        [num_active, num_active + b), the first inactive rows of the
-        array, which lie in the last shard or shards with live rows."""
-        shards, ems = carry
-        shards, ems = list(shards), list(ems)
-        rps = self.shard_rows
-        for k, es in enumerate(ems):
-            n0 = sum(st.num_active for st in shards)
-            fire, ems[k] = count_step(es, n0 + es.batch_size <= rps * self.n_shards)
-            if not fire:
-                continue
-            n1 = n0 + es.batch_size
-            for s in range(n0 // rps, -(-n1 // rps)):
-                lo, hi = max(n0, s * rps), min(n1, (s + 1) * rps)
-                st, dev = shards[s], self.mesh.devices[s]
-                fields = activate_seeds(
-                    {f: getattr(st, f) for f in EMIT_FIELDS}, lo - s * rps,
-                    es.seeds_x[lo - n0:hi - n0].to(dev), es.velocity.to(dev),
-                    es.color.to(dev), es.density.to(dev), self.scene.particle_volume0)
-                shards[s] = dataclasses.replace(st, num_active=st.num_active + hi - lo, **fields)
-        return shards, ems
+    def _with_live(self, shards, num_active: int) -> list[SimState]:
+        return [dataclasses.replace(st, num_active=self._live_rows(num_active, s))
+                for s, st in enumerate(shards)]
+
+    def _emit_batch(self, shards, es: EmitterState, e: int, start) -> list[SimState]:
+        """A batch in global rows [start, start + b), the first inactive
+        rows of the array, which may straddle a shard boundary: every shard
+        writes the rows of it that it holds by a fixed-shape scatter that
+        drops the rest (``activate_rows``), so the eager loop (``start`` a
+        host int) and a replay (a device scalar) write the same rows."""
+        rps, b = self.shard_rows, es.batch_size
+        out = []
+        for s, (st, dev) in enumerate(zip(shards, self.mesh.devices)):
+            off = start - s * rps
+            if isinstance(off, torch.Tensor):
+                off = off.to(dev, non_blocking=True)
+            at = torch.arange(b, dtype=torch.int64, device=dev) + off
+            at = torch.where((at >= 0) & (at < rps), at, rps)
+            fields = activate_rows({f: getattr(st, f) for f in EMIT_FIELDS}, at,
+                                   es.seeds_x.to(dev), es.velocity.to(dev), es.color.to(dev),
+                                   es.density.to(dev), self.scene.particle_volume0)
+            out.append(dataclasses.replace(st, **fields))
+        return out
 
     # -- adaptive run and metrics ------------------------------------------
     def regrow_halo(self, new_halo: int | None = None) -> None:
@@ -593,13 +638,28 @@ class ShardedWCSPH(MeshSolver):
         e = int(new_edge if new_edge is not None else (self.resort_edge or BLOCK) * 2)
         self.resort_edge = min(max(BLOCK, -(-e // BLOCK) * BLOCK), self.shard_rows)
 
+    def _capture_key(self) -> tuple:
+        """Beyond ``SolverBase``'s: the shard rows, and the halo, its path,
+        the edge and the resort, which ``run``'s steering changes."""
+        return super()._capture_key() + (self.shard_rows, self.halo, self.halo_path,
+                                         self.resort_edge, self.resort)
+
+    def _inplace(self) -> tuple[torch.Tensor, ...]:
+        return self.occ_halo, self.occ_resort
+
+    def reset_flags(self) -> None:
+        """The halo flag and the seam guard's trips back to 0 (in place)."""
+        self.occ_halo.zero_()
+        self.occ_resort.zero_()
+
     def _after_chunk(self, carry: tuple, k: int, verbose: bool) -> tuple:
-        """``run``'s read after each chunk: a tripped halo flag deepens the
-        halo; seam-guard fallbacks on most of the chunk's rebuilds deepen
+        """``run``'s one read after each chunk: a tripped halo flag deepens
+        the halo; seam-guard trips on most of the chunk's rebuilds deepen
         the edge, and at a saturated edge switch the resort to
-        ``"global"`` (``tisph_tpu``'s ``run``, without its window and
-        row-pad caps, which the port has not)."""
-        if int(self.occ_halo):
+        ``"global"`` (``tisph_tpu``'s ``run``, ``domain.py:1109``, without
+        its window and row-pad caps, which the port has not)."""
+        halo, trips = torch.stack([self.occ_halo, self.occ_resort]).tolist()
+        if halo:
             old = self.halo
             self.regrow_halo()
             if verbose:
@@ -607,26 +667,25 @@ class ShardedWCSPH(MeshSolver):
                       f"{self.halo}")
         if self.resort == "exchange" and self.n_shards > 1:
             rebuilds = max(1, k // self.resort_every)
-            if self.occ_resort > rebuilds // 2:
+            if trips > rebuilds // 2:
                 old = self.resort_edge
                 self.regrow_resort_edge()
                 if self.resort_edge == old:  # saturated: the global sort alone
                     self.resort = "global"
                 if verbose:
-                    print(f"[tisph] exchange-resort seam guard tripped {self.occ_resort}/"
+                    print(f"[tisph] exchange-resort seam guard tripped {trips}/"
                           f"{rebuilds} rebuilds at edge {old}; now edge "
                           f"{self.resort_edge}, resort {self.resort!r}")
-        self.occ_halo = torch.zeros_like(self.occ_halo)
-        self.occ_resort = 0
+        self.reset_flags()
         return carry
 
     def metrics(self, shards) -> dict[str, float | int]:
         """``SolverBase.metrics`` of the global state, plus the halo flag,
-        the halo and edge depths and the seam-guard fallbacks."""
+        the halo and edge depths and the seam-guard trips."""
         out = super().metrics(self.gather_state(shards))
-        return out | {"occ_halo": int(self.occ_halo), "halo_depth": int(self.halo),
-                      "resort_edge": int(self.resort_edge or 0),
-                      "resort_fallbacks": self.occ_resort}
+        halo, trips = torch.stack([self.occ_halo, self.occ_resort]).tolist()
+        return out | {"occ_halo": halo, "halo_depth": int(self.halo),
+                      "resort_edge": int(self.resort_edge or 0), "resort_fallbacks": trips}
 
 
 def _state_to(state: SimState, device: torch.device) -> SimState:

@@ -40,20 +40,21 @@ One R-group:
   ``domain2d.py:57-63``; here the own rows in the extended pack are the
   same f32s, so the self pair still gives exactly 0).
 
-The one host read of a call is at its end: each shard's live rows and the
-rows the cut dropped (a call raises on any).  An emitting call reads the
-live rows once per group as well: a shard's count changes with every
-migration, and the host decides whether a batch fires.
+The one host read of a call is at its end: each shard's live rows, the
+rows the cut dropped (a call raises on any) and, with emitters, the rows
+each emitter has emitted.  Emission decides on the device, as
+``tisph_tpu``'s ``pmin`` does (``domain2d.py:1011-1030``): the host knows
+only which emitters are due.
 
-When every shard lives on one CUDA device, each R-group of ``rollout`` and
-``rollout_coupled`` (and of ``step``, ``run`` and the coupled ones) is one
-CUDA graph replay (``models.graphs``): the shards' tensors are the graph's
-static carry, the live-row counts and the flags are static tensors the
-group updates in place, and everything a capture bakes in that the
-steering of ``run`` changes (the rows of a shard, the halo and migration
-caps, the cuts) is in the graph's key, so a rebalance or a regrow captures
-anew.  ``rollout_emit`` keeps the eager loop (``emit_eager_loop``), and so
-does a mesh over several devices (``eager_loop``).
+When every shard lives on one CUDA device, each R-group of ``rollout``,
+``rollout_coupled`` and ``rollout_emit`` (and of ``step``, ``run`` and the
+coupled ones) is one CUDA graph replay (``models.graphs``): the shards'
+tensors are the graph's static carry, the live-row counts, the flags and
+the emitted rows are static tensors the group updates in place, and
+everything a capture bakes in that the steering of ``run`` changes (the
+rows of a shard, the halo and migration caps, the cuts) is in the graph's
+key, so a rebalance or a regrow captures anew.  A mesh over several
+devices keeps the eager loop (``eager_loop``).
 
 Two faults of ``tisph_tpu``'s rectangle solver are not copied: its
 substeps call ``tait_pressure`` directly and skip the density mode of
@@ -74,7 +75,7 @@ import numpy as np
 import torch
 
 from tisph_tpu_torch.config import SceneConfig, SolverParams
-from tisph_tpu_torch.geometry.emitter import EMIT_FIELDS, EmitterState, activate_seeds, count_step
+from tisph_tpu_torch.geometry.emitter import EMIT_FIELDS, EmitterState, activate_rows
 from tisph_tpu_torch.models.rigid import RigidState
 from tisph_tpu_torch.models.state import MATERIAL_INVALID, SimState, pad_state_capacity
 from tisph_tpu_torch.models.wcsph import group_masses
@@ -137,10 +138,7 @@ class ShardedWCSPHRect(MeshSolver):
     when a call returns (live rows first in each shard)."""
 
     layouts = ("seg",)
-    eager_loop = None  # on one card; a mesh over several devices sets its reason
-    emit_eager_loop = ("its room test reads the shards' live rows on the host once per "
-                       "emitting group (_maybe_emit), where tisph_tpu decides with a device "
-                       "pmin; a device-side room test is later work")
+    emit_on_device = True  # the room test (``_emit_batch``)
 
     def __init__(
         self,
@@ -173,9 +171,6 @@ class ShardedWCSPHRect(MeshSolver):
         if scene.dim < 2 or n_ax > scene.dim:
             raise ValueError(f"a {n_ax}-axis mesh cuts the first {n_ax} grid axes; the scene "
                              f"has dim={scene.dim}")
-        if len(set(mesh.devices)) > 1:
-            self.eager_loop = ("its shards span several devices, and a group is one graph on "
-                               "one device; a graph per device is later work")
         super().__init__(scene, mesh, compat, resort_every, fast_math, layout, boundary_mode,
                          params, graphs=graphs)
         self.n_ax = n_ax
@@ -193,13 +188,14 @@ class ShardedWCSPHRect(MeshSolver):
         self._cuts_made = 0  # bumps with every new set of cuts
         self.cap_h: list[int] = []
         self.cap_m: list[int] = []
-        self._owned: dict = {}
         # on shard 0's device from the first bind on, updated in place (a
-        # graph keeps their addresses): each shard's live rows at its last
-        # build, and the flags [busiest shard's rows, dropped rows, builds
-        # with a migration trip, halo overflow]
+        # graph keeps their addresses): each shard's live rows (set by a
+        # build, grown by an emission), and the flags [busiest shard's rows,
+        # dropped rows, builds with a migration trip, halo overflow]; and
+        # from the first emitting call on, each emitter's emitted rows
         self._counts: torch.Tensor | None = None
         self._flags: torch.Tensor | None = None
+        self._emitted_rows: torch.Tensor | None = None
 
     # -- mesh geometry -----------------------------------------------------
     def _neighbour(self, s: int, a: int, d: int) -> int | None:
@@ -319,11 +315,7 @@ class ShardedWCSPHRect(MeshSolver):
             start += n
             st = pad_state_capacity(dataclasses.replace(st, num_active=n), rows)
             shards.append(_state_to(st, dev))
-        # each shard's live rows at its last build (device), rows emitted
-        # into it since (host), and their sum on the host (None until read)
         self._counts.copy_(torch.tensor(counts, dtype=torch.int64))
-        self._emitted = [0] * S
-        self._live = list(counts)
         return shards
 
     def _measure_buffers(self, state: SimState) -> None:
@@ -526,8 +518,6 @@ class ShardedWCSPHRect(MeshSolver):
             torch.maximum(self._flags[0], per[:, 0].max()), self._flags[1] + per[:, 1].sum(),
             self._flags[2] + (per[:, 2].sum() > 0), torch.maximum(
                 self._flags[3], (per[:, 3].sum() > 0).to(torch.int64))]))
-        # host bookkeeping a replay does not run: _groups resets it then
-        self._live, self._emitted = None, [0] * self.n_shards
         return new, caches
 
     def _halo(self, parts, caches):
@@ -547,71 +537,71 @@ class ShardedWCSPHRect(MeshSolver):
 
     def _capture_key(self) -> tuple:
         """Beyond ``SolverBase``'s: the shard rows, the caps (the shapes
-        ``_select`` gives) and the cuts (the cell-to-shard tables and the
-        edge layers a build reads), which ``run``'s steering changes."""
+        ``_select`` gives), the cuts (the cell-to-shard tables and the
+        edge layers a build reads), which ``run``'s steering changes, and
+        the room test's share of the rows."""
         return super()._capture_key() + (self.shard_rows, tuple(self.cap_h),
-                                         tuple(self.cap_m), self._cuts_made)
+                                         tuple(self.cap_m), self._cuts_made, self.emit_frac)
 
     def _inplace(self) -> tuple[torch.Tensor, ...]:
-        return self._counts, self._flags
+        held = (self._counts, self._flags)
+        return held if self._emitted_rows is None else held + (self._emitted_rows,)
 
     def _groups(self, carry, num_steps, R, substep, emit=None):
         """``SolverBase._groups``, then the call's one read: each shard's
-        live rows, and a raise if the fixed cut dropped any row."""
-        if num_steps > 0 and self._replays(emit):
-            # every group rebuilds, which resets this on the eager path
-            self._live, self._emitted = None, [0] * self.n_shards
+        live rows, the emitters' emitted rows, and a raise if the fixed cut
+        dropped any row."""
+        ems = list(carry[1]) if emit is not None else []
+        if ems:  # the device counters start from the host's, filled on the stream
+            dev0 = self.mesh.devices[0]
+            if self._emitted_rows is None or self._emitted_rows.shape[0] != len(ems):
+                self._emitted_rows = torch.zeros(len(ems), dtype=torch.int64, device=dev0)
+            for e, es in enumerate(ems):
+                self._emitted_rows[e].fill_(es.emitted)
         carry = super()._groups(carry, num_steps, R, substep, emit)
-        vals = torch.cat([self._counts, self._flags[1:2]]).tolist()
-        if vals[-1]:
+        S = self.n_shards
+        vals = torch.cat([self._counts, self._flags[1:2]]
+                         + ([self._emitted_rows] if ems else [])).tolist()
+        if vals[S]:
             raise RuntimeError(f"the fixed cut to {self.shard_rows} rows a shard dropped "
-                               f"{vals[-1]} particles; rebind with a larger balance_slack "
+                               f"{vals[S]} particles; rebind with a larger balance_slack "
                                f"(= {self.balance_slack}) or more shards")
-        self._live = [n + e for n, e in zip(vals[:-1], self._emitted)]
-        shards = [dataclasses.replace(st, num_active=n) for st, n in zip(carry[0], self._live)]
+        shards = [dataclasses.replace(st, num_active=n) for st, n in zip(carry[0], vals[:S])]
+        if ems:
+            return shards, [dataclasses.replace(es, emitted=n)
+                            for es, n in zip(carry[1], vals[S + 1:])]
         return (shards,) + tuple(carry[1:])
 
     # -- emitters: each shard's own tail -----------------------------------
-    def _owned_seeds(self, es: EmitterState) -> list[tuple[torch.Tensor, int]]:
-        """Per shard the seeds of ``es`` whose cell it owns (on its device)
-        and their count; read once per emitter and set of cuts."""
-        hit = self._owned.get(id(es.seeds_x))
-        # the entry holds the seeds, so their id cannot name another tensor
-        if hit is None or hit[0] is not es.seeds_x or hit[1] != self._cuts_made:
-            lin = self._shard_of(gridops.cell_coords(es.seeds_x, self.spec))[0].cpu()
-            seeds = es.seeds_x.cpu()
-            hit = (es.seeds_x, self._cuts_made, [(seeds[lin == s].to(dev), int((lin == s).sum()))
-                                                 for s, dev in enumerate(self.mesh.devices)])
-            self._owned[id(es.seeds_x)] = hit
-        return hit[2]
-
-    def _maybe_emit(self, carry: tuple) -> tuple:
-        """One step of every emitter: each shard activates the seeds it
-        owns into its own tail, all or none (``domain2d.py:962-1059``): a
-        batch fires only if every shard stays under ``emit_frac`` of its
-        rows.  The shards' live rows are read once per group."""
-        shards, ems = list(carry[0]), list(carry[1])
-        if self._live is None:
-            self._live = [n + e for n, e in zip(self._counts.tolist(), self._emitted)]
-        limit = int(self.emit_frac * self.shard_rows)
-        for k, es in enumerate(ems):
-            owned = self._owned_seeds(es)
-            room = all(n + m <= limit for n, (_, m) in zip(self._live, owned))
-            fire, ems[k] = count_step(es, room)
-            if not fire:
-                continue
-            for s, ((seeds, m), dev) in enumerate(zip(owned, self.mesh.devices)):
-                if m == 0:
-                    continue
-                st = shards[s]
-                fields = activate_seeds(
-                    {f: getattr(st, f) for f in EMIT_FIELDS}, self._live[s], seeds,
-                    es.velocity.to(dev), es.color.to(dev), es.density.to(dev),
-                    self.scene.particle_volume0)
-                self._live[s] += m
-                self._emitted[s] += m
-                shards[s] = dataclasses.replace(st, num_active=self._live[s], **fields)
-        return shards, ems
+    def _emit_batch(self, shards, es: EmitterState, e: int, start=None) -> list[SimState]:
+        """Emitter ``e``'s due batch, all or none, decided on the device
+        (``domain2d.py:962-1059``): each shard takes the seeds whose cell it
+        owns into its own tail, and the batch fires only if every shard
+        stays within ``emit_frac`` of its rows (the share ``run``
+        rebalances at, so emission never eats the migrants' headroom) and
+        the quota allows.  A batch that does not fire is written to a
+        dropped row (``activate_rows``); the live-row counts and the
+        emitter's emitted rows grow in place by what fired."""
+        S, rows, b = self.n_shards, self.shard_rows, es.batch_size
+        dev0 = self._counts.device
+        seeds = es.seeds_x.to(dev0, non_blocking=True)
+        lin = self._shard_of(gridops.cell_coords(seeds, self.spec))[0]
+        owned = lin[None, :] == torch.arange(S, device=dev0)[:, None]  # (S, b)
+        k = owned.sum(1)
+        fire = ((self._counts + k) <= int(self.emit_frac * rows)).all()
+        if es.max_particles > 0:
+            fire = fire & (self._emitted_rows[e] + b <= es.max_particles)
+        at = torch.where(owned & fire, self._counts[:, None] + torch.cumsum(owned, 1) - 1, rows)
+        out = []
+        for s, (st, dev) in enumerate(zip(shards, self.mesh.devices)):
+            fields = activate_rows(
+                {f: getattr(st, f) for f in EMIT_FIELDS}, at[s].to(dev, non_blocking=True),
+                seeds.to(dev, non_blocking=True), es.velocity.to(dev), es.color.to(dev),
+                es.density.to(dev), self.scene.particle_volume0)
+            out.append(dataclasses.replace(st, **fields))
+        self._counts.add_(k * fire)
+        self._emitted_rows[e].add_(fire.to(torch.int64) * b)
+        return out
 
     # -- adaptive run and metrics --------------------------------------------
     def regrow_buffers(self, factor: float = 2.0, kinds: tuple[str, ...] = ("h", "m")) -> None:

@@ -126,10 +126,7 @@ def main(argv: list[str] | None = None) -> int:
     # none of their inputs
     tt.advance(solver, shards, rigid, args.resort, ems)
     _sync(mesh)
-    if args.mesh2d:
-        solver.reset_flags()
-    else:
-        solver.occ_resort = 0
+    solver.reset_flags()
     t0 = time.perf_counter()
     shards, _, _ = tt.advance(solver, shards, rigid, args.steps, ems)
     _sync(mesh)
