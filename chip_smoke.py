@@ -5,8 +5,12 @@
 
 Phases, each of which raises on failure (nothing is caught):
 
-1. environment: torch, CUDA, nvcc, triton, the card's name and power limit;
-2. build: compiles tisph_tpu_torch/csrc/*.cu with nvcc for sm_90a;
+1. environment: torch, CUDA, nvcc, triton, the card's name and power
+   limit, and whether torch.cuda.CUDAGraph has begin_capture_to_if_node
+   (a conditional graph node, which the slab's seam guard would need to
+   run one resort branch on the graph path);
+2. build: compiles tisph_tpu_torch/csrc/*.cu (bounds.cu, sweeps.cu,
+   sweeps_linear.cu, legacy.cu) with nvcc for sm_90a;
 3. the rebuild kernel (csrc/bounds.cu through ops.cuda.bounds.sort_and_bound:
    after the cell sort, every state field in sorted order and the CSR
    bounds in one launch) vs its plain version (grid.sort_state_by_cell
@@ -102,10 +106,24 @@ Phases, each of which raises on failure (nothing is caught):
    200 steps at R=2 with the emitter, and 100 steps, save_npz, load_npz to
    the card and 100 more (emissions at steps 0 and 100): the two end
    states and emitter counters bitwise equal;
-13. the legacy V1 solver (WCSPHLegacy) on scenes/demo_2d.json: 20 steps on
-   the card against 20 on the CPU (x atol 1e-5, rows matched by a tag in
-   color[:, 0]), then 500 steps on the card: no NaN, CFL < 1, fluid inside
-   the padded box, and the rebuild kernel launched once a step;
+13. the legacy V1 solver (WCSPHLegacy) on scenes/demo_2d.json, whose two
+   pair sums are the kernel csrc/legacy.cu (ops.cuda.legacy): 500 steps
+   on the graph path (one replay a step) against graphs=False from the
+   same start, every field bitwise equal, with launch counts that count
+   replays (a rebuild, a density and a force launch a step, on both
+   paths); 20 steps on the card against 20 on the CPU (x atol 1e-5, rows
+   matched by a tag in color[:, 0]); no NaN, CFL < 1, fluid inside the
+   padded box; one eager step (_build and _apply) queued behind the spin
+   under torch's sync debug mode "error"; the kernel against its plain
+   version (ops.neighbors.legacy_*), two calls bitwise equal and 0 off the
+   fluid rows, density rtol 2e-5 and force / max|force| atol 5e-6, on
+   demo_2d's state after the 500 steps and on the 3D golden scene's start
+   (a boundary block); 100 steps of that scene with
+   boundary_mode="per_step" (a bvol, a density and a force launch in one
+   graph a step) bitwise graphs=False; the kernel's times against the
+   plain version and its bound on demo_2d's state (operations counted at
+   the state's dim); then both paths in turns (eager, graph, graph,
+   eager) at R=1, as phase 23;
 14. the 1-D sharded solver (tisph_tpu_torch.parallel.ShardedWCSPH) on
    demo_3d, on 2 and on 4 shards that all live on the one card (so its
    particle-steps/s is the exchange's cost, not scaling): 100 steps at R=2
@@ -171,8 +189,9 @@ Phases, each of which raises on failure (nothing is caught):
    at phase 4's tolerances, their times beside phase 5's;
 21. tools.compare_resort on demo_3d, 200 steps at R=2 and at R=3 against
    R=1 (R=2 must stay below 0.5 h position RMSE), and
-   tools.compare_compat on demo_2d, WCSPH 100 steps and legacy 50, beside
-   README's table; launch counters of both;
+   tools.compare_compat on demo_2d, WCSPH 100 steps and legacy 50 (graph
+   replays through csrc/legacy.cu), beside README's table; launch
+   counters of both;
 22. test_buoyancy's scenes through ShardedWCSPH.run_coupled, 2,000 steps
    at R=1 on one shard of the card (the light box floats above com_y
    0.27, the heavy one sinks below) and the light one on 2 slab shards,
@@ -216,7 +235,8 @@ Phases, each of which raises on failure (nothing is caught):
    rows too) and on 2x2 with an emit_frac that lets the busiest owner
    shard take one batch (its room test refuses the next); a 2-slab graph
    group queued behind the spin and no host read in a slab call, one in
-   a 2x2 emitting call; the resort's branches timed alone; both paths in
+   a 2x2 emitting call; the resort's branches timed alone, and a whole
+   graph group (copy in, one replay, clone out); both paths in
    turns on demo_3d on 2 and 4 slabs and the emitter scene on 2 slabs and
    2x2, as phase 23; then demo_3d 10,000 steps through ShardedWCSPH.run
    on 2 slabs and ShardedWCSPHRect.run on 2x2 on the graph path (chunks
@@ -224,11 +244,12 @@ Phases, each of which raises on failure (nothing is caught):
    NaN, CFL < 1, every particle live; the 2x2 at balance_slack 2.5), the
    end states beside phase 20's.
 
-The solvers of phases 5-12, 16, 17, 18, 20, 21, 22's WCSPHRigid and 23-25
-run the graph path (the default of a CUDA WCSPH and WCSPHRigid, and of a
-slab or rectangle whose shards share one card); the legacy solver (13)
-and the slab solvers of phases 14, 15, 19 and 22 (graphs=False, as they
-ran before phase 25 existed) the eager loop.
+The solvers of phases 5-13, 16, 17, 18, 20, 21, 22's WCSPHRigid and 23-25
+run the graph path (the default of a CUDA WCSPH, WCSPHRigid and
+WCSPHLegacy, and of a slab or rectangle whose shards share one card);
+phase 13 runs the legacy solver's eager loop beside it, and the slab
+solvers of phases 14, 15, 19 and 22 (graphs=False, as they ran before
+phase 25 existed) run the eager loop.
 
 Every kernel's entry in the JSON line has a bound: the larger of the bytes
 it must move (each input read once, each output written once) over 3.35
@@ -237,15 +258,19 @@ operations per pair counted from the CUDA source) over 67 TFLOP/s, the
 H100 SXM's published peaks; and, for the bounds-only launch, the time of
 torch.searchsorted on the same inputs, for the rebuild that of
 torch.searchsorted plus one index_select per field (no PyTorch call
-computes a sweep).
+computes a sweep).  The legacy sweeps' operations count the pairs of
+fluid rows inside h their sums take (fluid j for density, every live j
+for force).
 
 The launches in the JSON line are the sums of the main paths' runs:
-phases 5, 11, 12 and 13 with 14, 15, 17, 18 and 20-25 for kernel A's
-density and force and kernel B (and 19 for B), 7, 15, 18, 22-25 for bvol
-and force_react, 9, 19, 23 and 25 for kernel C.  A's max_abs_err folds in its
-checks over a row range (phase 14), with an i-row map (17) and, for
-density and force, on demo_3d after 10,000 steps (20); C's over a row
-range (19).
+phases 5, 11, 12 with 14, 15, 17, 18 and 20-25 for kernel A's density and
+force, the same and 13 and 19 for kernel B, 7, 15, 18, 22-25 for bvol
+and force_react, 9, 19, 23 and 25 for kernel C, 13 and 21 for the legacy
+kernel's two modes (graph replays: a rebuild, a density and a force
+launch a step).  A's max_abs_err folds in its checks over a row range
+(phase 14), with an i-row map (17) and, for density and force, on
+demo_3d after 10,000 steps (20); C's over a row range (19); the legacy
+kernel's its 2D and 3D checks (13).
 
 The last two lines of standard output are the JSON kernel summary and
 {"ok": true, "device": {...}}; any failure exits nonzero before them.
@@ -281,6 +306,8 @@ LARGE_STEPS = 20
 EMIT_R2, EMIT_R1 = 600, 100
 CKPT_STEPS = 200
 LEGACY_CHECK, LEGACY_STEPS = 20, 500
+LEGACY_TURNS = 500  # phase 13: steps of each path in turns
+LEGACY_PER_STEP = 100  # phase 13: the 3D golden scene with per-step volumes
 BITWISE_STEPS = 20
 SHARD_STEPS, SHARD_CHECK, SHARD_BITWISE = 100, 20, 10  # phase 14
 SHARD_RIGID = 200  # phase 15
@@ -374,7 +401,8 @@ TOL = {  # (density and bvol rtol, force atol after scaling by max|force|)
 # f32 outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
-# f32 operations per pair inside h in 3D, counted from csrc/sweeps.cu (the
+# f32 operations per pair inside h in 3D (the bounds of kernels A and C are
+# taken on 3D states only), counted from csrc/sweeps.cu (the
 # linear kernel's pair code is the same): 23 to the spline value w (3
 # differences, r^2 in 5, the clamp, rsqrt, q in 2, p1 and p2 in 2 each,
 # their squares, w in 5), then density and bvol +2 (multiply-add into the
@@ -382,6 +410,12 @@ F32_FLOPS = 67e12
 # 3, coef 5, the three sums 6); reaction +29 (gmag 4, dot 8, dot_neg 3,
 # nu_b,j 3, coef 5, sums 6).
 FLOPS_PER_PAIR = {"density": 25, "bvol": 25, "force": 60, "reaction": 52}
+# the same count for csrc/legacy.cu, by dim: 10 to q in 3D, 7 in 2D (dim
+# differences, r^2 in 5 or 3, sqrt, the divide by h), then density +14
+# (the piecewise W in 11, fl m_V W into the sum in 3); force +43 in 3D,
+# +36 in 2D (dot 8 or 5, viscosity 5, fluid pressure 4, boundary pressure
+# 4, the gradient factor 7, 1 / max(r h, eps h) 3, each axis 4)
+LEGACY_FLOPS_PER_PAIR = {"legacy_density": {2: 21, 3: 24}, "legacy_force": {2: 43, 3: 53}}
 
 
 def phase(name: str) -> None:
@@ -718,6 +752,8 @@ def sweep_bound(mode: str, inp, solver, seg: bool = True) -> tuple[float, str]:
 
     st = inp["st"]
     n, dim, nc = st.capacity, solver.spec.dim, solver.spec.num_cells
+    if dim != 3:
+        raise AssertionError(f"FLOPS_PER_PAIR counts 3D pairs, the state is {dim}D")
     fl, bd = st.fluid_mask, st.boundary_mask
     act = st.active_mask
     grad = mode in ("force", "force_react", "reaction")
@@ -1103,6 +1139,8 @@ def check_shard_sweeps(label: str, sh, inp, linear: bool = False) -> dict[str, t
     from tisph_tpu_torch.ops.cuda import sweeps
 
     spec, params = sh.spec, sh.params
+    if spec.dim != 3:
+        raise AssertionError(f"FLOPS_PER_PAIR counts 3D pairs, the state is {spec.dim}D")
     rows = inp["rows"]
     row_map = isinstance(rows, torch.Tensor)
     n = rows.shape[0] if row_map else rows[1]
@@ -1665,13 +1703,14 @@ def cadence_and_compat(kernels, card_line: str):
               f"= {row['rmse_over_h']:.4f} h (README: {want:.2f} h)")
     got = {k: f.launches for k, f in kernels.items()}
     # each tool runs its two modes; the legacy solver rebuilds every step and
-    # sweeps in plain PyTorch
+    # sweeps through csrc/legacy.cu, replaying one graph a step
     resort = sum(groups_of(RESORT_STEPS, RESORT_CHUNK, 1) + groups_of(RESORT_STEPS, RESORT_CHUNK, R)
                  for R in (2, 3))
     wc, lg = 2 * COMPAT_STEPS["wcsph"], 2 * COMPAT_STEPS["legacy"]
     want = {k: 0 for k in kernels} | {"rebuild": resort + wc + lg,
                                       "sweep.density": 4 * RESORT_STEPS + wc,
-                                      "sweep.force": 4 * RESORT_STEPS + wc}
+                                      "sweep.force": 4 * RESORT_STEPS + wc,
+                                      "legacy_density": lg, "legacy_force": lg}
     print(f"  launches: {got}")
     if got != want:
         raise AssertionError(f"phase 21 launch counts {got}, expected {want}")
@@ -1749,6 +1788,189 @@ def coupled_long_runs(tt, kernels, r_scene, card_line: str):
     return {k: total[k] + got[k] for k in kernels}
 
 
+def legacy_inputs(solver, state):
+    """The sorted state and the legacy sweeps' packs of one step, as
+    ``WCSPHLegacy._apply`` makes them (its density from the plain version,
+    so both sides of every comparison read identical inputs)."""
+    from tisph_tpu_torch.ops import neighbors
+    from tisph_tpu_torch.ops.eos import tait_pressure
+    from tisph_tpu_torch.ops.grid import csr_bounds, sort_state_by_cell
+
+    spec, params = solver.spec, solver.params
+    st, ids, _ = sort_state_by_cell(state, spec)
+    bounds = csr_bounds(ids, spec)
+    pos = neighbors.legacy_pos(st)
+    rho = neighbors.legacy_density_sweep(pos, ids, bounds, st.material, spec, params)
+    rho, p = tait_pressure(torch.where(st.fluid_mask, rho, st.density), params.density0,
+                           params.stiffness, params.exponent)
+    vel, aux = neighbors.legacy_force_packs(st, rho, p)
+    return {"st": st, "ids": ids, "bounds": bounds, "pos": pos, "vel": vel, "aux": aux}
+
+
+def legacy_call(lib, mode: str, solver, inp):
+    """One call of ``lib``'s (the kernel's wrapper or the plain version)
+    legacy sweep in ``mode`` ("legacy_density" or "legacy_force")."""
+    args = (inp["ids"], inp["bounds"], inp["st"].material, solver.spec, solver.params)
+    if mode == "legacy_density":
+        return lib.legacy_density_sweep(inp["pos"], *args)
+    return lib.legacy_force_sweep(inp["pos"], inp["vel"], inp["aux"], *args)
+
+
+def check_legacy(label: str, solver, inp) -> dict[str, float]:
+    """csrc/legacy.cu against its plain version in both modes: two calls
+    bitwise equal, finite, 0 off the fluid rows, density rtol 2e-5 and
+    force / max|force| atol 5e-6 on them; returns the max abs errors."""
+    from tisph_tpu_torch.ops import neighbors
+    from tisph_tpu_torch.ops.cuda import legacy
+
+    rtol, atol_f = TOL[False]
+    fl = inp["st"].fluid_mask
+    errs = {}
+    for mode in ("legacy_density", "legacy_force"):
+        got, again = legacy_call(legacy, mode, solver, inp), legacy_call(legacy, mode, solver, inp)
+        ref = legacy_call(neighbors, mode, solver, inp)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{label} {mode}: two calls on the same input differ")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{label} {mode}: non-finite output")
+        if not torch.equal(got[~fl], torch.zeros_like(got[~fl])):
+            raise AssertionError(f"{label} {mode}: rows off the fluid family not 0")
+        err = float((got - ref).abs().max())
+        if mode == "legacy_force":
+            rel = err / float(ref[fl].abs().max())
+            ok, detail = rel <= atol_f, f"max|err|/max|ref| = {rel:.3e} (atol {atol_f})"
+        else:
+            rel = float(((got - ref)[fl].abs() / ref[fl].abs().clamp(min=1e-30)).max())
+            ok, detail = rel <= rtol, f"max rel err = {rel:.3e} (rtol {rtol})"
+        print(f"  {label:<14} {mode:<14} rows={int(fl.sum())} of {fl.numel()} "
+              f"max|err|={err:.3e} {detail}")
+        if not ok:
+            raise AssertionError(f"{label} {mode}: {detail}")
+        errs[mode] = err
+    return errs
+
+
+def legacy_bound(mode: str, inp, solver) -> tuple[float, str]:
+    """(bound ms, "bytes" or "operations") of one legacy sweep on ``inp``:
+    bytes = its packs (pos; vel and aux for force), ids, material, the CSR
+    bounds and its output; operations = the pairs (fluid i, j != i inside
+    h; fluid j for density, every live j for force) times
+    LEGACY_FLOPS_PER_PAIR at the state's dim."""
+    st = inp["st"]
+    n, dim, nc = st.capacity, solver.spec.dim, solver.spec.num_cells
+    fl = st.fluid_mask
+    force = mode == "legacy_force"
+    nbytes = n * (16 + 4 + 4) + (nc + 1) * 4 + (2 * n * 16 + n * dim * 4 if force else n * 4)
+    # pairs_inside_h counts each fluid row's self pair, which these sums skip
+    pairs = pairs_inside_h(inp, solver, fl, st.active_mask if force else fl) - int(fl.sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = pairs * LEGACY_FLOPS_PER_PAIR[mode][dim] / F32_FLOPS
+    print(f"  bound {mode:<14} {nbytes / 1e6:.3f} MB -> {t_bytes * 1e3:.5f} ms, {pairs} pairs "
+          f"-> {t_ops * 1e3:.5f} ms ({pairs / max(int(fl.sum()), 1):.1f} pairs a fluid row)")
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def legacy_path(tt, kernels, card_line: str):
+    """Phase 13: ``WCSPHLegacy`` on demo_2d, on the graph path and on the
+    eager loop; returns the graph runs' launches, the kernel's errors,
+    times (kernel, plain) and bounds."""
+    from tisph_tpu_torch.ops import neighbors
+    from tisph_tpu_torch.ops.cuda import legacy
+
+    l2_scene = tt.load_scene(DEMO_2D)
+    starts = {}
+    for dev in ("cpu", DEVICE):
+        st = tt.build_state(l2_scene, device=dev)
+        tag = torch.arange(st.capacity, dtype=torch.float32, device=dev)
+        starts[dev] = dataclasses.replace(st, color=torch.cat([tag[:, None], st.color[:, 1:]], 1))
+    g = tt.WCSPHLegacy(l2_scene, device=DEVICE)
+    e = tt.WCSPHLegacy(l2_scene, device=DEVICE, graphs=False)
+    if not (g.graphs and g.eager_loop is None and not e.graphs):
+        raise AssertionError(f"legacy: graphs {g.graphs} / {e.graphs}, want True / False")
+    sg, se = g.bind(starts[DEVICE]), e.bind(starts[DEVICE])
+    each = {"rebuild": LEGACY_STEPS, "legacy_density": LEGACY_STEPS,
+            "legacy_force": LEGACY_STEPS}
+    got, want, total = graph_against_eager(
+        kernels, f"legacy demo_2d, {LEGACY_STEPS} steps", lambda: g.rollout(sg, LEGACY_STEPS),
+        lambda: e.rollout(se, LEGACY_STEPS), each)
+    same_bits("legacy demo_2d", got, want)
+    print(f"  legacy demo_2d: graphs=True bitwise equal to graphs=False in every field after "
+          f"{LEGACY_STEPS} steps; {g._runner.captures} capture(s), keys "
+          f"{sorted(g._runner._graphs)}")
+
+    cpu_solver = tt.WCSPHLegacy(l2_scene, device="cpu")
+    ref = cpu_solver.rollout(cpu_solver.bind(starts["cpu"]), LEGACY_CHECK)
+    reset_counts(kernels)
+    check = g.rollout(sg, LEGACY_CHECK)
+    torch.cuda.synchronize()
+    total = {k: total[k] + kernels[k].launches for k in kernels}
+
+    def by_tag(st):
+        order = torch.argsort(st.color[:st.num_active, 0])
+        return st.x[:st.num_active][order].cpu()
+
+    x_err = float((by_tag(check) - by_tag(ref)).abs().max())
+    print(f"  {check.num_active} particles, {LEGACY_CHECK} steps: card (graph path) vs CPU x "
+          f"max|err| {x_err:.3e} (atol 1e-5)")
+    if not x_err <= 1e-5:
+        raise AssertionError(f"legacy on the card differs from the CPU: {x_err:.3e}")
+
+    m = g.metrics(got)
+    lo, hi = (torch.tensor(v, device=DEVICE) for v in
+              ([s + l2_scene.padding for s in l2_scene.domain_start],
+               [e - l2_scene.padding for e in l2_scene.domain_end]))
+    fx = got.x[got.fluid_mask]
+    inside = bool(((fx >= lo - 1e-6) & (fx <= hi + 1e-6)).all())
+    print(f"  metrics after {LEGACY_STEPS} steps: {m}; fluid inside the padded box: {inside}")
+    if m["nan_count"] != 0 or not math.isfinite(m["max_velocity"]) or m["cfl"] >= 1.0:
+        raise AssertionError(f"legacy path unhealthy: {m}")
+    if not inside:
+        raise AssertionError("legacy fluid left the padded box")
+
+    # one eager step, build and apply, must not make the host wait
+    state, cache = e._build(got)
+    e._apply(state, cache)
+    assert_no_host_wait("legacy demo_2d, one eager step (_build and _apply)",
+                        lambda: e._apply(*e._build(got)))
+
+    # the kernel against its plain version on demo_2d's evolved state and
+    # on the 3D golden scene's start (a boundary block)
+    inp = legacy_inputs(g, got)
+    errs = check_legacy(f"demo_2d+{LEGACY_STEPS}", g, inp)
+    g3 = tt.WCSPHLegacy(tt.scene_from_dict(GOLDEN["3d_dam_break"][0]), device=DEVICE)
+    g3_inp = legacy_inputs(g3, g3.bind(tt.build_state(g3.scene, device=DEVICE)))
+    if not bool(g3_inp["st"].boundary_mask.any()):
+        raise AssertionError("the 3D legacy check state has no boundary row")
+
+    # boundary_mode="per_step": the bvol sweep and both legacy sums in one
+    # graph a step, on the 3D golden scene's boundary block
+    pg, pe = (tt.WCSPHLegacy(g3.scene, device=DEVICE, boundary_mode="per_step", graphs=gr)
+              for gr in (None, False))
+    p_start = pg.bind(tt.build_state(g3.scene, device=DEVICE))
+    pe.bind(p_start)
+    p_got, p_want, counted = graph_against_eager(
+        kernels, f"legacy golden_3d per_step, {LEGACY_PER_STEP} steps",
+        lambda: pg.rollout(p_start, LEGACY_PER_STEP), lambda: pe.rollout(p_start, LEGACY_PER_STEP),
+        {k: LEGACY_PER_STEP for k in ("rebuild", "sweep.bvol", "legacy_density", "legacy_force")})
+    same_bits("legacy golden_3d per_step", p_got, p_want)
+    total = {k: total[k] + counted[k] for k in kernels}
+    print(f"  legacy golden_3d per_step: graphs=True bitwise equal to graphs=False in every "
+          f"field after {LEGACY_PER_STEP} steps; {pg._runner.captures} capture(s)")
+    errs = {k: max(v, w) for (k, v), w in
+            zip(errs.items(), check_legacy("golden_3d", g3, g3_inp).values())}
+    times = time_against_plain({
+        mode: (lambda mode=mode: legacy_call(legacy, mode, g, inp),
+               lambda mode=mode: legacy_call(neighbors, mode, g, inp), 200, 3)
+        for mode in ("legacy_density", "legacy_force")})
+    bound = {mode: legacy_bound(mode, inp, g) for mode in ("legacy_density", "legacy_force")}
+
+    graph_turns(tt, "demo_2d legacy", tt.WCSPHLegacy(l2_scene, device=DEVICE),
+                tt.WCSPHLegacy(l2_scene, device=DEVICE, graphs=False), sg, None, None,
+                LEGACY_TURNS, card_line, R=1)
+    return total, errs, times, bound
+
+
 def graph_pair(tt, path: str, layout: str, R: int):
     """The scene on a solver with the graph path (the default) and on one
     with ``graphs=False``; the start state bound and the bodies (None
@@ -1809,9 +2031,9 @@ def graph_path(tt, kernels, card_line: str):
 
 
 def graph_turns(tt, label: str, g, e, state, rigid, ems, steps: int, card_line: str,
-                queue=None) -> None:
+                queue=None, R: int = 2) -> None:
     """The graph solver ``g`` (nothing captured yet) and the eager ``e``
-    from ``state`` (with ``rigid`` and ``ems`` where not None) at R=2:
+    from ``state`` (with ``rigid`` and ``ems`` where not None) at R:
     the memory peak of each path's first group over the start's, one
     untimed run of ``steps`` on the graph path (it captures every key the
     run meets), then ``steps`` steps of each in turns (eager, graph, graph,
@@ -1845,7 +2067,7 @@ def graph_turns(tt, label: str, g, e, state, rigid, ems, steps: int, card_line: 
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         rates.setdefault(name, []).append((n * steps / wall, host * 1e3 / steps))
-    prof = {name: profile_steps(solver, state, rigid, ems, GRAPH_PROFILE, 2)
+    prof = {name: profile_steps(solver, state, rigid, ems, GRAPH_PROFILE, R)
             for name, solver in (("eager", e), ("graph", g))}
     for name in ("eager", "graph"):
         (pps_a, host_a), (pps_b, host_b) = rates[name]
@@ -2235,10 +2457,13 @@ def slab_emit_graphs(tt, kernels, e_scene, e_start, ems0, scene, r_scene, soak_m
         exch_ms = cuda_ms(lambda: g._exchange_gather(sg, g._exchange_order(sg)[0]), 5)
         glob_ms = cuda_ms(lambda: g._global_resort(sg), 5)
         resort_ms = cuda_ms(lambda: g._resort(sg), 5)
+        # a whole group: the carry copied in, one replay, the carry cloned out
+        group_ms = cuda_ms(lambda: g.rollout(sg, 2), 5)
         print(f"  resort on {d} slabs (demo_3d after 20 steps), device ms a group: exchange "
               f"{exch_ms:.4f} (its order and guard {order_ms:.4f}), global branch alone "
               f"{glob_ms:.4f}, both and the select (the graph path's _resort) {resort_ms:.4f}; "
-              f"at R=2 the global branch adds {glob_ms / 2:.4f} ms a step; on {card_line}")
+              f"at R=2 the global branch adds {glob_ms / 2:.4f} ms a step; a whole R=2 graph "
+              f"group (copy in, replay, clone out) {group_ms:.4f}; on {card_line}")
         del g, sg
 
     # rollout_emit: bench_3d_mesh_500k on 2 slabs and on 2x2
@@ -2388,6 +2613,7 @@ def main() -> int:
     from tisph_tpu_torch.ops import neighbors
     from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
     from tisph_tpu_torch.ops.cuda import build
+    from tisph_tpu_torch.ops.cuda import legacy as cuda_legacy
     from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 
     kernels = {
@@ -2400,6 +2626,8 @@ def main() -> int:
         "sweep.reaction": cuda_sweeps.reaction_sweep,
         "linear.density": cuda_sweeps.density_sweep_linear,
         "linear.force": cuda_sweeps.force_sweep_linear,
+        "legacy_density": cuda_legacy.legacy_density_sweep,
+        "legacy_force": cuda_legacy.legacy_force_sweep,
     }
 
     phase("1 environment")
@@ -2415,6 +2643,8 @@ def main() -> int:
           f"cuda {torch.version.cuda} triton {triton_v}")
     print(f"  nvcc: {nvcc_v[-1]}")
     print(f"  device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    print("  CUDAGraph.begin_capture_to_if_node (a conditional graph node): "
+          f"{hasattr(torch.cuda.CUDAGraph, 'begin_capture_to_if_node')}")
 
     phase("2 build")
     path, secs = build.build()
@@ -2491,8 +2721,7 @@ def main() -> int:
     wall1 = time.perf_counter() - t0
     launches = {k: f.launches for k, f in kernels.items()}
     groups = -(-STEPS_R2 // 2)
-    zero = {"csr_bounds": 0, "sweep.bvol": 0, "sweep.force_react": 0, "sweep.reaction": 0,
-            "linear.density": 0, "linear.force": 0}
+    zero = {k: 0 for k in kernels if k not in ("rebuild", "sweep.density", "sweep.force")}
     want_r2 = {"rebuild": groups, "sweep.density": STEPS_R2, "sweep.force": STEPS_R2} | zero
     total = STEPS_R2 + STEPS_R1
     want = {"rebuild": groups + STEPS_R1, "sweep.density": total,
@@ -2618,9 +2847,9 @@ def main() -> int:
     rwall1 = time.perf_counter() - t0
     r_launches = {k: f.launches for k, f in kernels.items()}
     r_steps = RIGID_R2 + RIGID_R1
-    r_want = {"rebuild": -(-RIGID_R2 // 2) + RIGID_R1, "csr_bounds": 0, "sweep.density": r_steps,
-              "sweep.force": 0, "sweep.bvol": r_steps, "sweep.force_react": r_steps,
-              "sweep.reaction": 0, "linear.density": 0, "linear.force": 0}
+    r_want = {k: 0 for k in kernels} | {
+        "rebuild": -(-RIGID_R2 // 2) + RIGID_R1, "sweep.density": r_steps,
+        "sweep.bvol": r_steps, "sweep.force_react": r_steps}
     if r_launches != r_want:
         raise AssertionError(f"rigid launch counts {r_launches}, expected {r_want}")
     m = r_solver.metrics(r_state)
@@ -2975,53 +3204,12 @@ def main() -> int:
     launches = {k: launches[k] + c_launches[k] for k in kernels}
     del e_state, ck_a, ck_b, half, loaded
 
-    phase(f"13 legacy V1 solver: demo_2d, {LEGACY_CHECK} steps card vs CPU, then "
-          f"{LEGACY_STEPS} on the card")
-    l2_scene = tt.load_scene(DEMO_2D)
-    starts = {}
-    for dev in ("cpu", DEVICE):
-        st = tt.build_state(l2_scene, device=dev)
-        tag = torch.arange(st.capacity, dtype=torch.float32, device=dev)
-        starts[dev] = dataclasses.replace(st, color=torch.cat([tag[:, None], st.color[:, 1:]], 1))
-    cpu_solver = tt.WCSPHLegacy(l2_scene, device="cpu")
-    leg = tt.WCSPHLegacy(l2_scene, device=DEVICE)
-    ref = cpu_solver.rollout(cpu_solver.bind(starts["cpu"]), LEGACY_CHECK)
-    leg_state = leg.bind(starts[DEVICE])
-    reset_counts(kernels)
-    got = leg.rollout(leg_state, LEGACY_CHECK)
-    torch.cuda.synchronize()
-
-    def by_tag(st):
-        order = torch.argsort(st.color[:st.num_active, 0])
-        return st.x[:st.num_active][order].cpu()
-
-    x_err = float((by_tag(got) - by_tag(ref)).abs().max())
-    print(f"  {got.num_active} particles, {LEGACY_CHECK} steps: card vs CPU x max|err| "
-          f"{x_err:.3e} (atol 1e-5)")
-    if not x_err <= 1e-5:
-        raise AssertionError(f"legacy on the card differs from the CPU: {x_err:.3e}")
-    t0 = time.perf_counter()
-    got = leg.rollout(got, LEGACY_STEPS)
-    torch.cuda.synchronize()
-    lwall = time.perf_counter() - t0
-    leg_launches = {k: f.launches for k, f in kernels.items()}
-    leg_want = {k: 0 for k in kernels} | {"rebuild": LEGACY_CHECK + LEGACY_STEPS}
-    if leg_launches != leg_want:
-        raise AssertionError(f"legacy launch counts {leg_launches}, expected {leg_want}")
-    m = leg.metrics(got)
-    lo, hi = (torch.tensor(v, device=DEVICE) for v in
-              ([s + l2_scene.padding for s in l2_scene.domain_start],
-               [e - l2_scene.padding for e in l2_scene.domain_end]))
-    fx = got.x[got.fluid_mask]
-    inside = bool(((fx >= lo - 1e-6) & (fx <= hi + 1e-6)).all())
-    print(f"  launches: {leg_launches}")
-    print(f"  metrics after {LEGACY_CHECK + LEGACY_STEPS} steps: {m}; fluid inside the padded "
-          f"box: {inside}; {lwall * 1e3 / LEGACY_STEPS:.4f} ms/step on {card_line}")
-    if m["nan_count"] != 0 or not math.isfinite(m["max_velocity"]) or m["cfl"] >= 1.0:
-        raise AssertionError(f"legacy path unhealthy: {m}")
-    if not inside:
-        raise AssertionError("legacy fluid left the padded box")
-    launches = {k: launches[k] + leg_launches[k] for k in kernels}
+    phase(f"13 legacy V1 solver: demo_2d, {LEGACY_STEPS} steps graph vs eager, "
+          f"{LEGACY_CHECK} card vs CPU, the kernel vs plain, both paths in turns")
+    l13, leg_errs, leg_times, leg_bound = legacy_path(tt, kernels, card_line)
+    launches = {k: launches[k] + l13[k] for k in kernels}
+    times |= leg_times
+    bound |= leg_bound
 
     phase(f"14 sharded demo_3d: {SHARD_STEPS} steps at R=2 on 2 and 4 shards of one card")
     s14, shard_sweeps = sharded_demo(tt, kernels, scene, card_line)
@@ -3086,6 +3274,10 @@ def main() -> int:
         elif k.startswith("linear."):
             src[k] = ("tisph_tpu_torch/csrc/sweeps_linear.cu",
                       "tisph_tpu/ops/pallas/sweeps.py:384")
+    # no Pallas kernel: the jnp sweeps of tisph_tpu's legacy step
+    src["legacy_density"] = ("tisph_tpu_torch/csrc/legacy.cu",
+                             "tisph_tpu/models/wcsph_legacy.py:56")
+    src["legacy_force"] = ("tisph_tpu_torch/csrc/legacy.cu", "tisph_tpu/models/wcsph_legacy.py:95")
     err_of = {"rebuild": rebuild_err, "csr_bounds": float(bounds_err)}
     # A's entries fold in its row-range (phase 14) and i-row-map (17)
     # checks and, for density and force, its check on the piled-up state
@@ -3094,6 +3286,7 @@ def main() -> int:
                                  + ([soak_errs[m]] if m in ("density", "force") else []))
                for m, e in errs.items()}
     err_of |= {f"linear.{m}": max(e, lin_shard[m][0]) for m, e in lin_errs.items()}
+    err_of |= leg_errs  # demo_2d's evolved state and the 3D golden start
     print("  the rebuild pass after the sort, ms (kernel, plain, library, bound):")
     for label, r in rebuild.items():
         print(f"    {label:<22} {r['ms']:.4f} {r['plain_ms']:.4f} {r['library_ms']:.4f} "

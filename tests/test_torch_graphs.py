@@ -3,9 +3,9 @@
 On the CPU (the eager loop; no capture without a card):
 
 - ``graphs=True`` raises on a CPU solver and on a class that keeps the
-  eager loop (``WCSPHLegacy``, a slab or rectangle over several
-  devices); None is on for a CUDA ``WCSPH`` and ``WCSPHRigid`` and a slab
-  or rectangle on one card, off elsewhere; ``rollout_emit`` takes the
+  eager loop (a slab or rectangle over several devices); None is on for a
+  CUDA ``WCSPH``, ``WCSPHRigid`` and ``WCSPHLegacy`` and a slab or
+  rectangle on one card, off elsewhere; ``rollout_emit`` takes the
   graph path wherever the groups do (``tests/test_torch_graphs_emit_rect.py``
   and ``tests/test_torch_graphs_slab.py`` hold it and the decompositions'
   plumbing);
@@ -82,7 +82,8 @@ def _direct(solver):
 # -- choosing the path ---------------------------------------------------------
 
 def test_graphs_default_and_refusals(tmp_path):
-    """None is on for a CUDA WCSPH and WCSPHRigid; ``rollout_emit`` with
+    """None is on for a CUDA WCSPH, WCSPHRigid and WCSPHLegacy (whose
+    pair sums no longer read the host); ``rollout_emit`` with
     graphs=True no longer refuses: it takes the graph path, so a CPU state
     reaches the device check."""
     scene = pt.scene_from_dict(SCENE)
@@ -91,11 +92,10 @@ def test_graphs_default_and_refusals(tmp_path):
     assert not pt.WCSPH(scene, device="cpu").graphs
     body = pt.scene_from_dict(_body_scene(tmp_path, dynamic=True), base_dir=str(tmp_path))
     assert pt.WCSPHRigid(body, device="cuda").graphs
-    assert not pt.WCSPHLegacy(scene, device="cuda").graphs
+    assert pt.WCSPHLegacy(scene, device="cuda").graphs
     with pytest.raises(ValueError, match="needs a CUDA device"):
         pt.WCSPH(scene, device="cpu", graphs=True)
-    with pytest.raises(ValueError, match="WCSPHLegacy runs the eager loop"):
-        pt.WCSPHLegacy(scene, device="cuda", graphs=True)
+    assert pt.WCSPHLegacy(scene, device="cuda", graphs=True).graphs
     solver = pt.WCSPH(scene, device="cuda", resort_every=2, graphs=True)
     raw = dict(SCENE, emitters=[{"start": [0.6, 0.8, 0.4], "end": [0.7, 0.8001, 0.5],
                                  "velocity": [0.0, -1.0, 0.0], "interval": 3,
@@ -109,9 +109,9 @@ def test_graphs_default_and_refusals(tmp_path):
 
 
 def test_sharded_solvers_keep_the_eager_loop():
-    """What keeps the eager loop, each with its reason, and refuses
-    graphs=True: the legacy solver (torch.nonzero), and a slab or a
-    rectangle over several devices.  On one card the slab and the
+    """What keeps the eager loop, with its reason, and refuses graphs=True:
+    a slab or a rectangle over several devices; the legacy solver no
+    longer does.  On one card the slab and the
     rectangle replay their groups, ``rollout_emit`` too (no class keeps an
     eager loop for emission); on the CPU they run the eager loop."""
     from tisph_tpu_torch.models.solver_base import SolverBase
@@ -124,7 +124,7 @@ def test_sharded_solvers_keep_the_eager_loop():
 
     scene = pt.scene_from_dict(SCENE)
     assert pt.WCSPH.eager_loop is None and pt.WCSPHRigid.eager_loop is None
-    assert "torch.nonzero" in pt.WCSPHLegacy.eager_loop
+    assert pt.WCSPHLegacy.eager_loop is None
     assert not hasattr(SolverBase, "emit_eager_loop")
     one = ["cuda:0"] * 4
     several = ["cuda:0", "cuda:1", "cuda:0", "cuda:1"]

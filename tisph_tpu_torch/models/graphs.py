@@ -72,6 +72,7 @@ import torch
 
 from tisph_tpu_torch.geometry.emitter import count_step, due_step
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
+from tisph_tpu_torch.ops.cuda import legacy as cuda_legacy
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.grid import state_fields
 
@@ -82,7 +83,8 @@ _COUNTERS = tuple(
     for w in (cuda_bounds.sort_and_bound, cuda_bounds.csr_bounds_sorted,
               cuda_sweeps.density_sweep, cuda_sweeps.force_sweep, cuda_sweeps.bvol_sweep,
               cuda_sweeps.force_react_sweep, cuda_sweeps.reaction_sweep,
-              cuda_sweeps.density_sweep_linear, cuda_sweeps.force_sweep_linear)
+              cuda_sweeps.density_sweep_linear, cuda_sweeps.force_sweep_linear,
+              cuda_legacy.legacy_density_sweep, cuda_legacy.legacy_force_sweep)
     for c in ("launches", "part_launches") if hasattr(w, c)
 )
 

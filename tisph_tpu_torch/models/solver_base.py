@@ -13,7 +13,7 @@ applies; at R > 1 each group rebuilds once, then every substep emits and
 applies, so a batch emitted inside a group joins the neighbour structure
 at the next rebuild.
 
-On a CUDA ``WCSPH`` or ``WCSPHRigid`` each R-group of ``step``,
+On a CUDA ``WCSPH``, ``WCSPHRigid`` or ``WCSPHLegacy`` each R-group of ``step``,
 ``rollout``, ``rollout_emit``, ``run`` and the coupled ones is one replay
 of a CUDA graph (``models.graphs``, the counterpart of ``tisph_tpu``'s
 jitted rollout), and so is a group of the slab and the rectangle

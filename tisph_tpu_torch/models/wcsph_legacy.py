@@ -14,10 +14,15 @@ What differs from the V2 flagship (:mod:`models.wcsph`):
   components), which ``reference_exact`` leaves out as the reference's V1
   does (its ``enforce_boundary`` is never called).
 
-Each step rebuilds (``sort_and_bound``) and runs two pair sums written in
-PyTorch on ``ops.neighbors.candidates``, on either device: ``tisph_tpu``
-runs them as jnp sweeps and no TPU kernel.  The self pair is excluded and a
-pair counts when r^2 < h^2 (``tisph_tpu/ops/neighbors.py:160-163``).
+Each step rebuilds (``sort_and_bound``) and runs the two pair sums, the
+kernel ``csrc/legacy.cu`` on the card (``ops.cuda.legacy``) and its plain
+versions on the CPU (``ops.neighbors.legacy_*``): ``tisph_tpu`` runs them
+as jnp sweeps and no TPU kernel.  The self pair is excluded and a pair
+counts when r^2 < h^2 (``tisph_tpu/ops/neighbors.py:160-163``).  Both
+sums run over every row and are masked by ``torch.where``: a step reads
+nothing on the host, so on the card it replays as one CUDA graph (the
+rebuild and one step, ``models.graphs``), as ``tisph_tpu`` runs a legacy
+step as one jit.
 """
 
 from __future__ import annotations
@@ -29,18 +34,16 @@ import torch
 from tisph_tpu_torch.models.solver_base import SolverBase
 from tisph_tpu_torch.models.state import SimState
 from tisph_tpu_torch.ops import forces as F
-from tisph_tpu_torch.ops.consts import device_constant
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
+from tisph_tpu_torch.ops.cuda import legacy as cuda_legacy
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.eos import tait_pressure
-from tisph_tpu_torch.ops.kernels import cubic_kernel, cubic_kernel_grad
-from tisph_tpu_torch.ops.neighbors import candidates, pack4
+from tisph_tpu_torch.ops.neighbors import legacy_force_packs, legacy_pos, pack4
 
 
 class WCSPHLegacy(SolverBase):
     layouts = ("seg",)
-    eager_loop = ("its pair sums run torch.nonzero, a host read (_pairs); fixed-shape pair "
-                  "lists in its place are later work")
+    eager_loop = None  # a step reads nothing on the host: one CUDA graph replay
 
     def _check_resort(self, R: int) -> None:
         super()._check_resort(R)
@@ -51,22 +54,9 @@ class WCSPHLegacy(SolverBase):
         state, ids, _, bounds = cuda_bounds.sort_and_bound(state, self.spec)
         return state, (ids, bounds)
 
-    def _pairs(self, x: torch.Tensor, ids, bounds, rows_i):
-        """The pairs (i, j) of the rows ``rows_i`` with j != i and r^2 <
-        h^2, as chunks ``(i, j, r, r2)`` with r = x_i - x_j."""
-        h2 = self.params.support_length ** 2
-        for i, j in candidates(ids, bounds, rows_i, self.spec):
-            r = x[i] - x[j]
-            r2 = torch.sum(r * r, dim=-1)
-            keep = torch.nonzero((r2 < h2) & (i != j)).squeeze(1)
-            yield i[keep], j[keep], r[keep], r2[keep]
-
     def _apply(self, state: SimState, cache) -> SimState:
         ids, bounds = cache
         params, spec = self.params, self.spec
-        dim, h = params.dim, params.support_length
-        m_v = 0.8 * (2.0 * params.particle_radius) ** dim
-        mass = m_v * params.density0
 
         if self.boundary_mode == "per_step":
             bd = state.boundary_mask
@@ -75,31 +65,14 @@ class WCSPHLegacy(SolverBase):
             volume = torch.where(bd, 1.0 / torch.clamp(delta, min=1e-10), state.volume)
             state = dataclasses.replace(state, volume=volume)
 
-        fluid = state.fluid_mask
-        fl = fluid.to(torch.float32)
-        bound = (~fluid & state.active_mask).to(torch.float32)
-        rows = torch.nonzero(fluid).squeeze(1)
-        pairs = list(self._pairs(state.x, ids, bounds, rows))
-
-        acc = torch.zeros_like(state.density)
-        for i, j, _, r2 in pairs:
-            acc.index_add_(0, i, fl[j] * m_v * cubic_kernel(torch.sqrt(r2), h, dim))
-        density = torch.where(fluid, params.density0 * acc, state.density)
+        pos = legacy_pos(state)
+        acc = cuda_legacy.legacy_density_sweep(pos, ids, bounds, state.material, spec, params)
+        density = torch.where(state.fluid_mask, acc, state.density)
         rho, pressure = tait_pressure(density, params.density0, params.stiffness,
                                       params.exponent)
-
-        p_rho2 = pressure / (rho * rho)
-        visc = 2.0 * (dim + 2) * params.viscosity
-        gravity = device_constant([0.0] * (dim - 1) + [-9.80], torch.float32, state.device)
-        dv = gravity.expand_as(state.x).clone()
-        for i, j, r, r2 in pairs:
-            rho_j = rho[j]
-            dot = torch.sum((state.v[i] - state.v[j]) * r, dim=-1)
-            coef = visc * (mass / rho_j) * dot / (r2 + 0.01 * h * h)
-            coef = coef - fl[j] * (params.density0 * m_v) * (p_rho2[i] + pressure[j] / (rho_j * rho_j))
-            coef = coef - bound[j] * (params.density0 * state.volume[j]) * p_rho2[i]
-            dv.index_add_(0, i, coef[:, None] * cubic_kernel_grad(r, h, dim))
-        dv = torch.where(fluid[:, None], dv, 0.0)
+        vel, aux = legacy_force_packs(state, rho, pressure)
+        dv = cuda_legacy.legacy_force_sweep(pos, vel, aux, ids, bounds, state.material, spec,
+                                            params)
 
         state = F.advect(dataclasses.replace(state, density=rho, pressure=pressure), dv, params)
         if params.reference_exact:

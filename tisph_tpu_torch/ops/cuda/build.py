@@ -42,6 +42,8 @@ _SIGNATURES = {
     "tisph_linear_sweep": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "tisph_legacy_sweep": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "tisph_error_string": [_I],
 }
 

@@ -34,6 +34,13 @@ versions of the linear-layout sweep kernel: the same pair set and pair
 arithmetic, with the candidates drawn from per-block windows and an id
 test (:func:`candidates`).
 
+The ``legacy_*`` versions are the legacy (V1) solver's two pair sums
+(``models.wcsph_legacy``), the plain versions of ``csrc/legacy.cu``:
+over every candidate j != i with r^2 < h^2 (``tisph_tpu/ops/
+neighbors.py:160-163``), with the piecewise cubic spline of
+``ops.kernels``; see :func:`legacy_density_sweep` and
+:func:`legacy_force_sweep` for their packs.
+
 Inputs are float4-style packs (:func:`pack4`, :func:`pack_aux`), (N, 4) f32:
 
 - ``pos`` = [x, y, z or 0, c] with c = effm (density and the gradient
@@ -59,7 +66,8 @@ from tisph_tpu_torch.ops.grid import (
     coords_from_ids,
     stencil_runs,
 )
-from tisph_tpu_torch.ops.kernels import cubic_kernel_sigma
+from tisph_tpu_torch.ops.consts import device_constant
+from tisph_tpu_torch.ops.kernels import cubic_kernel, cubic_kernel_grad, cubic_kernel_sigma
 
 # Candidate pairs per chunk of rows i: bounds the plain sweep's transient
 # memory (~40 tensors of this length in the force mode) so 195k particles
@@ -328,3 +336,77 @@ def force_sweep_linear(pos, vel, aux, ids, bounds, material, spec: GridSpec,
     acceleration on fluid rows, 0 elsewhere; ``rows`` as in
     :func:`density_sweep_linear`."""
     return _sweep("force", pos, vel, aux, ids, bounds, material, spec, params, "linear", rows)
+
+
+def legacy_masses(params: SolverParams) -> tuple[float, float]:
+    """(m_V, m_V rho0) of the legacy solver: the scalar m_V = 0.8 d^dim
+    of the particle diameter d, and the mass of its viscosity."""
+    m_v = 0.8 * (2.0 * params.particle_radius) ** params.dim
+    return m_v, m_v * params.density0
+
+
+def legacy_pos(state) -> torch.Tensor:
+    """The legacy sums' ``pos`` pack of a sorted state: [x, fl], fl 1 on
+    fluid rows, else 0."""
+    return pack4(state.x, state.fluid_mask.to(torch.float32))
+
+
+def legacy_force_packs(state, rho: torch.Tensor,
+                       pressure: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The legacy force sum's ``vel`` and ``aux`` packs of a sorted state
+    with the step's ``rho`` and ``pressure``: [v, rho] and [p / rho^2, V,
+    bd, 0], bd 1 on live rows off the fluid family, else 0."""
+    bound = (~state.fluid_mask & state.active_mask).to(torch.float32)
+    aux = torch.stack([pressure / (rho * rho), state.volume, bound, torch.zeros_like(bound)],
+                      dim=1)
+    return pack4(state.v, rho), aux
+
+
+def _legacy_pairs(x, ids, bounds, material, spec: GridSpec, params: SolverParams):
+    """The pairs (i, j) of the fluid rows with j != i and r^2 < h^2, as
+    chunks ``(i, j, r, r2)`` with r = x_i - x_j."""
+    h2 = params.support_length ** 2
+    rows = torch.nonzero(material == MATERIAL_FLUID).squeeze(1)
+    for i, j in candidates(ids, bounds, rows, spec):
+        r = x[i] - x[j]
+        r2 = torch.sum(r * r, dim=-1)
+        keep = torch.nonzero((r2 < h2) & (i != j)).squeeze(1)
+        yield i[keep], j[keep], r[keep], r2[keep]
+
+
+def legacy_density_sweep(pos, ids, bounds, material, spec: GridSpec,
+                         params: SolverParams) -> torch.Tensor:
+    """(N,) rho_i = rho0 sum over fluid j of m_V W_ij on fluid rows, 0
+    elsewhere.  ``pos`` = [x, fl] (fl 1 on fluid rows, else 0)."""
+    dim, h = spec.dim, params.support_length
+    m_v, _ = legacy_masses(params)
+    x, fl = pos[:, :dim], pos[:, 3]
+    acc = torch.zeros_like(fl)
+    for i, j, _, r2 in _legacy_pairs(x, ids, bounds, material, spec, params):
+        acc.index_add_(0, i, fl[j] * m_v * cubic_kernel(torch.sqrt(r2), h, dim))
+    return torch.where(material == MATERIAL_FLUID, params.density0 * acc, 0.0)
+
+
+def legacy_force_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
+                       params: SolverParams) -> torch.Tensor:
+    """(N, dim) dv_i on fluid rows, 0 elsewhere: gravity -9.80 on the last
+    axis plus, over every pair, the viscosity 2 (dim + 2) nu (m_V rho0 /
+    rho_j) (v_ij . r) / (r^2 + 0.01 h^2) grad W, the fluid pressure term
+    -rho0 m_V (p_i / rho_i^2 + p_j / rho_j^2) grad W and the boundary term
+    -rho0 V_j (p_i / rho_i^2) grad W.  ``pos`` = [x, fl], ``vel`` = [v,
+    rho], ``aux`` = [p / rho^2, V, bd, 0] (bd 1 on live non-fluid rows)."""
+    dim, h = spec.dim, params.support_length
+    m_v, mass = legacy_masses(params)
+    x, fl = pos[:, :dim], pos[:, 3]
+    v, rho = vel[:, :dim], vel[:, 3]
+    p_rho2, volume, bound = aux[:, 0], aux[:, 1], aux[:, 2]
+    visc = 2.0 * (dim + 2) * params.viscosity
+    gravity = device_constant([0.0] * (dim - 1) + [-9.80], torch.float32, pos.device)
+    dv = gravity.expand_as(x).clone()
+    for i, j, r, r2 in _legacy_pairs(x, ids, bounds, material, spec, params):
+        dot = torch.sum((v[i] - v[j]) * r, dim=-1)
+        coef = visc * (mass / rho[j]) * dot / (r2 + 0.01 * h * h)
+        coef = coef - fl[j] * (params.density0 * m_v) * (p_rho2[i] + p_rho2[j])
+        coef = coef - bound[j] * (params.density0 * volume[j]) * p_rho2[i]
+        dv.index_add_(0, i, coef[:, None] * cubic_kernel_grad(r, h, dim))
+    return torch.where((material == MATERIAL_FLUID)[:, None], dv, 0.0)
