@@ -10,7 +10,7 @@ Phases, each of which raises on failure (nothing is caught):
    (a conditional graph node, which the slab's seam guard would need to
    run one resort branch on the graph path);
 2. build: compiles tisph_tpu_torch/csrc/*.cu (bounds.cu, sweeps.cu,
-   sweeps_linear.cu, legacy.cu) with nvcc for sm_90a;
+   sweeps_linear.cu, legacy.cu, pointwise.cu) with nvcc for sm_90a;
 3. the rebuild kernel (csrc/bounds.cu through ops.cuda.bounds.sort_and_bound:
    after the cell sort, every state field in sorted order and the CSR
    bounds in one launch) vs its plain version (grid.sort_state_by_cell
@@ -243,6 +243,17 @@ Phases, each of which raises on failure (nothing is caught):
    of 250: each steering event and the captures it caused printed; no
    NaN, CFL < 1, every particle live; the 2x2 at balance_slack 2.5), the
    end states beside phase 20's.
+26. the substep's row ops (csrc/pointwise.cu through ops.cuda.pointwise:
+   eos_pack before the force sweep, advance after it) against their plain
+   versions (ops.forces.eos_packs_plain, advance_plain), bitwise in every
+   output, on demo_3d after phase 5's 252 steps, bench_3d_rigid after
+   phase 7's coupled run, phase 11's emitter state mid-group (a batch
+   emitted after the rebuild: fluid now, in no sweep's family) and the 2D
+   golden start, each also with NaN and infinite rows in a copy of its
+   inputs; their CUDA-event times against the plain sequences' on the
+   same inputs, and their bytes bounds.  Every WCSPH path of phases 5-25
+   counts one eos_pack and one advance launch a substep of a shard (one a
+   density sweep), on the graph path and the eager loop alike.
 
 The solvers of phases 5-13, 16, 17, 18, 20, 21, 22's WCSPHRigid and 23-25
 run the graph path (the default of a CUDA WCSPH, WCSPHRigid and
@@ -260,17 +271,22 @@ torch.searchsorted on the same inputs, for the rebuild that of
 torch.searchsorted plus one index_select per field (no PyTorch call
 computes a sweep).  The legacy sweeps' operations count the pairs of
 fluid rows inside h their sums take (fluid j for density, every live j
-for force).
+for force).  The row ops' bounds count each row's bytes (the density
+sweep's rho on the sort-time fluid rows and the stored one elsewhere, dv
+on the fluid rows) and their operations per row from the CUDA source; no
+one PyTorch call computes either.
 
 The launches in the JSON line are the sums of the main paths' runs:
 phases 5, 11, 12 with 14, 15, 17, 18 and 20-25 for kernel A's density and
 force, the same and 13 and 19 for kernel B, 7, 15, 18, 22-25 for bvol
 and force_react, 9, 19, 23 and 25 for kernel C, 13 and 21 for the legacy
 kernel's two modes (graph replays: a rebuild, a density and a force
-launch a step).  A's max_abs_err folds in its checks over a row range
+launch a step), and for eos_pack and advance every phase of A's density
+and of C's.  A's max_abs_err folds in its checks over a row range
 (phase 14), with an i-row map (17) and, for density and force, on
 demo_3d after 10,000 steps (20); C's over a row range (19); the legacy
-kernel's its 2D and 3D checks (13).
+kernel's its 2D and 3D checks (13); the row ops' their finite outputs
+over phase 26's states (0: bitwise).
 
 The last two lines of standard output are the JSON kernel summary and
 {"ok": true, "device": {...}}; any failure exits nonzero before them.
@@ -416,6 +432,16 @@ FLOPS_PER_PAIR = {"density": 25, "bvol": 25, "force": 60, "reaction": 52}
 # +36 in 2D (dot 8 or 5, viscosity 5, fluid pressure 4, boundary pressure
 # 4, the gradient factor 7, 1 / max(r h, eps h) 3, each axis 4)
 LEGACY_FLOPS_PER_PAIR = {"legacy_density": {2: 21, 3: 24}, "legacy_force": {2: 43, 3: 53}}
+# csrc/pointwise.cu's two kernels, and their f32 operations counted from
+# the source: eos_pack 12 a row at gamma = 7 (the clamp, the ratio, the
+# power's 4 multiplies, p in 2, rho^2, its clamp and the divide; +1 for
+# reference_exact's m W(0)); advance on a fluid row 10 an axis (v and x in
+# 4, the normal's 2 compares and sum, its square, the clamp's 2), then
+# |n| in 5 (3D; 3 in 2D) + 2, n^ and v n^ 2 an axis, v . n^ in 5 (3), the
+# test and (1 + c_f) v . n^ 2, the reflection 2 an axis
+ROW_OPS = ("eos_pack", "advance")
+EOS_FLOPS_PER_ROW = 12
+ADVANCE_FLOPS_PER_FLUID_ROW = {2: 38, 3: 56}
 
 
 def phase(name: str) -> None:
@@ -473,6 +499,15 @@ def reset_counts(kernels) -> None:
             k.part_launches = 0
 
 
+def with_row_ops(want: dict) -> dict:
+    """``want`` (launch counts) with the row ops' launches: one eos_pack
+    and one advance (csrc/pointwise.cu) a density sweep of kernel A or C,
+    i.e. one each a substep of a shard on every WCSPH path (none on the
+    legacy solver's)."""
+    n = want.get("sweep.density", 0) + want.get("linear.density", 0)
+    return want | {k: n for k in ROW_OPS}
+
+
 def assert_no_host_wait(label: str, fn) -> None:
     """``fn()`` must only queue device work.  It runs behind a device-side
     spin of about a second, with torch's sync debug mode set to raise on a
@@ -500,12 +535,13 @@ def assert_no_host_wait(label: str, fn) -> None:
 
 def sweep_inputs(solver, state, per_step: bool = False):
     """Sorted state and the sweep packs of one substep's density and force
-    calls (density from the plain version, so both sides of every
-    comparison read identical inputs).  ``per_step``: boundary volumes
+    calls (density and the packs from the plain versions, so both sides of
+    every comparison read identical inputs).  ``per_step``: boundary volumes
     from a bvol pass on the current positions first, as the coupled
     substep takes them."""
-    from tisph_tpu_torch.models.wcsph import eos_packs, group_masses, per_step_volumes
+    from tisph_tpu_torch.models.wcsph import group_masses, per_step_volumes
     from tisph_tpu_torch.ops import neighbors
+    from tisph_tpu_torch.ops.forces import eos_packs_plain as eos_packs
     from tisph_tpu_torch.ops.grid import csr_bounds, sort_state_by_cell
 
     spec, params = solver.spec, solver.params
@@ -989,8 +1025,8 @@ def group_inputs(solver, state, cache):
     counterpart of sweep_inputs for a state that an emitter changed after
     the group's rebuild.  ``st`` carries the sort-time material, so a
     checker's family rows are the rebuild's."""
-    from tisph_tpu_torch.models.wcsph import eos_packs
     from tisph_tpu_torch.ops import neighbors
+    from tisph_tpu_torch.ops.forces import eos_packs_plain as eos_packs
 
     spec, params = solver.spec, solver.params
     ids, bounds = cache.ids, cache.bounds
@@ -1017,16 +1053,18 @@ def emission_cadence(es, num_active: int, capacity: int, steps: int) -> tuple[in
 
 
 def plain_apply(solver, state, cache):
-    """``solver._apply`` with the plain sweeps (ops.neighbors) in the place
-    of the kernels: the same code path, the kernels' plain versions."""
+    """``solver._apply`` with the plain sweeps (ops.neighbors) and row ops
+    (ops.forces) in the place of the kernels: the same code path, the
+    kernels' plain versions."""
     from unittest import mock
 
-    from tisph_tpu_torch.ops import neighbors
-    from tisph_tpu_torch.ops.cuda import sweeps
+    from tisph_tpu_torch.ops import forces, neighbors
+    from tisph_tpu_torch.ops.cuda import pointwise, sweeps
 
     with mock.patch.multiple(sweeps, density_sweep=neighbors.density_sweep,
                              force_sweep=neighbors.force_sweep,
-                             bvol_sweep=neighbors.bvol_sweep):
+                             bvol_sweep=neighbors.bvol_sweep), mock.patch.multiple(
+            pointwise, eos_pack=forces.eos_packs_plain, advance=forces.advance_plain):
         return solver._apply(state, cache)
 
 
@@ -1083,8 +1121,8 @@ def shard_sweep_inputs(sh, shards, s: int):
     fresh R-group of the sharded solver ``sh``, as its _apply forms them:
     the window's packs (density from the plain version), ids, bounds and
     sort-time material, and the shard's row range."""
-    from tisph_tpu_torch.models.wcsph import eos_packs
     from tisph_tpu_torch.ops import neighbors
+    from tisph_tpu_torch.ops.forces import eos_packs_plain as eos_packs
 
     spec, params = sh.spec, sh.params
     shards, caches = sh._build(shards)
@@ -1107,8 +1145,8 @@ def rect_sweep_inputs(sh, shards, s: int):
     fresh R-group of the rectangle solver ``sh``, as its _apply forms them:
     the extended packs (density from the plain version), ids, bounds and
     sort-time material, and the own rows' i-row map."""
-    from tisph_tpu_torch.models.wcsph import eos_packs
     from tisph_tpu_torch.ops import neighbors
+    from tisph_tpu_torch.ops.forces import eos_packs_plain as eos_packs
 
     spec, params = sh.spec, sh.params
     shards, caches = sh._build(shards)
@@ -1235,6 +1273,7 @@ def sharded_demo(tt, kernels, scene, card_line: str):
         s_want = {k: 0 for k in kernels} | {
             "rebuild": (groups - fb) * d + fb, "csr_bounds": groups * d,
             "sweep.density": SHARD_STEPS * d, "sweep.force": SHARD_STEPS * d}
+        s_want = with_row_ops(s_want)
         if s_launches != s_want:
             raise AssertionError(f"{d} shards: launch counts {s_launches}, expected {s_want}")
         m = sh.metrics(shards)
@@ -1313,6 +1352,7 @@ def sharded_rigid(tt, kernels, r_scene, card_line: str):
         "rebuild": (groups - fb) * 2 + fb, "csr_bounds": groups * 2,
         "sweep.bvol": SHARD_RIGID * 2, "sweep.density": SHARD_RIGID * 2,
         "sweep.force_react": SHARD_RIGID * 2}
+    c_want = with_row_ops(c_want)
     if c15 != c_want:
         raise AssertionError(f"coupled sharded launch counts {c15}, expected {c_want}")
     whole = sh.gather_state(shards)
@@ -1373,6 +1413,7 @@ def rect_demo(tt, kernels, scene, card_line: str):
         want = {k: 0 for k in kernels} | {
             "rebuild": groups * d, "csr_bounds": groups * d,
             "sweep.density": RECT_STEPS * d, "sweep.force": RECT_STEPS * d}
+        want = with_row_ops(want)
         maps = {m: getattr(cuda_sweeps, f"{m}_sweep").part_launches for m in ("density", "force")}
         if got != want or maps != {"density": RECT_STEPS * d, "force": RECT_STEPS * d}:
             raise AssertionError(f"{label}: launch counts {got} ({maps} with an i-row map), "
@@ -1465,6 +1506,7 @@ def rect_rigid(tt, kernels, r_scene, card_line: str):
     want = {k: 0 for k in kernels} | {
         "rebuild": groups * 4, "csr_bounds": groups * 4, "sweep.bvol": RECT_RIGID * 4,
         "sweep.density": RECT_RIGID * 4, "sweep.force_react": RECT_RIGID * 4}
+    want = with_row_ops(want)
     maps = {m: getattr(cuda_sweeps, f"{m}_sweep").part_launches
             for m in ("bvol", "density", "force_react")}
     if got != want or set(maps.values()) != {RECT_RIGID * 4}:
@@ -1518,6 +1560,7 @@ def linear_sharded(tt, kernels, scene, card_line: str):
         want = {k: 0 for k in kernels} | {
             "rebuild": (LIN_SHARD_STEPS - fb) * d + fb, "csr_bounds": LIN_SHARD_STEPS * d,
             "linear.density": LIN_SHARD_STEPS * d, "linear.force": LIN_SHARD_STEPS * d}
+        want = with_row_ops(want)
         ranged = {m: getattr(cuda_sweeps, f"{m}_sweep_linear").part_launches
                   for m in ("density", "force")}
         if got != want or set(ranged.values()) != {LIN_SHARD_STEPS * d}:
@@ -1611,6 +1654,7 @@ def soak_run(kernels, path: str, steps: int, chunk: int, card_line: str):
     want = {k: 0 for k in kernels} | {"rebuild": bind + groups_of(steps, chunk, 2),
                                       "sweep.bvol": bind, "sweep.density": steps,
                                       "sweep.force": steps}
+    want = with_row_ops(want)
     m = rec["metrics"]
     print(f"  record: {json.dumps(rec)}")
     print(f"  launches: {got}")
@@ -1711,6 +1755,7 @@ def cadence_and_compat(kernels, card_line: str):
                                       "sweep.density": 4 * RESORT_STEPS + wc,
                                       "sweep.force": 4 * RESORT_STEPS + wc,
                                       "legacy_density": lg, "legacy_force": lg}
+    want = with_row_ops(want)
     print(f"  launches: {got}")
     if got != want:
         raise AssertionError(f"phase 21 launch counts {got}, expected {want}")
@@ -1746,6 +1791,7 @@ def coupled_long_runs(tt, kernels, r_scene, card_line: str):
                 "rebuild": (groups - fb) * d + fb, "csr_bounds": groups * d,
                 "sweep.bvol": BUOYANCY_STEPS * d, "sweep.density": BUOYANCY_STEPS * d,
                 "sweep.force_react": BUOYANCY_STEPS * d}
+            want = with_row_ops(want)
             m = sh.metrics(shards)
             n = sum(st.num_active for st in shards)
             print(f"  density {density:g} on {d} shard(s): {n} particles, com after "
@@ -1779,6 +1825,7 @@ def coupled_long_runs(tt, kernels, r_scene, card_line: str):
     want = {k: 0 for k in kernels} | {
         "rebuild": 2 * (COUPLED_RUN // 2), "sweep.bvol": 2 * COUPLED_RUN,
         "sweep.density": 2 * COUPLED_RUN, "sweep.force_react": 2 * COUPLED_RUN}
+    want = with_row_ops(want)
     print(f"  bench_3d_rigid: WCSPHRigid.run_coupled({COUPLED_RUN}, check_every="
           f"{COUPLED_CHECK}) at R=2 and rollout_coupled({COUPLED_RUN}): every particle and body "
           f"field bitwise equal; com {by_run[1].com[0].tolist()}")
@@ -1971,6 +2018,112 @@ def legacy_path(tt, kernels, card_line: str):
     return total, errs, times, bound
 
 
+def row_op_inputs(solver, state, cache=None, react: bool = False) -> dict:
+    """The row ops' inputs of one ``solver._apply`` substep on ``state``
+    inside the group of ``cache`` (built from ``state`` when None): kernel
+    A's density sum, the state (with the substep's volumes under
+    ``boundary_mode="per_step"``), the group's sort-time fluid mask and
+    flm, and A's force sum (``force_react`` with ``react``, as the coupled
+    substep runs it) over the plain packs."""
+    from tisph_tpu_torch.models.wcsph import per_step_volumes
+    from tisph_tpu_torch.ops.cuda import sweeps
+    from tisph_tpu_torch.ops.forces import eos_packs_plain
+    from tisph_tpu_torch.ops.neighbors import pack4
+
+    spec, params = solver.spec, solver.params
+    if cache is None:
+        state, cache = solver._build(state)
+    tail = (cache.ids, cache.bounds, cache.material, spec, params, solver.fast_math)
+    effm = cache.effm
+    if solver.boundary_mode == "per_step":
+        delta = sweeps.bvol_sweep(pack4(state.x, cache.boundary.to(torch.float32)), *tail)
+        volume, effm = per_step_volumes(delta, cache.boundary, state.volume, cache.flm,
+                                        params.density0)
+        state = dataclasses.replace(state, volume=volume)
+    pos = pack4(state.x, effm)
+    rho = sweeps.density_sweep(pos, *tail)
+    _, _, vel, aux = eos_packs_plain(rho, state, cache.fluid, cache.flm, params)
+    force = sweeps.force_react_sweep if react else sweeps.force_sweep
+    return {"rho": rho, "st": state, "fluid": cache.fluid, "flm": cache.flm,
+            "dv": force(pos, vel, aux, *tail), "params": params}
+
+
+def with_nan_rows(inp: dict) -> dict:
+    """A copy of ``inp`` with NaN and infinite entries in some rows of
+    every float input of the row ops: the density sum, the stored density
+    (on non-fluid rows, which keep it), v, x, dv and the mass."""
+    st = inp["st"]
+    fl = torch.nonzero(st.fluid_mask & inp["fluid"]).flatten()
+    rows = fl[torch.linspace(0, fl.numel() - 1, 8, device=fl.device).long()].tolist()
+    other = torch.nonzero(~inp["fluid"]).flatten()[:2].tolist()
+    rho, dv = inp["rho"].clone(), inp["dv"].clone()
+    x, v, density, mass = st.x.clone(), st.v.clone(), st.density.clone(), st.mass.clone()
+    nan, inf = float("nan"), float("inf")
+    rho[rows[:2]] = nan
+    rho[rows[2]] = inf
+    density[other] = nan
+    v[rows[3], 0] = nan
+    x[rows[4], -1] = nan
+    dv[rows[5]] = nan
+    dv[rows[6], 0] = -inf
+    mass[rows[7]] = nan
+    st = dataclasses.replace(st, x=x, v=v, density=density, mass=mass)
+    return inp | {"rho": rho, "dv": dv, "st": st}
+
+
+def check_row_ops(label: str, inp: dict) -> dict[str, float]:
+    """eos_pack and advance (csrc/pointwise.cu) against eos_packs_plain
+    and advance_plain on ``inp`` and on its copy with NaN rows: every
+    output bitwise equal (NaNs in the same words).  Returns each kernel's
+    max abs difference over the outputs finite on both sides."""
+    from tisph_tpu_torch.ops import forces
+    from tisph_tpu_torch.ops.cuda import pointwise
+
+    err = {k: 0.0 for k in ROW_OPS}
+    for case, c in (("", inp), (" with NaN rows", with_nan_rows(inp))):
+        args = (c["rho"], c["st"], c["fluid"], c["flm"], c["params"])
+        got, want = pointwise.eos_pack(*args), forces.eos_packs_plain(*args)
+        pairs = {("eos_pack", k): (g, w) for k, g, w in zip(("rho", "pressure", "vel", "aux"),
+                                                             got, want)}
+        adv = (c["st"], got[0], got[1], c["dv"], c["params"])
+        g_st, w_st = pointwise.advance(*adv), forces.advance_plain(*adv)
+        pairs |= {("advance", k): (getattr(g_st, k), getattr(w_st, k)) for k in ("x", "v")}
+        torch.cuda.synchronize()
+        for (kern, name), (g, w) in pairs.items():
+            differ = _bits(g) != _bits(w)
+            if differ.any():
+                idx = torch.nonzero(differ)[:4].tolist()
+                raise AssertionError(
+                    f"{label}{case}: {kern} {name} differs from its plain version in "
+                    f"{int(differ.sum())} words, e.g. at {idx}: kernel "
+                    f"{[float(g[tuple(i)]) for i in idx]} plain {[float(w[tuple(i)]) for i in idx]}")
+            fin = torch.isfinite(g) & torch.isfinite(w)
+            if fin.any():
+                err[kern] = max(err[kern], float((g[fin] - w[fin]).abs().max()))
+        bad = sum(int((~torch.isfinite(g)).sum()) for g, _ in pairs.values())
+        print(f"  {label}{case}: {c['st'].capacity} rows, eos_pack and advance bitwise equal to "
+              f"their plain versions in every output ({bad} non-finite words)")
+    return err
+
+
+def row_op_bound(kern: str, inp: dict) -> tuple[float, str]:
+    """The least time of ``kern`` on ``inp``: each row's bytes (rho from
+    the sum on sort-time fluid rows and the stored one elsewhere, 4 bytes
+    a row either way; dv on fluid rows only) against its operations."""
+    st, params = inp["st"], inp["params"]
+    n, dim = st.v.shape
+    if kern == "eos_pack":
+        exact = int(params.reference_exact)  # reads the material only then
+        nbytes = n * (4 + 1 + 4 + 4 + 4 * dim + 4 * exact) + n * (4 + 4 + 16 + 16)
+        ops = n * (EOS_FLOPS_PER_ROW + exact)
+    else:
+        n_fl = int(st.fluid_mask.sum())
+        nbytes = n * (2 * 4 * dim + 4) + n_fl * 4 * dim + n * 2 * 4 * dim
+        ops = n_fl * ADVANCE_FLOPS_PER_FLUID_ROW[dim]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def graph_pair(tt, path: str, layout: str, R: int):
     """The scene on a solver with the graph path (the default) and on one
     with ``graphs=False``; the start state bound and the bodies (None
@@ -2112,6 +2265,7 @@ def graph_against_eager(kernels, label: str, run_graph, run_eager, expect: dict)
         torch.cuda.synchronize()
         counts.append(launch_counts(kernels))
     full = {k: 0 for k in counts[0]} | expect
+    full = with_row_ops(full)
     print(f"  {label}: launches {counts[0]} (graph), equal on the eager path: "
           f"{counts[0] == counts[1]}")
     if counts[0] != full or counts[1] != full:
@@ -2354,6 +2508,7 @@ def slab_emit_graphs(tt, kernels, e_scene, e_start, ems0, scene, r_scene, soak_m
             trips.append(int(sol.occ_resort) if hasattr(sol, "occ_resort") else 0)
         for path, c, t in (("graph", counts[0], trips[0]), ("eager", counts[1], trips[1])):
             want = {k: 0 for k in c} | expect(path, t)
+            want = with_row_ops(want)
             if c != want:
                 raise AssertionError(f"{label}: {path} launch counts {c}, expected {want}")
         print(f"  {label}: launches {counts[0]} (graph), {counts[1]} (eager); seam-guard "
@@ -2586,8 +2741,8 @@ def slab_emit_graphs(tt, kernels, e_scene, e_start, ems0, scene, r_scene, soak_m
         d = sh.n_shards
         m = sh.metrics(shards)
         print(f"  {label}: launches {got}; metrics {m}")
-        if got["sweep.density"] != SOAK_STEPS * d or got["sweep.force"] != SOAK_STEPS * d:
-            raise AssertionError(f"{label}: sweep launches {got}")
+        if any(got[k] != SOAK_STEPS * d for k in ("sweep.density", "sweep.force") + ROW_OPS):
+            raise AssertionError(f"{label}: sweep and row-op launches {got}")
         if (m["nan_count"] != 0 or m["cfl"] >= 1.0 or m["num_active"] != plain.num_active
                 or sum(st.num_active for st in shards) != plain.num_active):
             raise AssertionError(f"{label} unhealthy after {SOAK_STEPS} steps: {m}")
@@ -2609,11 +2764,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, HERE)
     import tisph_tpu_torch as tt
+    from tisph_tpu_torch.ops import forces
     from tisph_tpu_torch.ops import grid as gridops
     from tisph_tpu_torch.ops import neighbors
     from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
     from tisph_tpu_torch.ops.cuda import build
     from tisph_tpu_torch.ops.cuda import legacy as cuda_legacy
+    from tisph_tpu_torch.ops.cuda import pointwise as cuda_pointwise
     from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 
     kernels = {
@@ -2628,6 +2785,8 @@ def main() -> int:
         "linear.force": cuda_sweeps.force_sweep_linear,
         "legacy_density": cuda_legacy.legacy_density_sweep,
         "legacy_force": cuda_legacy.legacy_force_sweep,
+        "eos_pack": cuda_pointwise.eos_pack,
+        "advance": cuda_pointwise.advance,
     }
 
     phase("1 environment")
@@ -2723,9 +2882,11 @@ def main() -> int:
     groups = -(-STEPS_R2 // 2)
     zero = {k: 0 for k in kernels if k not in ("rebuild", "sweep.density", "sweep.force")}
     want_r2 = {"rebuild": groups, "sweep.density": STEPS_R2, "sweep.force": STEPS_R2} | zero
+    want_r2 = with_row_ops(want_r2)
     total = STEPS_R2 + STEPS_R1
     want = {"rebuild": groups + STEPS_R1, "sweep.density": total,
             "sweep.force": total} | zero
+    want = with_row_ops(want)
     if after_r2 != want_r2 or launches != want:
         raise AssertionError(f"launch counts {after_r2} then {launches}, "
                              f"expected {want_r2} then {want}")
@@ -2850,6 +3011,7 @@ def main() -> int:
     r_want = {k: 0 for k in kernels} | {
         "rebuild": -(-RIGID_R2 // 2) + RIGID_R1, "sweep.density": r_steps,
         "sweep.bvol": r_steps, "sweep.force_react": r_steps}
+    r_want = with_row_ops(r_want)
     if r_launches != r_want:
         raise AssertionError(f"rigid launch counts {r_launches}, expected {r_want}")
     m = r_solver.metrics(r_state)
@@ -2883,6 +3045,7 @@ def main() -> int:
     # take their error and time from this run's state too
     errs["bvol"] = r_errs["bvol"]
     launches |= {k: r_launches[k] for k in ("sweep.bvol", "sweep.force_react", "sweep.reaction")}
+    launches |= {k: launches[k] + r_launches[k] for k in ROW_OPS}
     r_st, r_ids, r_bnd = r_inp["st"], r_inp["ids"], r_inp["bounds"]
     r_args = (r_inp["pos"], r_inp["vel"], r_inp["aux"], r_ids, r_bnd,
               r_st.material, r_solver.spec, r_solver.params)
@@ -2934,6 +3097,7 @@ def main() -> int:
     l_want = {k: 0 for k in kernels} | {"rebuild": LINEAR_STEPS,
                                         "linear.density": LINEAR_STEPS,
                                         "linear.force": LINEAR_STEPS}
+    l_want = with_row_ops(l_want)
     if l_launches != l_want:
         raise AssertionError(f"linear launch counts {l_launches}, expected {l_want}")
     m = l_solver.metrics(l_state)
@@ -2944,6 +3108,7 @@ def main() -> int:
     print(f"  {n} particles: R=1 {n * LINEAR_STEPS / lwall:.6e} particle-steps/s "
           f"({lwall * 1e3 / LINEAR_STEPS:.4f} ms/step) on {card_line}")
     launches |= {k: l_launches[k] for k in ("linear.density", "linear.force")}
+    launches |= {k: launches[k] + l_launches[k] for k in ROW_OPS}
 
     print("  linear kernel checks on the evolved demo_3d state:")
     l_inp = sweep_inputs(l_solver, l_state)
@@ -3016,6 +3181,7 @@ def main() -> int:
     b_want = {k: 0 for k in kernels} | {"rebuild": -(-LARGE_STEPS // 2),
                                         "sweep.density": LARGE_STEPS,
                                         "sweep.force": LARGE_STEPS}
+    b_want = with_row_ops(b_want)
     if b_launches != b_want:
         raise AssertionError(f"bench_3d_1m launch counts {b_launches}, expected {b_want}")
     m = b_solver.metrics(b_state)
@@ -3068,7 +3234,7 @@ def main() -> int:
     reset_counts(kernels)
     e_start = e_solver.bind(tt.build_state(e_scene, device=DEVICE))
     e_bind = {k: f.launches for k, f in kernels.items()}
-    if e_bind != {k: 0 for k in kernels} | {"rebuild": 1, "sweep.bvol": 1}:
+    if e_bind != with_row_ops({k: 0 for k in kernels} | {"rebuild": 1, "sweep.bvol": 1}):
         raise AssertionError(f"emitter scene bind launched {e_bind}: want the rebuild and bvol "
                              "once each")
     ems0 = [tt.make_emitter_state(em, e_scene, DEVICE) for em in e_scene.emitters]
@@ -3090,6 +3256,7 @@ def main() -> int:
     e_want = {k: 0 for k in kernels} | {
         "rebuild": 1 + -(-EMIT_R2 // 2) + EMIT_R1, "sweep.bvol": 1,
         "sweep.density": e_steps, "sweep.force": e_steps}
+    e_want = with_row_ops(e_want)
     if e_launches != e_want:
         raise AssertionError(f"emitter path launch counts {e_launches}, expected {e_want}")
     if not e_solver.graphs:
@@ -3171,7 +3338,8 @@ def main() -> int:
         raise AssertionError("the step through the kernels and through the plain sweeps differ")
     errs["density"] = max(errs["density"], e_errs["density"])
     errs["force"] = max(errs["force"], e_errs["force"])
-    del g_state, g_inp, kern, plain, dv_ref, cache
+    emit_mid = (g_state, cache)  # phase 26's emitter state
+    del g_inp, kern, plain, dv_ref
 
     phase(f"12 checkpoint on the card: {CKPT_STEPS} steps at R=2 against "
           f"{CKPT_STEPS // 2} + save_npz + load_npz + {CKPT_STEPS // 2}")
@@ -3188,6 +3356,7 @@ def main() -> int:
     c_launches = {k: f.launches for k, f in kernels.items()}
     c_want = {k: 0 for k in kernels} | {"rebuild": CKPT_STEPS, "sweep.density": 2 * CKPT_STEPS,
                                         "sweep.force": 2 * CKPT_STEPS}
+    c_want = with_row_ops(c_want)
     if c_launches != c_want:
         raise AssertionError(f"checkpoint launch counts {c_launches}, expected {c_want}")
     ea_, eb_ = ck_ems_a[0], ck_ems_b[0]
@@ -3254,6 +3423,43 @@ def main() -> int:
                            card_line)
     launches = {k: launches[k] + s25[k] for k in kernels}
     del e_start
+
+    phase("26 the row ops (csrc/pointwise.cu) vs their plain versions: demo_3d, "
+          "bench_3d_rigid, the emitter scene mid-group and the 2D golden start, with NaN rows")
+    t26 = time.perf_counter()
+    g2_solver = tt.WCSPH(g2_scene, device=DEVICE)
+    row_inputs = {
+        evolved: row_op_inputs(solver, state),
+        r_label: row_op_inputs(r_solver, r_state, react=True),
+        "emit_mid": row_op_inputs(e_solver, *emit_mid),
+        "golden_2d+0": row_op_inputs(g2_solver,
+                                     g2_solver.bind(tt.build_state(g2_scene, device=DEVICE))),
+    }
+    row_err = {k: 0.0 for k in ROW_OPS}
+    for label, inp in row_inputs.items():
+        err = check_row_ops(label, inp)
+        row_err = {k: max(e, err[k]) for k, e in row_err.items()}
+    for label, inp in row_inputs.items():
+        eos_args = (inp["rho"], inp["st"], inp["fluid"], inp["flm"], inp["params"])
+        adv_args = (inp["st"], *forces.eos_packs_plain(*eos_args)[:2], inp["dv"], inp["params"])
+        print(f"  {label}:")
+        # 20 calls of the plain sequences (17 and 30 launches each) queue
+        # inside cuda_ms's spin: the device's time, not the host's pace
+        row_times = time_against_plain({
+            "eos_pack": (lambda: cuda_pointwise.eos_pack(*eos_args),
+                         lambda: forces.eos_packs_plain(*eos_args), 200, 20),
+            "advance": (lambda: cuda_pointwise.advance(*adv_args),
+                        lambda: forces.advance_plain(*adv_args), 200, 20)})
+        row_bound = {k: row_op_bound(k, inp) for k in ROW_OPS}
+        for k in ROW_OPS:
+            print(f"  {label} {k}: kernel {row_times[k][0]:.4f} ms, plain sequence "
+                  f"{row_times[k][1]:.4f} ms, bound {row_bound[k][0]:.5f} ms "
+                  f"({row_bound[k][1]}); on {card_line}")
+        if label == evolved:  # the JSON's entries: demo_3d, the main path's state
+            times |= row_times
+            bound |= row_bound
+    print(f"  phase 26: {time.perf_counter() - t26:.1f} s")
+    del row_inputs, emit_mid
     print(f"  run_sharded --mesh2d 2x2 --profile 20 (phase 17): "
           f"{rect_prof['device_ops_per_step']:.1f} device operations, "
           f"{rect_prof['device_busy_ms_per_step']:.4f} ms busy, idle share "
@@ -3278,6 +3484,9 @@ def main() -> int:
     src["legacy_density"] = ("tisph_tpu_torch/csrc/legacy.cu",
                              "tisph_tpu/models/wcsph_legacy.py:56")
     src["legacy_force"] = ("tisph_tpu_torch/csrc/legacy.cu", "tisph_tpu/models/wcsph_legacy.py:95")
+    # no Pallas kernel: row ops that XLA fuses inside tisph_tpu's seg step
+    src["eos_pack"] = ("tisph_tpu_torch/csrc/pointwise.cu", "tisph_tpu/models/wcsph.py:255-264")
+    src["advance"] = ("tisph_tpu_torch/csrc/pointwise.cu", "tisph_tpu/models/wcsph.py:283-311")
     err_of = {"rebuild": rebuild_err, "csr_bounds": float(bounds_err)}
     # A's entries fold in its row-range (phase 14) and i-row-map (17)
     # checks and, for density and force, its check on the piled-up state
@@ -3287,6 +3496,7 @@ def main() -> int:
                for m, e in errs.items()}
     err_of |= {f"linear.{m}": max(e, lin_shard[m][0]) for m, e in lin_errs.items()}
     err_of |= leg_errs  # demo_2d's evolved state and the 3D golden start
+    err_of |= row_err  # phase 26's four states, NaN rows too
     print("  the rebuild pass after the sort, ms (kernel, plain, library, bound):")
     for label, r in rebuild.items():
         print(f"    {label:<22} {r['ms']:.4f} {r['plain_ms']:.4f} {r['library_ms']:.4f} "

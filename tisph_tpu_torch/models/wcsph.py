@@ -10,9 +10,11 @@ and block plan:
   coefficients (``_group_cache``);
 - ``_apply``, every substep: under ``boundary_mode="per_step"`` the bvol
   sweep on current positions and the refresh of V and effm on boundary
-  rows -> density sweep (kept on fluid rows) -> Tait EOS -> force sweep
-  (``force_react`` with ``with_reactions``) -> symplectic Euler ->
-  domain-box clamp.
+  rows -> density sweep (kept on fluid rows) -> Tait EOS and the force
+  sweep's packs (``eos_packs``) -> force sweep (``force_react`` with
+  ``with_reactions``) -> symplectic Euler and the domain-box clamp
+  (``advance``); on the card ``eos_packs`` and ``advance`` are one launch
+  each of ``csrc/pointwise.cu`` (``ops.cuda.pointwise``).
 
 Pair membership uses the sort-time ids and bounds of the group, and r^2
 uses current positions (``wcsph.py:160-182``): a pair is missed only when
@@ -39,10 +41,10 @@ import torch
 
 from tisph_tpu_torch.models.solver_base import SolverBase
 from tisph_tpu_torch.models.state import SimState
-from tisph_tpu_torch.ops import forces as F
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
+from tisph_tpu_torch.ops.cuda import pointwise as cuda_pointwise
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
-from tisph_tpu_torch.ops.neighbors import pack4, pack_aux
+from tisph_tpu_torch.ops.neighbors import pack4
 
 
 class GroupCache(NamedTuple):
@@ -78,21 +80,17 @@ def eos_packs(rho: torch.Tensor, state: SimState, fluid: torch.Tensor, flm: torc
               params) -> tuple[torch.Tensor, ...]:
     """The summed density kept on fluid rows (boundary rows keep their
     stored one), the density mode, the Tait EOS, and the force sweep's
-    packs: ``(rho, pressure, vel, aux)``."""
-    rho = torch.where(fluid, rho, state.density)
-    rho = F.apply_density_mode(rho, state, params)
-    rho, pressure = F.compute_pressures(rho, params)
-    p_rho2 = pressure / torch.clamp(rho * rho, min=1e-12)
-    return rho, pressure, pack4(state.v, rho), pack_aux(p_rho2, flm, state.mass)
+    packs: ``(rho, pressure, vel, aux)``.  One launch of ``csrc/
+    pointwise.cu`` on the card, ``ops.forces.eos_packs_plain`` on the CPU."""
+    return cuda_pointwise.eos_pack(rho, state, fluid, flm, params)
 
 
 def advance(state: SimState, rho: torch.Tensor, pressure: torch.Tensor, dv: torch.Tensor,
             params) -> SimState:
     """The substep's end: store rho and p, advect fluid rows by ``dv``,
-    clamp to the domain box."""
-    state = dataclasses.replace(state, density=rho, pressure=pressure)
-    state = F.advect(state, dv, params)  # fluid rows only
-    return F.enforce_domain_boundary(state, params)
+    clamp to the domain box.  One launch of ``csrc/pointwise.cu`` on the
+    card, ``ops.forces.advance_plain`` on the CPU."""
+    return cuda_pointwise.advance(state, rho, pressure, dv, params)
 
 
 class WCSPH(SolverBase):

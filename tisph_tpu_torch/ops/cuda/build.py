@@ -44,6 +44,9 @@ _SIGNATURES = {
                            _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "tisph_legacy_sweep": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "tisph_eos_pack": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                       _F, _F, _F, _F, _I, _I, _F, _P],
+    "tisph_advance": [_I, _I, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "tisph_error_string": [_I],
 }
 

@@ -19,6 +19,13 @@ def _integer_pow(x: torch.Tensor, y: int) -> torch.Tensor:
     return acc
 
 
+def integer_exponent(exponent: float) -> int:
+    """gamma as the integer in [1, 16] that :func:`tait_pressure` raises to
+    by square-and-multiply, else 0 (a float power)."""
+    e = float(exponent)
+    return int(e) if e == int(e) and 1 <= int(e) <= 16 else 0
+
+
 def tait_pressure(
     density: torch.Tensor,
     density0: float,
@@ -28,8 +35,6 @@ def tait_pressure(
     """Returns (clamped_density, pressure)."""
     rho = torch.clamp(density, min=density0)
     ratio = rho / density0
-    if float(exponent) == int(exponent) and 1 <= int(exponent) <= 16:
-        p = _integer_pow(ratio, int(exponent))
-    else:
-        p = ratio**exponent
+    k = integer_exponent(exponent)
+    p = _integer_pow(ratio, k) if k else ratio**exponent
     return rho, stiffness * (p - 1.0)

@@ -2,6 +2,10 @@
 symplectic Euler and the domain-box clamp (``tisph_tpu.ops.forces``
 lines 277-365, and the f32 bound arithmetic of its seg step).
 
+:func:`eos_packs_plain` and :func:`advance_plain` chain them as a substep
+does around its force sweep; they are the plain versions of the kernels
+``csrc/pointwise.cu`` (``ops.cuda.pointwise``).
+
 The pair sums live in ``ops.neighbors`` (plain versions) and
 ``ops.cuda.sweeps`` (the kernels).
 """
@@ -18,6 +22,7 @@ from tisph_tpu_torch.models.state import SimState
 from tisph_tpu_torch.ops.consts import device_constant
 from tisph_tpu_torch.ops.eos import tait_pressure
 from tisph_tpu_torch.ops.kernels import cubic_kernel_sigma
+from tisph_tpu_torch.ops.neighbors import pack4, pack_aux
 
 
 def compute_pressures(
@@ -47,13 +52,18 @@ def advect(state: SimState, d_velocity: torch.Tensor, params: SolverParams) -> S
     return dataclasses.replace(state, x=x, v=v)
 
 
-def domain_box(params: SolverParams, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+def box_bounds(params: SolverParams) -> tuple[list[float], list[float]]:
     """Clamp bounds [start + padding, end - padding] in f32 arithmetic, as
-    ``tisph_tpu`` forms them (an f64 sum moves a bound by one ulp); made
-    once per device (``ops.consts``)."""
+    ``tisph_tpu`` forms them (an f64 sum moves a bound by one ulp)."""
     pad = np.float32(params.padding)
-    lo = [float(np.float32(s) + pad) for s in params.domain_start]
-    hi = [float(np.float32(e) - pad) for e in params.domain_end]
+    return ([float(np.float32(s) + pad) for s in params.domain_start],
+            [float(np.float32(e) - pad) for e in params.domain_end])
+
+
+def domain_box(params: SolverParams, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`box_bounds` as f32 tensors, made once per device
+    (``ops.consts``)."""
+    lo, hi = box_bounds(params)
     return (device_constant(lo, torch.float32, device),
             device_constant(hi, torch.float32, device))
 
@@ -77,3 +87,24 @@ def enforce_domain_boundary(state: SimState, params: SolverParams) -> SimState:
     v_reflected = state.v - (1.0 + params.collision_factor) * v_dot_n * n_hat
     v = torch.where(fluid & (n_len > 1e-6), v_reflected, state.v)
     return dataclasses.replace(state, x=x, v=v)
+
+
+def eos_packs_plain(rho: torch.Tensor, state: SimState, fluid: torch.Tensor, flm: torch.Tensor,
+                    params: SolverParams) -> tuple[torch.Tensor, ...]:
+    """The summed density kept on the sort-time ``fluid`` rows (other rows
+    keep their stored one), the density mode, the Tait EOS, and the force
+    sweep's packs: ``(rho, pressure, vel, aux)``."""
+    rho = torch.where(fluid, rho, state.density)
+    rho = apply_density_mode(rho, state, params)
+    rho, pressure = compute_pressures(rho, params)
+    p_rho2 = pressure / torch.clamp(rho * rho, min=1e-12)
+    return rho, pressure, pack4(state.v, rho), pack_aux(p_rho2, flm, state.mass)
+
+
+def advance_plain(state: SimState, rho: torch.Tensor, pressure: torch.Tensor,
+                  dv: torch.Tensor, params: SolverParams) -> SimState:
+    """The substep's end: store rho and p, advect fluid rows by ``dv``,
+    clamp to the domain box."""
+    state = dataclasses.replace(state, density=rho, pressure=pressure)
+    state = advect(state, dv, params)  # fluid rows only
+    return enforce_domain_boundary(state, params)
