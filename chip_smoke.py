@@ -114,16 +114,23 @@ Phases, each of which raises on failure (nothing is caught):
    paths); 20 steps on the card against 20 on the CPU (x atol 1e-5, rows
    matched by a tag in color[:, 0]); no NaN, CFL < 1, fluid inside the
    padded box; one eager step (_build and _apply) queued behind the spin
-   under torch's sync debug mode "error"; the kernel against its plain
-   version (ops.neighbors.legacy_*), two calls bitwise equal and 0 off the
-   fluid rows, density rtol 2e-5 and force / max|force| atol 5e-6, on
-   demo_2d's state after the 500 steps and on the 3D golden scene's start
-   (a boundary block); 100 steps of that scene with
-   boundary_mode="per_step" (a bvol, a density and a force launch in one
-   graph a step) bitwise graphs=False; the kernel's times against the
-   plain version and its bound on demo_2d's state (operations counted at
-   the state's dim); then both paths in turns (eager, graph, graph,
-   eager) at R=1, as phase 23;
+   under torch's sync debug mode "error"; the kernel at every lane count
+   it is built for (4, 16) against its plain version
+   (ops.neighbors.legacy_*), two calls bitwise equal and 0 off the fluid
+   rows, density rtol 2e-5 and force / max|force| atol 5e-6 (each margin
+   printed), the rule's launch (ops.cuda.legacy.legacy_launch_shape)
+   bitwise the count it picks, on demo_2d's state after the 500 steps, on
+   the 3D golden scene's start (a boundary block), on demo_3d after 252
+   and bench_3d_1m after 20 legacy steps (graph replays, a rebuild, a
+   density and a force launch a step); an unbuilt lane count raises; 100
+   steps of the golden scene with boundary_mode="per_step" (a bvol, a
+   density and a force launch in one graph a step) bitwise graphs=False;
+   the kernel's times at every lane count on those four states and
+   demo_3d's dense start, with the rule's launch shape, its bound
+   (operations counted at the state's dim) and the share of it reached;
+   its times against the plain version on demo_2d's state; then both
+   paths in turns (eager, graph, graph, eager) at R=1, as phase 23, on
+   demo_2d (500 steps) and demo_3d (200);
 14. the 1-D sharded solver (tisph_tpu_torch.parallel.ShardedWCSPH) on
    demo_3d, on 2 and on 4 shards that all live on the one card (so its
    particle-steps/s is the exchange's cost, not scaling): 100 steps at R=2
@@ -279,14 +286,17 @@ one PyTorch call computes either.
 The launches in the JSON line are the sums of the main paths' runs:
 phases 5, 11, 12 with 14, 15, 17, 18 and 20-25 for kernel A's density and
 force, the same and 13 and 19 for kernel B, 7, 15, 18, 22-25 for bvol
-and force_react, 9, 19, 23 and 25 for kernel C, 13 and 21 for the legacy
+and force_react, 9, 19, 23 and 25 for kernel C, 13 (demo_2d, the
+per-step golden scene, demo_3d and bench_3d_1m) and 21 for the legacy
 kernel's two modes (graph replays: a rebuild, a density and a force
 launch a step), and for eos_pack and advance every phase of A's density
 and of C's.  A's max_abs_err folds in its checks over a row range
 (phase 14), with an i-row map (17) and, for density and force, on
 demo_3d after 10,000 steps (20); C's over a row range (19); the legacy
-kernel's its 2D and 3D checks (13); the row ops' their finite outputs
-over phase 26's states (0: bitwise).
+kernel's its checks on four states at every lane count (13); the row
+ops' their finite outputs over phase 26's states (0: bitwise).  The
+legacy entries also carry the lanes their launch on demo_2d's state
+takes and the rule (``lane_rule``: by dim, rows below, lanes).
 
 The last two lines of standard output are the JSON kernel summary and
 {"ok": true, "device": {...}}; any failure exits nonzero before them.
@@ -324,6 +334,10 @@ CKPT_STEPS = 200
 LEGACY_CHECK, LEGACY_STEPS = 20, 500
 LEGACY_TURNS = 500  # phase 13: steps of each path in turns
 LEGACY_PER_STEP = 100  # phase 13: the 3D golden scene with per-step volumes
+# phase 13: the kernel's 3D states, demo_3d and bench_3d_1m after that many
+# legacy steps; demo_3d's legacy steps of each path in turns
+LEGACY_3D_STEPS, LEGACY_1M_STEPS = 252, 20
+LEGACY_3D_TURNS = 200
 BITWISE_STEPS = 20
 SHARD_STEPS, SHARD_CHECK, SHARD_BITWISE = 100, 20, 10  # phase 14
 SHARD_RIGID = 200  # phase 15
@@ -1854,19 +1868,27 @@ def legacy_inputs(solver, state):
     return {"st": st, "ids": ids, "bounds": bounds, "pos": pos, "vel": vel, "aux": aux}
 
 
-def legacy_call(lib, mode: str, solver, inp):
+def legacy_call(lib, mode: str, solver, inp, lanes: int | None = None):
     """One call of ``lib``'s (the kernel's wrapper or the plain version)
-    legacy sweep in ``mode`` ("legacy_density" or "legacy_force")."""
+    legacy sweep in ``mode`` ("legacy_density" or "legacy_force"); the
+    kernel at ``lanes`` lanes a row where given (``_launch``, uncounted),
+    else through its wrapper at its rule's."""
     args = (inp["ids"], inp["bounds"], inp["st"].material, solver.spec, solver.params)
+    if lanes is not None:
+        packs = (inp["pos"], None, None) if mode == "legacy_density" else (
+            inp["pos"], inp["vel"], inp["aux"])
+        return lib._launch(mode[len("legacy_"):], lanes, *packs, *args)
     if mode == "legacy_density":
         return lib.legacy_density_sweep(inp["pos"], *args)
     return lib.legacy_force_sweep(inp["pos"], inp["vel"], inp["aux"], *args)
 
 
 def check_legacy(label: str, solver, inp) -> dict[str, float]:
-    """csrc/legacy.cu against its plain version in both modes: two calls
-    bitwise equal, finite, 0 off the fluid rows, density rtol 2e-5 and
-    force / max|force| atol 5e-6 on them; returns the max abs errors."""
+    """csrc/legacy.cu against its plain version in both modes, at every
+    built lane count: two calls bitwise equal, finite, 0 off the fluid
+    rows, density rtol 2e-5 and force / max|force| atol 5e-6 on them, the
+    margin (the limit over the error) printed; the rule's launch bitwise
+    the lane count it picks.  Returns the max abs errors over every count."""
     from tisph_tpu_torch.ops import neighbors
     from tisph_tpu_torch.ops.cuda import legacy
 
@@ -1874,54 +1896,101 @@ def check_legacy(label: str, solver, inp) -> dict[str, float]:
     fl = inp["st"].fluid_mask
     errs = {}
     for mode in ("legacy_density", "legacy_force"):
-        got, again = legacy_call(legacy, mode, solver, inp), legacy_call(legacy, mode, solver, inp)
         ref = legacy_call(neighbors, mode, solver, inp)
-        torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            raise AssertionError(f"{label} {mode}: two calls on the same input differ")
-        if not torch.isfinite(got).all():
-            raise AssertionError(f"{label} {mode}: non-finite output")
-        if not torch.equal(got[~fl], torch.zeros_like(got[~fl])):
-            raise AssertionError(f"{label} {mode}: rows off the fluid family not 0")
-        err = float((got - ref).abs().max())
-        if mode == "legacy_force":
-            rel = err / float(ref[fl].abs().max())
-            ok, detail = rel <= atol_f, f"max|err|/max|ref| = {rel:.3e} (atol {atol_f})"
-        else:
-            rel = float(((got - ref)[fl].abs() / ref[fl].abs().clamp(min=1e-30)).max())
-            ok, detail = rel <= rtol, f"max rel err = {rel:.3e} (rtol {rtol})"
-        print(f"  {label:<14} {mode:<14} rows={int(fl.sum())} of {fl.numel()} "
-              f"max|err|={err:.3e} {detail}")
-        if not ok:
-            raise AssertionError(f"{label} {mode}: {detail}")
-        errs[mode] = err
+        rule, _ = legacy.legacy_launch_shape(solver.spec.dim, fl.numel())
+        by_lanes = {}
+        for lanes in legacy.LANES:
+            got = legacy_call(legacy, mode, solver, inp, lanes)
+            again = legacy_call(legacy, mode, solver, inp, lanes)
+            torch.cuda.synchronize()
+            what = f"{label} {mode} lanes={lanes}"
+            if not torch.equal(got, again):
+                raise AssertionError(f"{what}: two calls on the same input differ")
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{what}: non-finite output")
+            if not torch.equal(got[~fl], torch.zeros_like(got[~fl])):
+                raise AssertionError(f"{what}: rows off the fluid family not 0")
+            err = float((got - ref).abs().max())
+            if mode == "legacy_force":
+                rel, limit = err / float(ref[fl].abs().max()), atol_f
+                detail = f"max|err|/max|ref| = {rel:.3e} (atol {atol_f}"
+            else:
+                rel = float(((got - ref)[fl].abs() / ref[fl].abs().clamp(min=1e-30)).max())
+                limit, detail = rtol, f"max rel err = {rel:.3e} (rtol {rtol}"
+            margin = limit / rel if rel > 0 else math.inf
+            print(f"  {label:<14} {mode:<14} L={lanes:<2} rows={int(fl.sum())} of {fl.numel()} "
+                  f"max|err|={err:.3e} {detail}, margin {margin:.1f}x)")
+            if not rel <= limit:
+                raise AssertionError(f"{what}: {detail})")
+            by_lanes[lanes] = got
+            errs[mode] = max(errs.get(mode, 0.0), err)
+        if not torch.equal(legacy_call(legacy, mode, solver, inp), by_lanes[rule]):
+            raise AssertionError(f"{label} {mode}: the rule's launch differs from lanes={rule}")
     return errs
 
 
-def legacy_bound(mode: str, inp, solver) -> tuple[float, str]:
-    """(bound ms, "bytes" or "operations") of one legacy sweep on ``inp``:
-    bytes = its packs (pos; vel and aux for force), ids, material, the CSR
-    bounds and its output; operations = the pairs (fluid i, j != i inside
-    h; fluid j for density, every live j for force) times
-    LEGACY_FLOPS_PER_PAIR at the state's dim."""
+def legacy_lane_times(label: str, solver, inp, card_line: str) -> dict:
+    """The kernel's times on ``inp`` at every built lane count (the counts
+    timed in order and again in reverse, means of the two), the rule's
+    launch shape, its bound and the share of it that the rule's launch
+    reaches; returns the bounds (``legacy_bounds``)."""
+    from tisph_tpu_torch.ops.cuda import legacy
+
+    n = inp["st"].capacity
+    reps = 20 if n >= 100_000 else 200
+    bounds = legacy_bounds(inp, solver)
+    for mode in ("legacy_density", "legacy_force"):
+        ms = {lanes: 0.0 for lanes in legacy.LANES}
+        for order in (legacy.LANES, legacy.LANES[::-1]):
+            for lanes in order:
+                ms[lanes] += cuda_ms(lambda lanes=lanes: legacy_call(legacy, mode, solver, inp,
+                                                                     lanes), reps) / 2
+        rule, ctas = legacy.legacy_launch_shape(solver.spec.dim, n)
+        b_ms, by = bounds[mode]
+        print(f"  lanes {label} {mode}: " + ", ".join(f"L={k} {v:.4f}" for k, v in ms.items())
+              + f" ms; the rule: {rule} lanes, {ctas} CTAs, {ms[rule]:.4f} ms, bound "
+              f"{b_ms:.5f} ms ({by}), {b_ms / ms[rule]:.2%} of it reached; {n} rows; "
+              f"on {card_line}")
+    return bounds
+
+
+def legacy_bounds(inp, solver) -> dict[str, tuple[float, str]]:
+    """{mode: (bound ms, "bytes" or "operations")} of both legacy sweeps
+    on ``inp``: bytes = its packs (pos; vel and aux for force), ids,
+    material, the CSR bounds and its output; operations = the pairs (fluid
+    i, j != i inside h; fluid j for density, every live j for force),
+    counted in one pass over the candidates, times LEGACY_FLOPS_PER_PAIR at
+    the state's dim."""
+    from tisph_tpu_torch.ops import neighbors
+
     st = inp["st"]
     n, dim, nc = st.capacity, solver.spec.dim, solver.spec.num_cells
-    fl = st.fluid_mask
-    force = mode == "legacy_force"
-    nbytes = n * (16 + 4 + 4) + (nc + 1) * 4 + (2 * n * 16 + n * dim * 4 if force else n * 4)
-    # pairs_inside_h counts each fluid row's self pair, which these sums skip
-    pairs = pairs_inside_h(inp, solver, fl, st.active_mask if force else fl) - int(fl.sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = pairs * LEGACY_FLOPS_PER_PAIR[mode][dim] / F32_FLOPS
-    print(f"  bound {mode:<14} {nbytes / 1e6:.3f} MB -> {t_bytes * 1e3:.5f} ms, {pairs} pairs "
-          f"-> {t_ops * 1e3:.5f} ms ({pairs / max(int(fl.sum()), 1):.1f} pairs a fluid row)")
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    fl, x, h2 = st.fluid_mask, st.x, solver.params.support_length ** 2
+    counts = torch.zeros(2, dtype=torch.int64, device=DEVICE)
+    for i, j in neighbors.candidates(inp["ids"], inp["bounds"], torch.nonzero(fl).squeeze(1),
+                                     solver.spec):
+        d = x[i] - x[j]
+        near = (torch.sum(d * d, dim=1) < h2) & (i != j)
+        counts += torch.stack([(near & fl[j]).sum(), (near & st.active_mask[j]).sum()])
+    out = {}
+    for mode, pairs in zip(("legacy_density", "legacy_force"), counts.tolist()):
+        force = mode == "legacy_force"
+        nbytes = (n * (16 + 4 + 4) + (nc + 1) * 4
+                  + (2 * n * 16 + n * dim * 4 if force else n * 4))
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = pairs * LEGACY_FLOPS_PER_PAIR[mode][dim] / F32_FLOPS
+        print(f"  bound {mode:<14} {nbytes / 1e6:.3f} MB -> {t_bytes * 1e3:.5f} ms, {pairs} pairs "
+              f"-> {t_ops * 1e3:.5f} ms ({pairs / max(int(fl.sum()), 1):.1f} pairs a fluid row)")
+        out[mode] = (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+    return out
 
 
 def legacy_path(tt, kernels, card_line: str):
     """Phase 13: ``WCSPHLegacy`` on demo_2d, on the graph path and on the
-    eager loop; returns the graph runs' launches, the kernel's errors,
-    times (kernel, plain) and bounds."""
+    eager loop; the kernel at every lane count on four states; demo_3d's
+    legacy path in turns.  Returns the graph runs' launches, the kernel's
+    errors, times (kernel, plain) and bounds on demo_2d's state, and that
+    state's rows."""
     from tisph_tpu_torch.ops import neighbors
     from tisph_tpu_torch.ops.cuda import legacy
 
@@ -1981,8 +2050,9 @@ def legacy_path(tt, kernels, card_line: str):
     assert_no_host_wait("legacy demo_2d, one eager step (_build and _apply)",
                         lambda: e._apply(*e._build(got)))
 
-    # the kernel against its plain version on demo_2d's evolved state and
-    # on the 3D golden scene's start (a boundary block)
+    # the kernel against its plain version on demo_2d's evolved state, on
+    # the 3D golden scene's start (a boundary block) and, below, on demo_3d
+    # and bench_3d_1m
     inp = legacy_inputs(g, got)
     errs = check_legacy(f"demo_2d+{LEGACY_STEPS}", g, inp)
     g3 = tt.WCSPHLegacy(tt.scene_from_dict(GOLDEN["3d_dam_break"][0]), device=DEVICE)
@@ -2005,17 +2075,55 @@ def legacy_path(tt, kernels, card_line: str):
     print(f"  legacy golden_3d per_step: graphs=True bitwise equal to graphs=False in every "
           f"field after {LEGACY_PER_STEP} steps; {pg._runner.captures} capture(s)")
     errs = {k: max(v, w) for (k, v), w in
-            zip(errs.items(), check_legacy("golden_3d", g3, g3_inp).values())}
+            zip(errs.items(), check_legacy("golden_3d+0", g3, g3_inp).values())}
+    states = {f"demo_2d+{LEGACY_STEPS}": (g, inp), "golden_3d+0": (g3, g3_inp)}
+    # demo_3d and bench_3d_1m on the graph path, a rebuild, a density and a
+    # force launch a step; the kernel at every lane count on their states
+    for label, path, steps in ((f"demo_3d+{LEGACY_3D_STEPS}", DEMO_3D, LEGACY_3D_STEPS),
+                               (f"bench_3d_1m+{LEGACY_1M_STEPS}", LARGE_3D, LEGACY_1M_STEPS)):
+        solver = tt.WCSPHLegacy(tt.load_scene(path), device=DEVICE)
+        start = solver.bind(tt.build_state(solver.scene, device=DEVICE))
+        if path == DEMO_3D:
+            d3_start, dense = start, legacy_inputs(solver, start)
+        reset_counts(kernels)
+        end = solver.rollout(start, steps)
+        torch.cuda.synchronize()
+        counted = {k: kernels[k].launches for k in ("rebuild", "legacy_density", "legacy_force")}
+        total = {k: total[k] + kernels[k].launches for k in kernels}
+        m = solver.metrics(end)
+        print(f"  legacy {label}: {end.num_active} particles, launches {counted}; metrics {m}")
+        if counted != dict.fromkeys(counted, steps):
+            raise AssertionError(f"legacy {label}: launches {counted}, want {steps} each")
+        if m["nan_count"] != 0 or not math.isfinite(m["max_velocity"]):
+            raise AssertionError(f"legacy {label} unhealthy: {m}")
+        states[label] = (solver, legacy_inputs(solver, end))
+        del start, end
+        errs = {k: max(v, w) for (k, v), w in
+                zip(errs.items(), check_legacy(label, *states[label]).values())}
+    try:
+        legacy_call(legacy, "legacy_density", g, inp, 2)
+    except RuntimeError as exc:
+        print(f"  lanes=2, a count the kernel is not built for, raises: {exc}")
+    else:
+        raise AssertionError("the legacy kernel at lanes=2 did not raise")
+    states["demo_3d+0"] = (states[f"demo_3d+{LEGACY_3D_STEPS}"][0], dense)
+    bounds = {label: legacy_lane_times(label, solver, si, card_line)
+              for label, (solver, si) in states.items()}
+    bound = bounds[f"demo_2d+{LEGACY_STEPS}"]
     times = time_against_plain({
         mode: (lambda mode=mode: legacy_call(legacy, mode, g, inp),
                lambda mode=mode: legacy_call(neighbors, mode, g, inp), 200, 3)
         for mode in ("legacy_density", "legacy_force")})
-    bound = {mode: legacy_bound(mode, inp, g) for mode in ("legacy_density", "legacy_force")}
+    del states, dense, bounds
 
     graph_turns(tt, "demo_2d legacy", tt.WCSPHLegacy(l2_scene, device=DEVICE),
                 tt.WCSPHLegacy(l2_scene, device=DEVICE, graphs=False), sg, None, None,
                 LEGACY_TURNS, card_line, R=1)
-    return total, errs, times, bound
+    d3_scene = tt.load_scene(DEMO_3D)
+    graph_turns(tt, "demo_3d legacy", tt.WCSPHLegacy(d3_scene, device=DEVICE),
+                tt.WCSPHLegacy(d3_scene, device=DEVICE, graphs=False), d3_start, None, None,
+                LEGACY_3D_TURNS, card_line, R=1)
+    return total, errs, times, bound, inp["st"].capacity
 
 
 def row_op_inputs(solver, state, cache=None, react: bool = False) -> dict:
@@ -3374,8 +3482,9 @@ def main() -> int:
     del e_state, ck_a, ck_b, half, loaded
 
     phase(f"13 legacy V1 solver: demo_2d, {LEGACY_STEPS} steps graph vs eager, "
-          f"{LEGACY_CHECK} card vs CPU, the kernel vs plain, both paths in turns")
-    l13, leg_errs, leg_times, leg_bound = legacy_path(tt, kernels, card_line)
+          f"{LEGACY_CHECK} card vs CPU, the kernel vs plain at every lane count on four "
+          "states, demo_2d and demo_3d in turns")
+    l13, leg_errs, leg_times, leg_bound, leg_rows = legacy_path(tt, kernels, card_line)
     launches = {k: launches[k] + l13[k] for k in kernels}
     times |= leg_times
     bound |= leg_bound
@@ -3508,6 +3617,10 @@ def main() -> int:
          "bound_ms": bound[k][0], "bound_by": bound[k][1], "library_ms": library.get(k)}
         for k in kernels
     ]}
+    for entry in summary["kernels"]:  # the legacy kernel's launch rule
+        if entry["name"].startswith("legacy_"):
+            entry["lanes"] = cuda_legacy.legacy_launch_shape(2, leg_rows)[0]  # demo_2d
+            entry["lane_rule"] = {"rows_below": cuda_legacy.LANE_RULE}  # by dim
     print(card_line)
     print(json.dumps(summary))
     print(json.dumps({"ok": True, "device": {

@@ -13,8 +13,9 @@ cloud over a boundary raft, with the volumes of ``boundary_mode``
 - force: tisph_tpu's dv (gravity and the pair sum) on fluid rows, atol
   5e-6 of max|dv|, and 0 on every other row.
 
-Marked ``cuda`` (skipped here): the kernel against its plain version on
-the same states, at the same tolerances.
+Marked ``cuda`` (skipped here): the kernel at every built lane count
+against its plain version on the same states, at the same tolerances; a
+lane count it is not built for raises.
 """
 
 import dataclasses
@@ -137,8 +138,14 @@ def _port_inputs(dim, host, calls):
                 aux=aux, fluid=fluid, want=want)
 
 
-def _sweep(lib, inp, mode):
+def _sweep(lib, inp, mode, lanes=None):
+    """``lib``'s sweep in ``mode``; the kernel at ``lanes`` threads a row
+    where given (``_launch``), else at its rule's."""
     args = (inp["ids"], inp["bounds"], inp["st"].material, inp["spec"], inp["params"])
+    if lanes is not None:
+        packs = (inp["pos"], None, None) if mode == "density" else (
+            inp["pos"], inp["vel"], inp["aux"])
+        return lib._launch(mode, lanes, *packs, *args)
     if mode == "density":
         return lib.legacy_density_sweep(inp["pos"], *args)
     return lib.legacy_force_sweep(inp["pos"], inp["vel"], inp["aux"], *args)
@@ -173,23 +180,42 @@ def test_plain_sweeps_match_jax(dim, mode, monkeypatch):
         _close(m, _sweep(neighbors, inp, m).numpy(), inp["want"][m], fluid)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dim", [2, 3])
-def test_kernel_matches_plain_on_cuda(dim, monkeypatch):
-    """``csrc/legacy.cu`` on the card against its plain version, per_step
-    volumes, at the module's tolerances; two calls bitwise equal."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: csrc/legacy.cu runs on the card only")
-    host, calls = _jax_sweeps(dim, "per_step", monkeypatch)
-    inp = _port_inputs(dim, host, calls)
+def _card_inputs(inp):
     card = {k: (v.cuda() if isinstance(v, torch.Tensor) else v) for k, v in inp.items()
             if k not in ("st", "want", "fluid")}
     card["st"] = pt.SimState(**{k: getattr(inp["st"], k).cuda() for k in
                                 state_fields(inp["st"])}, num_active=inp["st"].num_active)
+    return card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", cuda_legacy.LANES)
+@pytest.mark.parametrize("dim", [2, 3])
+def test_kernel_matches_plain_on_cuda(dim, lanes, monkeypatch):
+    """``csrc/legacy.cu`` on the card at every built lane count against
+    its plain version, per_step volumes, at the module's tolerances; two
+    calls bitwise equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: csrc/legacy.cu runs on the card only")
+    host, calls = _jax_sweeps(dim, "per_step", monkeypatch)
+    inp = _port_inputs(dim, host, calls)
+    card = _card_inputs(inp)
     for m in ("density", "force"):
-        got, again = _sweep(cuda_legacy, card, m), _sweep(cuda_legacy, card, m)
+        got, again = _sweep(cuda_legacy, card, m, lanes), _sweep(cuda_legacy, card, m, lanes)
         assert torch.equal(got, again)
         _close(m, got.cpu().numpy(), _sweep(neighbors, inp, m).numpy(), inp["fluid"])
+
+
+@pytest.mark.cuda
+def test_unbuilt_lanes_raise_on_cuda(monkeypatch):
+    """A lane count the kernel is not built for raises: no fallback."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: csrc/legacy.cu runs on the card only")
+    host, calls = _jax_sweeps(2, "static", monkeypatch)
+    card = _card_inputs(_port_inputs(2, host, calls))
+    for m in ("density", "force"):
+        with pytest.raises(RuntimeError, match="lanes=2"):
+            _sweep(cuda_legacy, card, m, 2)
 
 
 @pytest.mark.cuda

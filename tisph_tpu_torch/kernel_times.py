@@ -17,6 +17,19 @@ cell ids and the sort (``sort_and_bound``; without it
 ``grid.sort_state_by_cell`` and ``csr_bounds_sorted``).
 Prints one JSON object: ``card`` and ``ms`` {"<state> <mode>": mean ms}.
 
+With ``--legacy`` it times the legacy solver's kernel (csrc/legacy.cu,
+``ops.cuda.legacy``) instead, on states of ``WCSPHLegacy`` runs: demo_2d
+after 500 steps (6,304 rows) and with its fluid block 2, 4 and 8 times as
+large (12,600 to 50,400 rows), demo_3d's dense start and after 252 steps
+(195,304 rows) and with its block cut to 1/16, 1/8 and 1/4 (13,952 to
+50,224 rows), bench_3d_100k after 252 steps and bench_3d_1m after 20.
+Each mode is called through its public wrapper with the launch it picks
+itself (``<state> <mode>``) and, where the package has
+``legacy_launch_shape``, at every built lane count (``<state> <mode>
+L=<lanes>``), each with its error against the plain version (``...
+err``: density's max relative error, force's max|err| / max|ref|, over
+the fluid rows).
+
 With ``--parent DIR`` (a commit unpacked into a directory that
 ``.gitignore`` lists, e.g. ``mkdir -p build/parent && git archive <commit>
 | tar -x -C build/parent``) this file runs as a script against each
@@ -24,7 +37,7 @@ checkout's package, in the order parent, change, change, parent, each
 process building its own kernels and states; the last line then holds per
 state and mode both means and their ratio.  Needs a CUDA device.
 
-Usage: python -m tisph_tpu_torch.kernel_times [--parent build/parent]
+Usage: python -m tisph_tpu_torch.kernel_times [--legacy] [--parent build/parent]
 """
 
 from __future__ import annotations
@@ -40,6 +53,19 @@ import torch
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _ORDER = ("parent", "change", "change", "parent")
+# (label, scene, the fluid block's scale along x and y, steps) of the
+# legacy kernel's states
+_LEGACY_STATES = (("demo_2d+500", "demo_2d.json", (1, 1), 500),
+                  ("demo_2d*2+500", "demo_2d.json", (2, 1), 500),
+                  ("demo_2d*4+500", "demo_2d.json", (4, 1), 500),
+                  ("demo_2d*8+500", "demo_2d.json", (4, 2), 500),
+                  ("demo_3d/16+252", "demo_3d.json", (1 / 16, 1), 252),
+                  ("demo_3d/8+252", "demo_3d.json", (1 / 8, 1), 252),
+                  ("demo_3d/4+252", "demo_3d.json", (1 / 4, 1), 252),
+                  ("demo_3d+0", "demo_3d.json", (1, 1), 0),
+                  ("demo_3d+252", "demo_3d.json", (1, 1), 252),
+                  ("bench_3d_100k+252", "bench_3d_100k.json", (1, 1), 252),
+                  ("bench_3d_1m+20", "bench_3d_1m.json", (1, 1), 20))
 
 
 def _cuda_ms(fn, reps: int) -> float:
@@ -152,6 +178,73 @@ def measure() -> dict:
     return ms
 
 
+def _legacy_inputs(solver, state) -> dict:
+    """The sorted state and both legacy sums' arguments of one step, its
+    density from the kernel."""
+    from tisph_tpu_torch.ops import grid, neighbors
+    from tisph_tpu_torch.ops.cuda import legacy
+    from tisph_tpu_torch.ops.eos import tait_pressure
+
+    spec, params = solver.spec, solver.params
+    st, ids, _ = grid.sort_state_by_cell(state, spec)
+    tail = (ids, grid.csr_bounds(ids, spec), st.material, spec, params)
+    pos = neighbors.legacy_pos(st)
+    rho = legacy.legacy_density_sweep(pos, *tail)
+    rho, p = tait_pressure(torch.where(st.fluid_mask, rho, st.density), params.density0,
+                           params.stiffness, params.exponent)
+    vel, aux = neighbors.legacy_force_packs(st, rho, p)
+    return {"density": (pos, *tail), "force": (pos, vel, aux, *tail)}
+
+
+def _scaled_scene(name: str, scale: tuple[float, float]):
+    """``scenes/<name>`` with every fluid block's extent along x and y
+    times ``scale``, from its start."""
+    import tisph_tpu_torch as tt
+
+    with open(os.path.join(_ROOT, "scenes", name)) as f:
+        raw = json.load(f)
+    for block in raw["fluidBlocks"]:
+        for ax, k in enumerate(scale):
+            block["end"][ax] = block["start"][ax] + (block["end"][ax] - block["start"][ax]) * k
+    return tt.scene_from_dict(raw)
+
+
+def measure_legacy() -> dict:
+    """{"<state> <mode>[ L=<lanes>][ err]": value} of the importable
+    ``tisph_tpu_torch``'s legacy kernel."""
+    import tisph_tpu_torch as tt
+    from tisph_tpu_torch.ops import neighbors
+    from tisph_tpu_torch.ops.cuda import legacy
+
+    lanes = legacy.LANES if hasattr(legacy, "legacy_launch_shape") else ()
+    out = {}
+    for label, name, scale, steps in _LEGACY_STATES:
+        solver = tt.WCSPHLegacy(_scaled_scene(name, scale), device="cuda")
+        state = solver.bind(tt.build_state(solver.scene, device="cuda"))
+        args = _legacy_inputs(solver, solver.rollout(state, steps) if steps else state)
+        del state
+        reps = 10 if "1m" in label else 50
+        fluid = args["density"][3] == 1  # the material
+        for mode, fn, packs in (("density", legacy.legacy_density_sweep, args["density"][:1]),
+                                ("force", legacy.legacy_force_sweep, args["force"][:3])):
+            tail = args[mode][len(packs):]
+            if mode == "density":
+                packs = (*packs, None, None)
+            calls = {f"{label} legacy_{mode}": lambda fn=fn, a=args[mode]: fn(*a)}
+            calls |= {f"{label} legacy_{mode} L={L}": lambda m=mode, L=L, p=packs, t=tail:
+                      legacy._launch(m, L, *p, *t) for L in lanes}
+            ref = getattr(neighbors, f"legacy_{mode}_sweep")(*args[mode])[fluid]
+            for key, call in calls.items():
+                out[key] = (_cuda_ms(call, reps) + _cuda_ms(call, reps)) / 2
+                diff = (call()[fluid] - ref).abs()
+                out[f"{key} err"] = float(  # density max rel err, force max|err| / max|ref|
+                    (diff / ref.abs().clamp(min=1e-30)).max() if mode == "density"
+                    else diff.max() / ref.abs().max())
+        out[f"{label} rows"] = fluid.numel()
+        del args
+    return out
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -161,17 +254,19 @@ def _card() -> str:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", help="root of the parent checkout; times both in turns")
+    ap.add_argument("--legacy", action="store_true", help="the legacy kernel's states")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device; kernels are timed on a GPU only", file=sys.stderr)
         return 2
     if args.parent is None:
-        print(json.dumps({"card": _card(), "ms": measure()}))
+        print(json.dumps({"card": _card(), "ms": measure_legacy() if args.legacy else measure()}))
         return 0
     roots = {"parent": os.path.abspath(args.parent), "change": _ROOT}
     runs: dict[str, list[dict]] = {"parent": [], "change": []}
     for label in _ORDER:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__)], cwd=roots[label],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__)]
+                              + (["--legacy"] if args.legacy else []), cwd=roots[label],
                               env=dict(os.environ, PYTHONPATH=roots[label]),
                               capture_output=True, text=True)
         if proc.returncode != 0:
@@ -180,12 +275,15 @@ def main(argv: list[str] | None = None) -> int:
         line = json.loads(proc.stdout.strip().splitlines()[-1])
         print(label, json.dumps(line), flush=True)
         runs[label].append(line["ms"])
-    paired = {}
+    paired, change_only = {}, {}
     for key in runs["change"][0]:
-        parent = sum(r[key] for r in runs["parent"]) / len(runs["parent"])
         change = sum(r[key] for r in runs["change"]) / len(runs["change"])
-        paired[key] = {"parent_ms": parent, "change_ms": change, "ratio": change / parent}
-    print(json.dumps({"card": _card(), "paired": paired}))
+        if key not in runs["parent"][0]:  # e.g. a lane count the parent lacks
+            change_only[key] = change
+            continue
+        parent = sum(r[key] for r in runs["parent"]) / len(runs["parent"])
+        paired[key] = {"parent": parent, "change": change, "ratio": change / parent}
+    print(json.dumps({"card": _card(), "paired": paired, "change_only": change_only}))
     return 0
 
 

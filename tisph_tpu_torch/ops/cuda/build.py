@@ -42,7 +42,7 @@ _SIGNATURES = {
     "tisph_linear_sweep": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                            _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
-    "tisph_legacy_sweep": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    "tisph_legacy_sweep": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],
     "tisph_eos_pack": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _F, _F, _F, _F, _I, _I, _F, _P],
