@@ -1,0 +1,143 @@
+"""The comparison that decides ``correct``: an answer of the program
+against the plain reference (``benchmark.reference``) run in float64
+from the same input over the same steps.
+
+An answer is a state: a frame's dump, a chunk's end state, or the start
+check's first group.  Rows are matched by their tags (``object_id``, set
+to each row's start row by ``benchmark.inputs``).  The gaps of position
+and velocity are the error of what the forces did over the compared
+steps, in units of what gravity alone does there: the input is the same
+on both sides, so a row's error of its change is its error of its end.
+
+- ``dx_gap``: the largest distance between a row's positions, over
+  g dt^2 n (n + 1) / 2, gravity's displacement over n symplectic steps;
+- ``dv_gap``: the largest difference of a row's velocities, over g dt n,
+  gravity's change of velocity: an error of a row's acceleration by a,
+  held over the n steps, reads a / g;
+- ``rho_gap``: the largest density difference, over rho0;
+- ``p_gap``: the largest pressure difference, over the reference's
+  largest pressure;
+- ``tie_share``: the share of rows that have a component left out of
+  ``dx_gap`` and ``dv_gap`` (below);
+- ``lost``: live rows whose tag is missing or repeated, or whose mass,
+  volume or material differ from the input's, and dead rows a device
+  state holds as live (an exact count);
+- ``replay``: 1 where the program's chunk, run again from its input as
+  the check's own two calls, is not bitwise the window's (the reference
+  follows that second run), else 0.
+
+``dx_gap`` and ``dv_gap`` leave out the components of a row on an axis
+whose stored position in the reference fell within two float32 steps of
+a face of the box in any step (``tie``, per row and axis): an input one
+step off, as float32 arithmetic gives, takes the clamp's other branch
+there, and the two differ by the reflection, (1 + c_f) times the normal
+speed.  Density and pressure are compared on every row.
+
+The control is the reference itself run in bfloat16, judged the same way.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from benchmark.cells import load_module
+from benchmark.reference.common import INVALID, physics, to_device
+
+NUMBERS = ("dx_gap", "dv_gap", "rho_gap", "p_gap", "tie_share", "lost", "replay")
+
+
+def reference_steps(cell, inp: dict, steps: int, resort: int, device,
+                    dtype=torch.float64) -> dict:
+    """``steps`` steps of the reference named by the configuration from
+    the host or device state ``inp``, in groups of ``resort``; the
+    input's live rows, in its order, with their tags."""
+    ph = physics(cell.scene, cell.config["compat"])
+    name = cell.config["reference"]
+    step = load_module(cell.root / "reference" / f"{name}.py", f"benchmark_reference_{name}")
+    st = to_device(inp, device, dtype)
+    tie = torch.zeros_like(st["x"], dtype=torch.bool)
+    done = 0
+    while done < steps:
+        k = min(resort, steps - done)
+        st = st | step.group(st, k, ph)
+        tie |= st["tie"]
+        done += k
+    return st | {"tie": tie, "steps": steps}
+
+
+def compare(cell, inp: dict, out: dict, ref: dict, replay: int = 0) -> dict[str, float]:
+    """The numbers of the answer ``out`` (host arrays, every row of a
+    device state or the live rows of a dump) against ``ref`` (from
+    :func:`reference_steps` on ``inp``); ``replay`` as the module says."""
+    ph = physics(cell.scene, cell.config["compat"])
+    n = int(inp["num_active"])
+    tags_in = np.asarray(inp["object_id"][:n]).astype(np.int64)
+    rows = np.asarray(out["material"]) != INVALID
+    lost = int(np.count_nonzero(~rows[:int(out["num_active"])]))
+    lost += int(np.count_nonzero(rows[int(out["num_active"]):]))
+    tags = np.asarray(out["object_id"])[rows].astype(np.int64)
+    by_tag = np.full(int(max(tags_in.max(initial=0), tags.max(initial=0))) + 1, -1, np.int64)
+    by_tag[tags_in] = np.arange(n)
+    ref_row = by_tag[np.clip(tags, 0, by_tag.size - 1)]
+    seen = np.zeros(n, np.int64)
+    ok = (tags >= 0) & (tags < by_tag.size) & (ref_row >= 0)
+    np.add.at(seen, ref_row[ok], 1)
+    lost += int(np.count_nonzero(~ok)) + int(np.count_nonzero(seen != 1))
+    ref_row, keep = ref_row[ok], np.flatnonzero(rows)[ok]
+    for k in ("mass", "volume", "material"):
+        lost += int(np.count_nonzero(np.asarray(out[k])[keep] != np.asarray(inp[k][:n])[ref_row]))
+
+    def f64(a):
+        return torch.as_tensor(np.asarray(a)[keep], dtype=torch.float64)
+
+    idx = torch.as_tensor(ref_row)
+    r = {k: ref[k].detach().to("cpu", torch.float64)[idx] for k in ("x", "v", "density",
+                                                                    "pressure")}
+    # a component whose clamp decision in the reference fell within rounding
+    # of a face may take either branch at float32: left out of dx and dv
+    tie = ref["tie"].detach().cpu()[idx]
+    dx = torch.linalg.vector_norm(torch.where(tie, 0.0, f64(out["x"]) - r["x"]), dim=-1)
+    dv = torch.linalg.vector_norm(torch.where(tie, 0.0, f64(out["v"]) - r["v"]), dim=-1)
+    steps, g = int(ref["steps"]), math.sqrt(sum(a * a for a in ph.gravity))
+
+    def worst(d: torch.Tensor, scale: float) -> float:
+        return float(d.max()) / scale if d.numel() else 0.0
+
+    return {
+        "dx_gap": worst(dx, g * ph.dt ** 2 * steps * (steps + 1) / 2),
+        "dv_gap": worst(dv, g * ph.dt * steps),
+        "rho_gap": worst((f64(out["density"]) - r["density"]).abs(), ph.rho0),
+        "p_gap": worst((f64(out["pressure"]) - r["pressure"]).abs(),
+                       max(float(r["pressure"].abs().max()), 1e-30)),
+        "tie_share": float(tie.any(-1).sum()) / max(idx.numel(), 1),
+        "lost": float(lost),
+        "replay": float(replay),
+    }
+
+
+def as_answer(ref: dict, dtype_in: dict) -> dict:
+    """A reference result as an answer (host arrays in the program's
+    field names, live rows in the input's order): the control's output."""
+    n = ref["x"].shape[0]
+    out = {k: ref[k].detach().to("cpu", torch.float64).numpy() for k in
+           ("x", "v", "density", "pressure")}
+    for k in ("mass", "volume", "material", "object_id"):
+        out[k] = np.asarray(dtype_in[k][:n])
+    return out | {"num_active": np.asarray(n)}
+
+
+def worst(readings: list[dict[str, float]]) -> dict[str, float]:
+    """Each number's largest reading over the answers compared (NaN wins)."""
+    out = {}
+    for k in NUMBERS:
+        vals = [r[k] for r in readings]
+        out[k] = float("nan") if any(v != v for v in vals) else max(vals)
+    return out
+
+
+def verdict(numbers: dict[str, float], limits: dict[str, float]) -> bool:
+    """Every number at or under its limit (a NaN is over it)."""
+    return all(numbers[k] <= limits[k] for k in NUMBERS)

@@ -1,0 +1,83 @@
+"""A copy of the benchmark's folder with tiny cells added by new files
+only, for the CPU tests: a 2D scene on the V1 solver and a 3D scene on
+the V2 solver, each under both traffic mixes cut to 20-step episodes,
+held to the limits of the full-size cell of the same solver and mix."""
+
+from __future__ import annotations
+
+import json
+import shutil
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[2]
+
+TINY_SCENES = {
+    "tiny_2d_v1": ("demo_2d_v1", {
+        "configuration": {"dim": 2, "domainStart": [0.0, 0.0], "domainEnd": [1.0, 1.0],
+                          "particleRadius": 0.01, "density0": 1000,
+                          "gravitation": [0.0, -9.81], "c_s": 88.5},
+        "rigidBodies": [],
+        "fluidBlocks": [{"start": [0.3, 0.1], "end": [0.5, 0.3], "velocity": [0.0, -2.0],
+                         "density": 1000.0, "color": [50, 100, 200]}]}),
+    "tiny_3d": ("demo_3d", {
+        "configuration": {"dim": 3, "domainStart": [0.0, 0.0, 0.0],
+                          "domainEnd": [1.0, 1.0, 0.6], "particleRadius": 0.01,
+                          "density0": 1000, "gravitation": [0.0, -9.81, 0.0], "c_s": 88.5},
+        "rigidBodies": [],
+        "fluidBlocks": [{"start": [0.3, 0.1, 0.2], "end": [0.4, 0.2, 0.3],
+                         "velocity": [0.0, -1.0, 5.0], "density": 1000.0,
+                         "color": [50, 100, 200]}]}),
+}
+MIXES = {"tiny_run": ("run", 8), "tiny_frames": ("frames", 5)}
+
+
+def _dump(path: Path, obj) -> None:
+    path.write_text(json.dumps(obj, indent=1))
+
+
+def make_copy(dest: Path) -> Path:
+    """The repo's BENCHMARK.json and benchmark folder copied under
+    ``dest``, plus the tiny cells; returns the copy's BENCHMARK.json."""
+    root = dest / "benchmark"
+    shutil.copytree(REPO / "benchmark", root,
+                    ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    bench = json.loads((REPO / "BENCHMARK.json").read_text())
+    for name, (full, scene) in TINY_SCENES.items():
+        _dump(root / "configs" / f"{name}.scene.json", scene)
+        config = json.loads((root / "configs" / f"{full}.json").read_text())
+        _dump(root / "configs" / f"{name}.json", config | {"name": name,
+                                                           "scene": f"{name}.scene.json"})
+        bench["configs"].append({"name": name, "source": "a tiny scene for the CPU tests",
+                                 "file": f"benchmark/configs/{name}.json", "reduced": [],
+                                 "why": "CPU tests"})
+    for mix, (full, chunk) in MIXES.items():
+        traffic = json.loads((root / "traffic" / f"{full}.json").read_text())
+        _dump(root / "traffic" / f"{mix}.json", traffic | {"episode_steps": 20,
+                                                           "chunk_steps": chunk})
+    for name, (full_cfg, _) in TINY_SCENES.items():
+        for mix, (full_mix, _) in MIXES.items():
+            cell = f"{name}.{mix}"
+            bench["workloads"].append({"name": cell, "config": name, "traffic": mix,
+                                       "chips": 1, "why": "CPU tests"})
+            shutil.copy(root / "limits" / f"{full_cfg}.{full_mix}.json",
+                        root / "limits" / f"{cell}.json")
+            for m in bench["end_to_end"] + bench["per_layer"]:
+                if f"{full_cfg}.{full_mix}" in m.get("workloads", ()):
+                    m["workloads"].append(cell)
+    path = dest / "BENCHMARK.json"
+    _dump(path, bench)
+    return path
+
+
+def run(bench_json: Path, cell: str, seed: int = 12345678901, seconds: float = 0.5) -> dict:
+    """One run of a tiny cell on the CPU, skipping the harness's look for
+    a card (the CPU tests' only way in)."""
+    import time
+
+    from benchmark.cells import load_cell
+    from benchmark.run import run_cell
+
+    return run_cell(load_cell(cell, bench_json), seed, seconds, False, torch.device("cpu"),
+                    time.perf_counter(), log=lambda s: None)
