@@ -173,7 +173,7 @@ Phases, each of which raises on failure (nothing is caught):
    of the live rows and the dropped rows); then on shard 1 of the 2x2, kernel
    A with the i-row map against its plain version at phase 4's
    tolerances, its time and its bound; and run_sharded --mesh2d 2x2
-   --profile 20 (device operations, busy time and idle share a step);
+   --profile 20 (device operations, busy time and profiled wall a step);
 18. the rectangle coupled path: bench_3d_rigid on a 2x2 mesh of the card,
    200 coupled steps at R=2 through rollout_coupled, held to WCSPHRigid
    after 20 as phase 15 is, launch counters (bvol, density and force_react
@@ -214,8 +214,8 @@ Phases, each of which raises on failure (nothing is caught):
    a 200-step graph rollout of demo_3d queued behind the spin with no
    host wait; then on demo_3d, bench_3d_rigid and bench_3d_1m at R=2 both
    paths in turns (eager, graph, graph, eager): particle-steps/s, host ms
-   a step to queue, the profile's device operations, busy ms and idle
-   share a step, the capture's time and the memory of the first eager
+   a step to queue, the profile's device operations, busy ms and
+   profiled wall a step, the capture's time and the memory of the first eager
    and graph group;
 24. rollout_emit on one device and the rectangle decomposition's groups
    as graph replays against graphs=False from the same start, bitwise:
@@ -2299,7 +2299,7 @@ def graph_turns(tt, label: str, g, e, state, rigid, ems, steps: int, card_line: 
     untimed run of ``steps`` on the graph path (it captures every key the
     run meets), then ``steps`` steps of each in turns (eager, graph, graph,
     eager): particle-steps/s and host ms a step to queue; then the profile
-    of each path (device operations, busy ms and idle share a step) and
+    of each path (device operations, busy ms and profiled wall a step) and
     the capture's seconds.  ``queue(solver, steps)``, where a call ends in
     a host read (the rectangle's), queues the groups alone: its host ms a
     step are printed for each path."""
@@ -2336,8 +2336,8 @@ def graph_turns(tt, label: str, g, e, state, rigid, ems, steps: int, card_line: 
         print(f"  turns {label} {name}: {pps_a:.6e} / {pps_b:.6e} particle-steps/s, host "
               f"{host_a:.4f} / {host_b:.4f} ms a step to queue, {steps} steps; profile "
               f"({GRAPH_PROFILE} steps): {p['device_ops_per_step']:.1f} device operations, "
-              f"{p['device_busy_ms_per_step']:.4f} ms busy, idle share "
-              f"{p['device_idle_share']:.4f}, wall {p['wall_ms_per_step']:.4f} ms a step; "
+              f"{p['device_busy_ms_per_step']:.4f} ms busy, profiled wall "
+              f"{p['wall_ms_per_step']:.4f} ms a step; "
               f"on {card_line}")
     for name, solver in (("eager", e), ("graph", g)) if queue is not None else ():
         torch.cuda.synchronize()
@@ -3571,9 +3571,8 @@ def main() -> int:
     del row_inputs, emit_mid
     print(f"  run_sharded --mesh2d 2x2 --profile 20 (phase 17): "
           f"{rect_prof['device_ops_per_step']:.1f} device operations, "
-          f"{rect_prof['device_busy_ms_per_step']:.4f} ms busy, idle share "
-          f"{rect_prof['device_idle_share']:.4f}, wall {rect_prof['wall_ms_per_step']:.4f} ms "
-          "a step")
+          f"{rect_prof['device_busy_ms_per_step']:.4f} ms busy, profiled wall "
+          f"{rect_prof['wall_ms_per_step']:.4f} ms a step")
     for title, checks in (("kernel A over a shard's rows (phase 14)", shard_sweeps),
                           ("kernel A with an i-row map, 2x2 shard 1 (phase 17)", rect_sweeps),
                           ("kernel C over a shard's row range (phase 19)", lin_shard)):

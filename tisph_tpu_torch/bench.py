@@ -24,8 +24,8 @@ only.  ``--settle N`` first runs N steps at R=2 (R=1 under ``linear``;
 e.g. to put a falling body in the water) and measures from there.
 ``--profile N`` adds a ``profile`` entry per cadence: ``torch.profiler``
 over N more warm steps, giving per step the profiled host wall, the
-device busy time, the device idle share, the device operations (kernels,
-copies, fills) and the costliest device operations by name.  ``graphs``
+device busy time, the device operations (kernels, copies, fills) and the
+costliest device operations by name.  ``graphs``
 says whether the solver replayed each R-group as a CUDA graph (the
 default on the card); the profiler sees the kernels inside a replay.
 
@@ -116,7 +116,9 @@ def host_pace(solver, state, steps: int) -> dict:
 def profile_steps(solver, state, rigid, ems, steps: int, resort: int, top: int = 8) -> dict:
     """``torch.profiler`` over ``steps`` warm steps at R = ``resort``, per
     step: device busy is the sum of the device operations' durations (one
-    stream, so they do not overlap), the idle share is 1 - busy / wall."""
+    stream, so they do not overlap), and the profiled wall.  No idle share:
+    the profiled wall holds the profiler's own host cost; the benchmark's
+    ``device_idle_share`` takes busy against an unprofiled wall."""
     from torch.profiler import ProfilerActivity, profile
 
     solver.resort_every = resort
@@ -141,7 +143,6 @@ def profile_steps(solver, state, rigid, ems, steps: int, resort: int, top: int =
         "resort_every": resort,
         "wall_ms_per_step": wall_ms / steps,
         "device_busy_ms_per_step": busy / steps,
-        "device_idle_share": 1.0 - busy / wall_ms,
         "device_ops_per_step": ops / steps,
         "device_ms_per_step_by_op": {k: v / steps for k, v in costliest},
     }

@@ -50,8 +50,10 @@ Where a capture could go wrong, and what the runner does about it:
   the buffers, so the carry a rollout returns is a clone and no group
   cache leaves the graph;
 - launch counters: the wrappers count launches in Python, and a replay
-  makes no Python call, so the runner records what a capture counted and
-  adds it at every replay;
+  makes no Python call, so the runner records what a capture counted,
+  counts a rollout's replays per key and adds replays times counted at
+  the rollout's end: between calls the counters read as if every group
+  had run eagerly;
 - bitwise: a replay runs the eager group's kernels with the same launch
   shapes in the same order (``launch_shape`` reads only the row count),
   so it equals the eager group bitwise, not within a tolerance.
@@ -60,6 +62,15 @@ Where a capture could go wrong, and what the runner does about it:
 count, group on the buffers, write back, tail group, copy out) with a
 direct call of the group in place of each replay: the CPU tests drive it
 so.
+
+Spans (``utils.profiling``, recorded only while recording is on):
+``runner.key`` (the key, and new buffers when it changed),
+``runner.copy_in`` and ``runner.copy_out`` (the carry's copies, with
+their ``bytes``), ``runner.replay`` (each replay, or each direct call,
+with its ``k``) and ``runner.capture`` (a warm-up and capture, with its
+``k`` and ``pattern``).  The rebuild inside a replay is device work, which
+the device's trace names.  The registry counts ``graphs.captures`` and
+``graphs.capture_s``.
 """
 
 from __future__ import annotations
@@ -76,9 +87,10 @@ from tisph_tpu_torch.ops.cuda import legacy as cuda_legacy
 from tisph_tpu_torch.ops.cuda import pointwise as cuda_pointwise
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.grid import state_fields
+from tisph_tpu_torch.utils.profiling import count, span
 
 # every wrapper's launch counters (``launches``, and ``part_launches``
-# where it has them): a replay adds what its capture counted
+# where it has them): a rollout's end adds what its replays' captures counted
 _COUNTERS = tuple(
     (w, c)
     for w in (cuda_bounds.sort_and_bound, cuda_bounds.csr_bounds_sorted,
@@ -98,6 +110,11 @@ def _read_counters() -> list[int]:
 def _set_counters(values: list[int]) -> None:
     for (w, c), v in zip(_COUNTERS, values):
         setattr(w, c, v)
+
+
+def launches() -> int:
+    """Every wrapper's ``launches`` summed (``part_launches`` are among them)."""
+    return sum(getattr(w, c) for w, c in _COUNTERS if c == "launches")
 
 
 def _tensors(obj) -> dict[str, torch.Tensor]:
@@ -131,8 +148,10 @@ class GroupRunner:
         self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, list[int]] | None] = {}
         self._pool = None
         self._part = ""  # the part of the group being captured, for errors
+        self._bytes = (0, 0)  # the bytes copied in and cloned out by a rollout
         self.captures = 0          # graphs captured so far
         self.capture_seconds = 0.0  # host seconds of their warm-ups and captures
+        self.replays = 0  # groups run so far (replays, or direct calls without capture)
 
     def key(self, carry: tuple, k: int, substep: Callable, emitters=(),
             pattern: tuple | None = None) -> tuple:
@@ -162,43 +181,63 @@ class GroupRunner:
         the live rows)."""
         solver = self.solver
         ems = list(emitters or ())
-        base = self.key(carry, 0, substep, ems)[:-2]
-        if base != self._base:
-            # a new key: new buffers and pool, and no stale graph replays
-            self._graphs, self._starts = {}, {}
-            self._bufs = [{n: torch.empty_like(t) for n, t in _tensors(c).items()}
-                          for c in _leaves(carry) + ems]
-            self._pool = torch.cuda.graph_pool_handle() if self.capture else None
-            self._base = base
-        for buf, c in zip(self._bufs, _leaves(carry) + ems):
-            for n, t in _tensors(c).items():
-                buf[n].copy_(t)
+        with span("runner.key"):
+            base = self.key(carry, 0, substep, ems)[:-2]
+            if base != self._base:
+                # a new key: new buffers and pool, and no stale graph replays
+                self._graphs, self._starts = {}, {}
+                self._bufs = [{n: torch.empty_like(t) for n, t in _tensors(c).items()}
+                              for c in _leaves(carry) + ems]
+                self._pool = torch.cuda.graph_pool_handle() if self.capture else None
+                self._base = base
+                nbytes = [sum(t.nbytes for t in b.values()) for b in self._bufs]
+                self._bytes = (sum(nbytes), sum(nbytes[:len(_leaves(carry))]))
+        with span("runner.copy_in", bytes=self._bytes[0]):
+            for buf, c in zip(self._bufs, _leaves(carry) + ems):
+                for n, t in _tensors(c).items():
+                    buf[n].copy_(t)
         n_active = solver._num_particles(carry[0]) if emitters is not None else None
+        replays: dict[tuple, int] = {}  # replays per key, settled into the counters at the end
         done = 0
-        while done < num_steps:
-            k = min(R, num_steps - done)
-            pattern = None
-            if emitters is not None:
-                pattern, n_active = self._count(ems, n_active, solver._capacity(carry[0]),
-                                                1 if R == 1 else k, R == 1)
-            key = (k, pattern)
-            if key not in self._graphs:
-                self._graphs[key] = (self._capture(carry, ems, k, substep, pattern)
-                                     if self.capture else None)
-            if self.capture:
-                graph, counted = self._graphs[key]
-                graph.replay()
-                _set_counters([a + b for a, b in zip(_read_counters(), counted)])
-            else:
-                self._group(self._bufs, carry, ems, k, substep, pattern)
-            done += k
-        leaves = [dataclasses.replace(c, **{n: t.clone() for n, t in buf.items()})
-                  for buf, c in zip(self._bufs, _leaves(carry))]
+        try:
+            while done < num_steps:
+                k = min(R, num_steps - done)
+                pattern = None
+                if emitters is not None:
+                    pattern, n_active = self._count(ems, n_active, solver._capacity(carry[0]),
+                                                    1 if R == 1 else k, R == 1)
+                key = (k, pattern)
+                if key not in self._graphs:
+                    self._graphs[key] = (self._capture(carry, ems, k, substep, pattern)
+                                         if self.capture else None)
+                with span("runner.replay", k=k):
+                    if self.capture:
+                        self._graphs[key][0].replay()
+                    else:
+                        self._group(self._bufs, carry, ems, k, substep, pattern)
+                replays[key] = replays.get(key, 0) + 1
+                done += k
+        finally:
+            self._settle(replays)
+        with span("runner.copy_out", bytes=self._bytes[1]):
+            leaves = [dataclasses.replace(c, **{n: t.clone() for n, t in buf.items()})
+                      for buf, c in zip(self._bufs, _leaves(carry))]
         out = _unflatten(carry, leaves)
         if emitters is None:
             return out
         part = out[0] if solver.emit_on_device else solver._with_live(out[0], n_active)
         return (part,) + out[1:] + (ems,)
+
+    def _settle(self, replays: dict[tuple, int]) -> None:
+        """Add each key's replays times what its capture counted to the
+        wrappers' launch counters, once a rollout."""
+        self.replays += sum(replays.values())
+        if not self.capture:
+            return
+        total = [0] * len(_COUNTERS)
+        for key, n in replays.items():
+            total = [t + n * c for t, c in zip(total, self._graphs[key][1])]
+        _set_counters([a + b for a, b in zip(_read_counters(), total)])
 
     def _count(self, ems: list, n_active: int, capacity: int, slots: int,
                before: bool) -> tuple[tuple, int]:
@@ -270,37 +309,41 @@ class GroupRunner:
     def _capture(self, template: tuple, ems: list, k: int, substep: Callable,
                  pattern: tuple | None) -> tuple[torch.cuda.CUDAGraph, list[int]]:
         """Warm up, then capture one group of k substeps on the buffers."""
-        t0 = time.perf_counter()
-        before = _read_counters()
-        dev = self.solver.device
-        held = self.solver._inplace()
-        try:
-            # the warm-up: first uses (device_constant, the kernel library,
-            # torch.sort's workspace) happen here, on copies, never in the
-            # capture; its results are thrown away, and what it updated in
-            # place outside the carry is put back
-            saved = [t.clone() for t in held]
-            side = torch.cuda.Stream(dev)
-            side.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(side):
-                scratch = [{n: t.clone() for n, t in b.items()} for b in self._bufs]
-                self._group(scratch, template, ems, k, substep, pattern)
-            torch.cuda.current_stream(dev).wait_stream(side)
-            for t, v in zip(held, saved):
-                t.copy_(v)
-            del scratch, saved
-            _set_counters(before)
-            graph = torch.cuda.CUDAGraph()
+        with span("runner.capture", k=k, pattern=pattern):
+            t0 = time.perf_counter()
+            before = _read_counters()
+            dev = self.solver.device
+            held = self.solver._inplace()
             try:
-                with torch.cuda.graph(graph, pool=self._pool):
-                    self._group(self._bufs, template, ems, k, substep, pattern)
-            except Exception as e:
-                raise RuntimeError(
-                    f"{type(self.solver).__name__}: {self._part} broke the capture of a group "
-                    f"of {k} substeps ({type(e).__name__}: {e})") from e
-            counted = [a - b for a, b in zip(_read_counters(), before)]
-        finally:
-            _set_counters(before)  # neither the warm-up nor the capture launched
-        self.captures += 1
-        self.capture_seconds += time.perf_counter() - t0
-        return graph, counted
+                # the warm-up: first uses (device_constant, the kernel library,
+                # torch.sort's workspace) happen here, on copies, never in the
+                # capture; its results are thrown away, and what it updated in
+                # place outside the carry is put back
+                saved = [t.clone() for t in held]
+                side = torch.cuda.Stream(dev)
+                side.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(side):
+                    scratch = [{n: t.clone() for n, t in b.items()} for b in self._bufs]
+                    self._group(scratch, template, ems, k, substep, pattern)
+                torch.cuda.current_stream(dev).wait_stream(side)
+                for t, v in zip(held, saved):
+                    t.copy_(v)
+                del scratch, saved
+                _set_counters(before)
+                graph = torch.cuda.CUDAGraph()
+                try:
+                    with torch.cuda.graph(graph, pool=self._pool):
+                        self._group(self._bufs, template, ems, k, substep, pattern)
+                except Exception as e:
+                    raise RuntimeError(
+                        f"{type(self.solver).__name__}: {self._part} broke the capture of a group "
+                        f"of {k} substeps ({type(e).__name__}: {e})") from e
+                counted = [a - b for a, b in zip(_read_counters(), before)]
+            finally:
+                _set_counters(before)  # neither the warm-up nor the capture launched
+            seconds = time.perf_counter() - t0
+            self.captures += 1
+            self.capture_seconds += seconds
+            count("graphs.captures")
+            count("graphs.capture_s", seconds)
+            return graph, counted

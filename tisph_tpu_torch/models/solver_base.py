@@ -42,12 +42,13 @@ import torch
 
 from tisph_tpu_torch.config import SceneConfig, SolverParams
 from tisph_tpu_torch.geometry.emitter import EmitterState, activate, count_step, due_step
-from tisph_tpu_torch.models.graphs import GroupRunner
+from tisph_tpu_torch.models.graphs import GroupRunner, launches
 from tisph_tpu_torch.models.state import SimState
 from tisph_tpu_torch.ops import grid as gridops
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.neighbors import pack4
+from tisph_tpu_torch.utils.profiling import span
 
 
 class SolverBase:
@@ -257,7 +258,27 @@ class SolverBase:
         -> carry`` runs once per substep: before the rebuild at R = 1,
         before each substep after it at R > 1.  With ``graphs`` the groups
         are replays of the runner's graphs, which emit on the same schedule
-        (``carry`` then is ``(state, emitters)``)."""
+        (``carry`` then is ``(state, emitters)``).  The call is one
+        ``solver.rollout`` span (``utils.profiling``), whose ``replays``,
+        ``captures`` and ``launches`` (the wrappers' launch counters' rise)
+        are read at its end while recording; each eager group is a
+        ``solver.group`` span."""
+        with span("solver.rollout", steps=num_steps, R=R) as sp:
+            if sp is None:
+                return self._group_loop(carry, num_steps, R, substep, emit)
+            before = self._call_counts()
+            carry = self._group_loop(carry, num_steps, R, substep, emit)
+            sp.attrs.update({k: v - before[k] for k, v in self._call_counts().items()})
+            return carry
+
+    def _call_counts(self) -> dict[str, int]:
+        """The counts a ``solver.rollout`` span reports the rise of."""
+        r = self._runner
+        return {"launches": launches(), "replays": r.replays if r else 0,
+                "captures": r.captures if r else 0}
+
+    def _group_loop(self, carry: tuple, num_steps: int, R: int, substep, emit) -> tuple:
+        """:meth:`_groups`' work: the runner's replays, or the eager loop."""
         self._check_resort(R)
         state = carry[0]
         if not self._bound:
@@ -272,15 +293,16 @@ class SolverBase:
             return self._runner.rollout(carry[:1], num_steps, R, substep, emitters=carry[1])
         done = 0
         while done < num_steps:
-            if emit is not None and R == 1:
-                carry = emit(carry)
-            state, cache = self._build(carry[0])
-            carry = (state,) + tuple(carry[1:])
             k = min(R, num_steps - done)
-            for _ in range(k):
-                if emit is not None and R > 1:
+            with span("solver.group", k=k):
+                if emit is not None and R == 1:
                     carry = emit(carry)
-                carry = substep(carry, cache)
+                state, cache = self._build(carry[0])
+                carry = (state,) + tuple(carry[1:])
+                for _ in range(k):
+                    if emit is not None and R > 1:
+                        carry = emit(carry)
+                    carry = substep(carry, cache)
             done += k
         return carry
 
@@ -345,26 +367,27 @@ class SolverBase:
     def metrics(self, state: SimState) -> dict[str, float | int]:
         """Max fluid speed, CFL number, mean and max relative fluid density
         error, live particle count and the count of non-finite x and v
-        entries; one device-to-host copy."""
+        entries; one device-to-host copy (a ``solver.metrics`` span)."""
         params = self.params
-        fluid = state.fluid_mask
-        zero = torch.zeros((), dtype=torch.float32, device=state.device)
-        speed = torch.sqrt(torch.sum(state.v * state.v, dim=-1))
-        vmax = torch.max(torch.where(fluid, speed, zero))
-        rho_err = torch.where(
-            fluid, torch.abs(state.density - params.density0) / params.density0, zero
-        )
-        nf = torch.clamp(fluid.sum(), min=1)
-        nan = (~torch.isfinite(state.x)).sum() + (~torch.isfinite(state.v)).sum()
-        vals = torch.stack([
-            vmax, vmax * params.dt / params.support_length,
-            rho_err.sum() / nf, rho_err.max(), nan.to(torch.float32),
-        ]).tolist()
-        return {
-            "max_velocity": vals[0],
-            "cfl": vals[1],
-            "avg_density_error": vals[2],
-            "max_density_error": vals[3],
-            "num_active": state.num_active,
-            "nan_count": int(vals[4]),
-        }
+        with span("solver.metrics"):
+            fluid = state.fluid_mask
+            zero = torch.zeros((), dtype=torch.float32, device=state.device)
+            speed = torch.sqrt(torch.sum(state.v * state.v, dim=-1))
+            vmax = torch.max(torch.where(fluid, speed, zero))
+            rho_err = torch.where(
+                fluid, torch.abs(state.density - params.density0) / params.density0, zero
+            )
+            nf = torch.clamp(fluid.sum(), min=1)
+            nan = (~torch.isfinite(state.x)).sum() + (~torch.isfinite(state.v)).sum()
+            vals = torch.stack([
+                vmax, vmax * params.dt / params.support_length,
+                rho_err.sum() / nf, rho_err.max(), nan.to(torch.float32),
+            ]).tolist()
+            return {
+                "max_velocity": vals[0],
+                "cfl": vals[1],
+                "avg_density_error": vals[2],
+                "max_density_error": vals[3],
+                "num_active": state.num_active,
+                "nan_count": int(vals[4]),
+            }

@@ -19,6 +19,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from tisph_tpu_torch.utils.profiling import span
+
 # Material codes (the reference's).
 MATERIAL_BOUNDARY = 0
 MATERIAL_FLUID = 1
@@ -134,9 +136,20 @@ def pad_state_capacity(state: SimState, capacity: int) -> SimState:
 
 def state_to_host(state: SimState) -> dict[str, np.ndarray]:
     """Host snapshot of the live particles: each field sliced to
-    ``num_active`` rows, plus ``num_active``."""
+    ``num_active`` rows, plus ``num_active``.  One ``state.to_host`` span
+    (``utils.profiling``) with the ``bytes`` and ``fields`` copied, around
+    ``state.to_host.copy``; while recording on a CUDA device a
+    ``state.to_host.wait`` first waits for the queued work, where the
+    first copy would wait anyway, so the copies' span holds only copies."""
     n = state.num_active
-    host = {k: getattr(state, k)[:n].cpu().numpy() for k in _HOST_FIELDS}
+    with span("state.to_host") as sp:
+        if sp is not None and state.x.is_cuda:
+            with span("state.to_host.wait"):
+                torch.cuda.current_stream(state.x.device).synchronize()
+        with span("state.to_host.copy"):
+            host = {k: getattr(state, k)[:n].cpu().numpy() for k in _HOST_FIELDS}
+        if sp is not None:
+            sp.attrs.update(bytes=sum(a.nbytes for a in host.values()), fields=len(host))
     return host | {"num_active": np.asarray(n)}
 
 

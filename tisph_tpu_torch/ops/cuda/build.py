@@ -23,6 +23,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from tisph_tpu_torch.utils.profiling import count
+
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "tisph_tpu_torch"
@@ -105,14 +107,16 @@ def build() -> tuple[Path, float]:
 
 @functools.cache
 def load() -> ctypes.CDLL:
-    """Build if needed, then load the library and declare its functions.
-    Never first called inside a CUDA graph capture (``models.graphs``
+    """Build if needed, then load the library and declare its functions;
+    the build's seconds go to the counter ``build.s`` (0 when it found the
+    library).  Never first called inside a CUDA graph capture (``models.graphs``
     warms a group up before its capture)."""
     import torch
 
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         raise RuntimeError("build.load: first call inside a CUDA graph capture (warm up first)")
-    path, _ = build()
+    path, seconds = build()
+    count("build.s", seconds)
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

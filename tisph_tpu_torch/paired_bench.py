@@ -9,8 +9,8 @@ clock's spread between runs is wider than most changes (PERF.md section
 its last line, one JSON object of medians per checkout and scene:
 ``value`` (the bench's faster cadence), ``r1_pps`` (R=1) and
 ``host_ms_per_step``, and with
-``--profile N`` per cadence the medians of the profile's device busy ms,
-idle share and device operations per step.
+``--profile N`` per cadence the medians of the profile's device busy ms
+and device operations per step.
 
 Each checkout runs its own package and builds its own kernels under its
 own ``build/``; the harness is the same file for both, so a bench option
@@ -40,7 +40,7 @@ _BENCH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "bench.py")
 _ORDER = ("parent", "change", "change", "parent")
 
 
-_PROFILED = ("device_busy_ms_per_step", "device_idle_share", "device_ops_per_step")
+_PROFILED = ("device_busy_ms_per_step", "device_ops_per_step")
 
 
 def _bench(root: str, scene: str, steps: int, extra: list[str]) -> dict:

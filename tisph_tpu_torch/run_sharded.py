@@ -19,8 +19,8 @@ so.  ``--layout linear`` runs the slab solver's density and force sweeps
 on the linear layout (kernel C, ``--resort 1`` only).  A scene with
 emitters runs ``rollout_emit``, one with a dynamic rigid body
 ``rollout_coupled`` (``advance``, as ``run_scene``).  ``--profile N``
-then prints ``bench.py``'s profile of N more steps (device busy, idle
-share, device operations per step) as one JSON line.  Exits 1 on a
+then prints ``bench.py``'s profile of N more steps (device busy, the
+profiled wall, device operations per step) as one JSON line.  Exits 1 on a
 non-finite position or velocity.
 """
 
