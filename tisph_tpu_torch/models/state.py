@@ -136,20 +136,36 @@ def pad_state_capacity(state: SimState, capacity: int) -> SimState:
 
 def state_to_host(state: SimState) -> dict[str, np.ndarray]:
     """Host snapshot of the live particles: each field sliced to
-    ``num_active`` rows, plus ``num_active``.  One ``state.to_host`` span
-    (``utils.profiling``) with the ``bytes`` and ``fields`` copied, around
+    ``num_active`` rows, plus ``num_active``.
+
+    Each field is ``[:n].to("cpu", non_blocking=True)``: on a CUDA device
+    PyTorch copies it asynchronously, on the current stream behind the
+    queued work, into a fresh pinned tensor from its caching host
+    allocator, and the stream is waited on once, after the nine copies.
+    No later call writes the returned arrays; a tensor goes back to the
+    allocator, for a later dump, only after the caller drops its array.
+    On the CPU each field is its own ``[:n]``, as ``.cpu()`` gives.
+
+    One ``state.to_host`` span (``utils.profiling``) with the ``bytes``
+    and ``fields`` copied (and ``pinned=1`` on a CUDA device), around
     ``state.to_host.copy``; while recording on a CUDA device a
-    ``state.to_host.wait`` first waits for the queued work, where the
-    first copy would wait anyway, so the copies' span holds only copies."""
+    ``state.to_host.wait`` first waits for the queued work, so the
+    copies' span holds only the copies and their wait."""
     n = state.num_active
+    cuda = state.x.is_cuda
     with span("state.to_host") as sp:
-        if sp is not None and state.x.is_cuda:
+        if sp is not None and cuda:
             with span("state.to_host.wait"):
                 torch.cuda.current_stream(state.x.device).synchronize()
         with span("state.to_host.copy"):
-            host = {k: getattr(state, k)[:n].cpu().numpy() for k in _HOST_FIELDS}
+            host = {k: getattr(state, k)[:n].to("cpu", non_blocking=True) for k in _HOST_FIELDS}
+            if cuda:
+                torch.cuda.current_stream(state.x.device).synchronize()
+            host = {k: t.numpy() for k, t in host.items()}
         if sp is not None:
             sp.attrs.update(bytes=sum(a.nbytes for a in host.values()), fields=len(host))
+            if cuda:
+                sp.attrs["pinned"] = 1
     return host | {"num_active": np.asarray(n)}
 
 
