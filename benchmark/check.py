@@ -21,7 +21,11 @@ on both sides, so a row's error of its change is its error of its end.
   ``dx_gap`` and ``dv_gap`` (below);
 - ``lost``: live rows whose tag is missing or repeated, or whose mass,
   volume or material differ from the input's, and dead rows a device
-  state holds as live (an exact count);
+  state holds as live (an exact count); a boundary row also counts where
+  its position or velocity is not bitwise the input's (boundary rows are
+  static), or where its volume, which the program sets to Akinci's V_b
+  when it binds S0, lies farther than :data:`VOLUME_RTOL` of the
+  reference's V_b from it;
 - ``replay``: 1 where the program's chunk, run again from its input as
   the check's own two calls, is not bitwise the window's (the reference
   follows that second run), else 0.
@@ -31,7 +35,8 @@ whose stored position in the reference fell within two float32 steps of
 a face of the box in any step (``tie``, per row and axis): an input one
 step off, as float32 arithmetic gives, takes the clamp's other branch
 there, and the two differ by the reflection, (1 + c_f) times the normal
-speed.  Density and pressure are compared on every row.
+speed.  The gaps and ``tie_share`` are taken over fluid rows: density and
+pressure on every fluid row.
 
 The control is the reference itself run in bfloat16, judged the same way.
 """
@@ -44,9 +49,15 @@ import numpy as np
 import torch
 
 from benchmark.cells import load_module
-from benchmark.reference.common import INVALID, physics, to_device
+from benchmark.reference.common import BOUNDARY, INVALID, physics, to_device
 
 NUMBERS = ("dx_gap", "dv_gap", "rho_gap", "p_gap", "tie_share", "lost", "replay")
+
+# a boundary row's volume against the reference's V_b, relative: the
+# program's V_b is 1 over a float32 sum of about 30 kernel values, each
+# within a few float32 steps (6e-8) of its own, so it errs by some 2e-6 of
+# the sum; bfloat16 errs by 4e-3, and one neighbour left out by about 1/30
+VOLUME_RTOL = 1e-4
 
 
 def reference_steps(cell, inp: dict, steps: int, resort: int, device,
@@ -87,8 +98,19 @@ def compare(cell, inp: dict, out: dict, ref: dict, replay: int = 0) -> dict[str,
     np.add.at(seen, ref_row[ok], 1)
     lost += int(np.count_nonzero(~ok)) + int(np.count_nonzero(seen != 1))
     ref_row, keep = ref_row[ok], np.flatnonzero(rows)[ok]
-    for k in ("mass", "volume", "material"):
+    wall = np.asarray(inp["material"][:n])[ref_row] == BOUNDARY
+    for k in ("mass", "material"):
         lost += int(np.count_nonzero(np.asarray(out[k])[keep] != np.asarray(inp[k][:n])[ref_row]))
+    volume = np.asarray(out["volume"])[keep]
+    lost += int(np.count_nonzero(volume[~wall] != np.asarray(inp["volume"][:n])[ref_row[~wall]]))
+    if wall.any():
+        # static rows keep their place bitwise, and carry Akinci's volume
+        for k in ("x", "v"):
+            moved = np.asarray(out[k])[keep[wall]] != np.asarray(inp[k][:n])[ref_row[wall]]
+            lost += int(np.count_nonzero(moved.any(-1)))
+        vb = ref["volume_b"].detach().to("cpu", torch.float64).numpy()[ref_row[wall]]
+        lost += int(np.count_nonzero(~(np.abs(volume[wall] - vb) <= VOLUME_RTOL * vb)))
+        ref_row, keep = ref_row[~wall], keep[~wall]
 
     def f64(a):
         return torch.as_tensor(np.asarray(a)[keep], dtype=torch.float64)
@@ -120,12 +142,17 @@ def compare(cell, inp: dict, out: dict, ref: dict, replay: int = 0) -> dict[str,
 
 def as_answer(ref: dict, dtype_in: dict) -> dict:
     """A reference result as an answer (host arrays in the program's
-    field names, live rows in the input's order): the control's output."""
+    field names, live rows in the input's order): the control's output,
+    with its own V_b as the volume of each boundary row."""
     n = ref["x"].shape[0]
     out = {k: ref[k].detach().to("cpu", torch.float64).numpy() for k in
            ("x", "v", "density", "pressure")}
     for k in ("mass", "volume", "material", "object_id"):
         out[k] = np.asarray(dtype_in[k][:n])
+    wall = out["material"] == BOUNDARY
+    if wall.any():
+        vb = ref["volume_b"].detach().to("cpu", torch.float64).numpy()
+        out["volume"] = np.where(wall, vb, out["volume"])
     return out | {"num_active": np.asarray(n)}
 
 

@@ -53,7 +53,8 @@ class Record:
     queue_ms: list[float] = dataclasses.field(default_factory=list)  # host ms a step, a call
     # each episode's seconds to its end (a health read or a dump waits for the device)
     episode_s: list[float] = dataclasses.field(default_factory=list)
-    # the traced run: the window is one unprofiled episode, then its profiled copy
+    # the traced run: one unprofiled episode (the fields above), then its
+    # profiled copy, whose trace holds the device's busy time and the traced window
     device: trace.DeviceTrace | None = None
     bound_ms_per_step: float | None = None
 

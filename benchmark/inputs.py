@@ -3,12 +3,21 @@ scene file and the seed, and handed to the program.
 
 The lattice is Ti-SPH's ``add_cube``: per axis ``arange(start, end,
 spacing)``, an ij meshgrid, rounded to float32, spacing the particle
-radius unless a block sets its own.  ``--seed`` moves each coordinate by
-a uniform draw in [-a, a] times the spacing, ``a`` the configuration's
-``jitter``: small against the spacing, so the flow and the work per step
-are the same on every seed while the particles' paths differ.  Every row
-gets its start row as ``object_id``, its tag: the program carries the
-tag through its sorts, and the check matches rows by it.
+radius unless a fluid block sets its own.  A ``boundaryBlocks`` entry is
+the scene schema's static boundary box: a lattice at the particle
+diameter, material 0, at rest, with the block's density and colour.  The
+rows come as the program's ``build_state`` orders them, the boundary
+blocks before the fluid blocks, each with the volume 0.8 d^dim and the
+mass volume * density that it sets (the program replaces a boundary
+row's volume by its Akinci volume when it binds the state).
+
+``--seed`` moves each coordinate of a fluid row by a uniform draw in
+[-a, a] times the spacing, ``a`` the configuration's ``jitter``: small
+against the spacing, so the flow and the work per step are the same on
+every seed while the particles' paths differ; boundary rows stay on
+their lattice.  Every row gets its start row as ``object_id``, its tag:
+the program carries the tag through its sorts, and the check matches
+rows by it.
 """
 
 from __future__ import annotations
@@ -16,18 +25,44 @@ from __future__ import annotations
 import numpy as np
 
 
+# what a scene may hold that the benchmark cannot make yet, and why
+REFUSED = {
+    "rigidBodies": "a voxelizer of meshes independent of the program",
+    "emitters": "emission into the pool of dead rows, in the inputs and in the reference",
+}
+
+
+def _color(block: dict) -> np.ndarray:
+    """A block's colour as three float32s, 0-255 values scaled to 0-1."""
+    color = np.asarray(block.get("color", [0.2, 0.4, 0.8]), dtype=np.float64)[:3]
+    if color.max(initial=0.0) > 1.0:
+        color = color / 255.0
+    return color.astype(np.float32)
+
+
 def lattice(scene: dict) -> dict[str, np.ndarray]:
-    """The fluid blocks of a scene file as host arrays, in the program's
-    field names, before any jitter."""
+    """The boundary and fluid blocks of a scene file as host arrays, in
+    the program's field names, before any jitter."""
     cfg = scene["configuration"]
     dim = int(cfg.get("dim", len(cfg["domainStart"])))
-    for key in ("rigidBodies", "boundaryBlocks", "emitters"):
+    for key, lacks in REFUSED.items():
         if scene.get(key):
-            raise NotImplementedError(f"the benchmark's scenes hold fluid blocks only, "
-                                      f"not {key}")
+            raise NotImplementedError(f"the benchmark cannot make a scene's {key}: it lacks "
+                                      f"{lacks}")
     radius = float(cfg["particleRadius"])
     volume0 = 0.8 * (2.0 * radius) ** dim
-    parts = {k: [] for k in ("x", "v", "density", "color")}
+    parts = {k: [] for k in ("x", "v", "density", "color", "material")}
+    for block in scene.get("boundaryBlocks") or []:
+        axes = [np.arange(float(s), float(e), 2.0 * radius)
+                for s, e in zip(block["start"][:dim], block["end"][:dim])]
+        grid = np.meshgrid(*axes, indexing="ij")
+        x = np.stack([g.ravel() for g in grid], axis=-1).astype(np.float32)
+        n = x.shape[0]
+        parts["x"].append(x)
+        parts["v"].append(np.zeros((n, dim), np.float32))
+        parts["density"].append(np.full(n, float(block.get("density", 1000.0)), np.float32))
+        parts["color"].append(np.tile(_color(block), (n, 1)))
+        parts["material"].append(np.zeros(n, np.int32))
     for block in scene["fluidBlocks"]:
         start = np.asarray(block["start"][:dim], dtype=np.float64)
         end = np.asarray(block["end"][:dim], dtype=np.float64)
@@ -42,20 +77,17 @@ def lattice(scene: dict) -> dict[str, np.ndarray]:
         if block.get("translation"):
             x = x + np.asarray(block["translation"][:dim], dtype=np.float32)
         n = x.shape[0]
-        color = np.asarray(block.get("color", [0.2, 0.4, 0.8]), dtype=np.float64)[:3]
-        if color.max(initial=0.0) > 1.0:
-            color = color / 255.0
         parts["x"].append(x)
         parts["v"].append(np.tile(np.asarray(block.get("velocity", [0.0] * dim)[:dim],
                                              dtype=np.float32), (n, 1)))
         parts["density"].append(np.full(n, float(block.get("density", 1000.0)), np.float32))
-        parts["color"].append(np.tile(color.astype(np.float32), (n, 1)))
+        parts["color"].append(np.tile(_color(block), (n, 1)))
+        parts["material"].append(np.ones(n, np.int32))
     out = {k: np.concatenate(v) for k, v in parts.items()}
     n = out["x"].shape[0]
     out["pressure"] = np.zeros(n, np.float32)
     out["volume"] = np.full(n, volume0, np.float32)
     out["mass"] = out["volume"] * out["density"]
-    out["material"] = np.ones(n, np.int32)
     out["object_id"] = np.arange(n, dtype=np.int32)
     out["num_active"] = np.asarray(n)
     return out
@@ -69,10 +101,11 @@ def spacing(scene: dict) -> float:
 
 
 def start_state(scene: dict, jitter: float, seed: int) -> dict[str, np.ndarray]:
-    """S0: the lattice with each coordinate moved by U[-jitter, jitter]
-    times the spacing, drawn from ``seed``."""
+    """S0: the lattice with each coordinate of a fluid row moved by
+    U[-jitter, jitter] times the spacing, drawn from ``seed``."""
     s0 = lattice(scene)
+    fluid = s0["material"] == 1
     rng = np.random.default_rng(seed)
-    move = rng.uniform(-jitter, jitter, size=s0["x"].shape) * spacing(scene)
-    s0["x"] = (s0["x"].astype(np.float64) + move).astype(np.float32)
+    move = rng.uniform(-jitter, jitter, size=s0["x"][fluid].shape) * spacing(scene)
+    s0["x"][fluid] = (s0["x"][fluid].astype(np.float64) + move).astype(np.float32)
     return s0

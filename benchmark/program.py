@@ -17,6 +17,8 @@ from benchmark import inputs
 FAULTS = {
     "viscosity_dropped": lambda p: dataclasses.replace(p, viscosity=0.0),
     "pressure_scaled": lambda p: dataclasses.replace(p, stiffness=0.9 * p.stiffness),
+    # Akinci's boundary viscosity left out: no change without boundary rows
+    "boundary_viscosity_dropped": lambda p: dataclasses.replace(p, boundary_sigma=0.0),
 }
 
 

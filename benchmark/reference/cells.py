@@ -2,8 +2,13 @@
 
 Every pair (i, j) with |x_i - x_j| < h at the binning positions lies in
 one of the 3^dim cells around i's cell, so the candidates of a row are
-the rows of those cells.  Used by the reference steps and by the pair
-counts of ``benchmark.work``; it imports nothing of the measured program.
+the rows of those cells.  A row's cell is Ti-SPH's ``pos_to_index``,
+(x - domain_start) / h floored, in float32 as Ti-SPH computes it: a row
+on a face of the grid, as boundary lattices are, lies in the cell that
+float32 gives, and a pair that motion within a group brings inside h is
+a candidate exactly where it is in the float32 grid.  Used by the
+reference steps and by the pair counts of ``benchmark.work``; it imports
+nothing of the measured program.
 """
 
 from __future__ import annotations
@@ -29,9 +34,9 @@ class CellList:
         dim = x.shape[1]
         self.res = [int(math.ceil((e - s) / h)) for s, e in zip(domain_start, domain_end)]
         dev = x.device
-        start = torch.tensor(domain_start, dtype=torch.float64, device=dev)
+        start = torch.tensor(domain_start, dtype=torch.float32, device=dev)
         hi = torch.tensor([r - 1 for r in self.res], dtype=torch.int64, device=dev)
-        c = torch.floor((x[rows].to(torch.float64) - start) / h).to(torch.int64)
+        c = torch.floor((x[rows].to(torch.float32) - start) / h).to(torch.int64)
         self.coords = torch.minimum(torch.clamp(c, min=0), hi)  # (len(rows), dim)
         self.strides = [math.prod(self.res[a + 1:]) for a in range(dim)]
         flat = self._flat(self.coords)

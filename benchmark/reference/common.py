@@ -30,6 +30,7 @@ class Physics:
     exponent: float
     viscosity: float
     surface_tension: float
+    boundary_sigma: float
     collision_factor: float
     c_s: float
     gravity: tuple[float, ...]
@@ -57,7 +58,8 @@ def physics(scene: dict, compat: str) -> Physics:
     dim = int(cfg.get("dim", len(start)))
     return Physics(
         dim=dim, dt=2e-4, rho0=float(cfg.get("density0", 1000.0)), stiffness=50.0,
-        exponent=7.0, viscosity=0.05, surface_tension=0.01, collision_factor=0.5,
+        exponent=7.0, viscosity=0.05, surface_tension=0.01, boundary_sigma=0.08,
+        collision_factor=0.5,
         c_s=float(cfg.get("c_s", 100.0)),
         gravity=tuple(float(g) for g in cfg.get("gravitation", [0.0, -9.81, 0.0])[:dim]),
         radius=float(cfg["particleRadius"]),
@@ -103,13 +105,11 @@ def pairs_inside(cl: CellList, x: torch.Tensor, fluid: torch.Tensor, h: float):
 
 def to_device(state: dict, device, dtype) -> dict:
     """The live rows of a host or device state (the program's field
-    names) as tensors of ``dtype`` (integer fields int64) on ``device``."""
+    names), fluid and boundary, as tensors of ``dtype`` (integer fields
+    int64) on ``device``."""
     n = int(state["num_active"])
     out = {k: torch.as_tensor(state[k][:n]).to(device=device, dtype=dtype)
            for k in ("x", "v", "density", "pressure", "mass", "volume")}
     for k in ("material", "object_id"):
         out[k] = torch.as_tensor(state[k][:n]).to(device=device, dtype=torch.int64)
-    if bool((out["material"] == BOUNDARY).any()):
-        raise NotImplementedError("the reference steps hold fluid rows only: the state has "
-                                  "boundary rows")
     return out

@@ -35,6 +35,9 @@ def group(st: dict, R: int, ph: Physics) -> dict:
     m_v = 0.8 * (2.0 * ph.radius) ** dim
     rows = torch.arange(x.shape[0], device=x.device)
     fluid = st["material"] == FLUID
+    if not bool(fluid.all()):
+        raise NotImplementedError("the V1 reference holds fluid rows only: it has no boundary "
+                                  "terms of the legacy solver")
     g = torch.zeros(dim, dtype=x.dtype, device=x.device)
     g[-1] = -9.80
     lo, hi = (torch.tensor(b, dtype=x.dtype, device=x.device) for b in ph.box())

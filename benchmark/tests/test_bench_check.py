@@ -16,6 +16,7 @@ from benchmark.program import Program
 from benchmark.tests import tiny
 
 TINY = [f"{c}.{m}" for c in tiny.TINY_SCENES for m in tiny.MIXES]
+WALLS = [f"{c}.{m}" for c in tiny.WALLS for m in tiny.MIXES]
 
 
 @pytest.fixture(scope="module")
@@ -123,15 +124,28 @@ def test_faults_fail(bench_json, cell, fault, monkeypatch):
     assert not line["correct"], line["checked"]
 
 
+@pytest.mark.parametrize("cell", WALLS)
+def test_boundary_fault_fails(bench_json, cell, monkeypatch):
+    """Akinci's boundary viscosity left out of the program reads
+    ``correct`` false in a cell with boundary rows (without them the fault
+    changes nothing)."""
+    _physics("boundary_viscosity_dropped")(monkeypatch)
+    line = tiny.run(bench_json, cell)
+    assert not line["correct"], line["checked"]
+
+
 def test_reference_matches_the_program_per_step(bench_json):
     """Each reference against the program's CPU path on S0, one group
-    after another: gaps at float32 rounding."""
-    for cell in ("tiny_2d_v1.tiny_run", "tiny_3d.tiny_run"):
+    after another: gaps at float32 rounding; in the tank, every boundary
+    row in place with its volume within a tenth of ``check.VOLUME_RTOL``
+    of the reference's V_b."""
+    for cell in ("tiny_2d_v1.tiny_run", "tiny_3d.tiny_run", "tiny_3d_walls.tiny_run"):
         c = load_cell(cell, bench_json)
         s0 = inputs.start_state(c.scene, float(c.config["jitter"]), 99)
         prog = Program(c, torch.device("cpu"), harness.resort_every(c))
         st = prog.start(s0)
         host = s0
+        wall = s0["material"] == 0  # by tag: a tag is a row of S0
         for _ in range(3):
             out = prog.advance(st, harness.resort_every(c))
             out_host = harness.to_host(out)
@@ -141,5 +155,33 @@ def test_reference_matches_the_program_per_step(bench_json):
             assert nums["lost"] == 0
             assert max(nums[k] for k in ("rho_gap", "p_gap")) < 1e-4, nums
             assert max(nums[k] for k in ("dx_gap", "dv_gap")) < 0.5, nums
+            if wall.any():
+                n = int(out_host["num_active"])
+                vb, volume = np.zeros(n), np.zeros(n)
+                vb[host["object_id"][:n]] = ref["volume_b"].numpy()
+                volume[out_host["object_id"][:n]] = out_host["volume"][:n]
+                assert np.abs(volume[wall] / vb[wall] - 1.0).max() < check.VOLUME_RTOL / 10
             st, host = out, out_host
         assert np.isfinite(host["x"]).all()
+
+
+def test_moved_or_resized_boundary_rows_are_lost(bench_json):
+    """A boundary row moved by one float32 step, or carrying a volume off
+    by twice the tolerance, counts in ``lost``; the fluid rows' numbers do
+    not see boundary rows."""
+    c = load_cell("tiny_3d_walls.tiny_run", bench_json)
+    s0 = inputs.start_state(c.scene, float(c.config["jitter"]), 5)
+    prog = Program(c, torch.device("cpu"), harness.resort_every(c))
+    out = harness.to_host(prog.advance(prog.start(s0), 2))
+    ref = check.reference_steps(c, s0, 2, 2, torch.device("cpu"))
+    good = check.compare(c, s0, out, ref)
+    assert good["lost"] == 0
+    n = int(out["num_active"])
+    walls = np.flatnonzero(out["material"][:n] == 0)
+    moved = {k: v.copy() for k, v in out.items()}
+    moved["x"][walls[:3], 1] = np.nextafter(moved["x"][walls[:3], 1], np.float32(1))
+    moved["volume"][walls[5]] *= 1.0 + 2 * check.VOLUME_RTOL
+    bad = check.compare(c, s0, moved, ref)
+    assert bad["lost"] == 4
+    assert {k: bad[k] for k in ("dx_gap", "dv_gap", "rho_gap", "p_gap", "tie_share")} == {
+        k: good[k] for k in ("dx_gap", "dv_gap", "rho_gap", "p_gap", "tie_share")}

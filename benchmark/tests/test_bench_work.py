@@ -2,11 +2,21 @@
 
 from __future__ import annotations
 
+import types
+
 import numpy as np
 import pytest
 import torch
 
 from benchmark import work
+
+
+def _brute(x: np.ndarray, mat: np.ndarray, h: float) -> dict[str, int]:
+    d = ((x[:, None, :].astype(np.float64) - x[None].astype(np.float64)) ** 2).sum(-1)
+    near = (d < h * h) & (mat[:, None] == 1) & (mat[None] >= 0)
+    other = near & ~np.eye(len(x), dtype=bool)
+    return {"with_self": int(near.sum()), "fluid": int((other & (mat[None] == 1)).sum()),
+            "live": int(other.sum())}
 
 
 @pytest.mark.parametrize("dim", [2, 3])
@@ -21,11 +31,7 @@ def test_pair_count_matches_brute_force(dim):
     mat[::11] = -1  # dead rows: neither
     xt, mt = torch.from_numpy(x), torch.from_numpy(mat)
     got = work.count_pairs(xt, mt, h, [0.0] * dim, [1.0] * dim)
-    d = ((x[:, None, :].astype(np.float64) - x[None].astype(np.float64)) ** 2).sum(-1)
-    near = (d < h * h) & (mat[:, None] == 1) & (mat[None] >= 0)
-    other = near & ~np.eye(len(x), dtype=bool)
-    assert got == {"with_self": int(near.sum()), "fluid": int((other & (mat[None] == 1)).sum()),
-                   "live": int(other.sum())}
+    assert got == _brute(x, mat, h)
 
 
 def test_step_bound_phases():
@@ -36,3 +42,45 @@ def test_step_bound_phases():
         assert all(v > 0 for v in b.values())
     b = work.step_bound_ms("wcsph", 3, 195304, 195300, 468750, 1, pairs)
     assert b["force"] == pytest.approx(5.0e7 * 60 / 67e12 * 1e3)  # bound by operations
+
+
+def test_pair_count_with_boundary_rows_on_the_grid():
+    """The tank of boundary rows, whose lattice lies on the faces of the
+    cells: every fluid row's pairs with fluid and boundary rows counted."""
+    from benchmark import inputs
+    from benchmark.tests import tiny
+
+    scene = tiny.TINY_SCENES["tiny_3d_walls"][1]
+    s0 = inputs.start_state(scene, 0.01, 2 ** 31 + 5)
+    cfg = scene["configuration"]
+    got = work.count_pairs(torch.from_numpy(s0["x"]), torch.from_numpy(s0["material"]), 0.04,
+                           cfg["domainStart"], cfg["domainEnd"])
+    assert got == _brute(s0["x"], s0["material"], 0.04)
+    assert got["live"] > got["fluid"]  # boundary neighbours are counted
+
+
+def test_step_bound_takes_every_row(monkeypatch):
+    """``harness.step_bound`` hands the work every row of a state with
+    boundary rows, its fluid rows apart, and the mean of the pair counts."""
+    from benchmark import harness, inputs
+    from benchmark.tests import tiny
+
+    scene = tiny.TINY_SCENES["tiny_3d_walls"][1]
+    states = [inputs.start_state(scene, 0.01, s) for s in (1, 2)]
+    cell = types.SimpleNamespace(scene=scene, config={"solver": "wcsph", "resort_every": 2},
+                                 traffic={"resort_every": None})
+    seen = {}
+
+    def bound(*args):
+        seen["args"] = args
+        return {"all": 1.0}
+
+    monkeypatch.setattr(work, "step_bound_ms", bound)
+    assert harness.step_bound(cell, states) == 1.0
+    solver, dim, rows, fluid, cells, resort, pairs = seen["args"]
+    n = int(states[0]["num_active"])
+    assert (solver, dim, rows, resort) == ("wcsph", 3, n, 2)
+    assert fluid == int((states[0]["material"] == 1).sum()) < n
+    assert cells == work.grid_cells([0.0] * 3, [0.5] * 3, 0.04)
+    mean = {k: sum(_brute(s["x"], s["material"], 0.04)[k] for s in states) / 2 for k in pairs}
+    assert pairs == pytest.approx(mean, rel=1e-12)

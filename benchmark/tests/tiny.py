@@ -1,7 +1,9 @@
 """A copy of the benchmark's folder with tiny cells added by new files
-only, for the CPU tests: a 2D scene on the V1 solver and a 3D scene on
-the V2 solver, each under both traffic mixes cut to 20-step episodes,
-held to the limits of the full-size cell of the same solver and mix."""
+only, for the CPU tests: a 2D scene on the V1 solver, and two 3D scenes
+on the V2 solver, the second in a tank of static boundary particles (a
+floor and four walls, two layers each, and a box), each under both
+traffic mixes cut to 20-step episodes, held to the limits of the
+full-size cell of the same solver and mix."""
 
 from __future__ import annotations
 
@@ -29,7 +31,23 @@ TINY_SCENES = {
         "fluidBlocks": [{"start": [0.3, 0.1, 0.2], "end": [0.4, 0.2, 0.3],
                          "velocity": [0.0, -1.0, 5.0], "density": 1000.0,
                          "color": [50, 100, 200]}]}),
+    "tiny_3d_walls": ("demo_3d", {
+        "configuration": {"dim": 3, "domainStart": [0.0, 0.0, 0.0],
+                          "domainEnd": [0.5, 0.5, 0.5], "particleRadius": 0.01,
+                          "density0": 1000, "gravitation": [0.0, -9.81, 0.0], "c_s": 88.5},
+        "boundaryBlocks": [
+            {"start": [0.06, 0.06, 0.06], "end": [0.45, 0.099, 0.45]},
+            {"start": [0.06, 0.1, 0.06], "end": [0.099, 0.3, 0.45]},
+            {"start": [0.42, 0.1, 0.06], "end": [0.459, 0.3, 0.45]},
+            {"start": [0.1, 0.1, 0.06], "end": [0.419, 0.3, 0.099]},
+            {"start": [0.1, 0.1, 0.42], "end": [0.419, 0.3, 0.459]},
+            {"start": [0.25, 0.1, 0.2], "end": [0.309, 0.159, 0.299], "color": [90, 90, 90]}],
+        "fluidBlocks": [{"start": [0.11, 0.11, 0.11], "end": [0.21, 0.21, 0.3],
+                         "velocity": [3.0, -1.0, 0.0], "density": 1000.0,
+                         "color": [50, 100, 200]}]}),
 }
+# the scenes that hold boundary rows
+WALLS = ("tiny_3d_walls",)
 MIXES = {"tiny_run": ("run", 8), "tiny_frames": ("frames", 5)}
 
 

@@ -1,8 +1,9 @@
 """Reads a ``torch.profiler`` trace of the traced pass: the device's busy
-seconds (the union of its operations' intervals), its operations by
-name, and its idle gaps labelled by the benchmark's own host spans
-(``record_function`` ranges named ``SPAN_PREFIX + <name>`` around
-``advance``, ``state_to_host``, the health read and an episode's start).
+seconds (the union of its operations' intervals), the traced window's
+seconds on the same timeline, its operations by name, and its idle gaps
+labelled by the benchmark's own host spans (``record_function`` ranges
+named ``SPAN_PREFIX + <name>`` around ``advance``, ``state_to_host``, the
+health read and an episode's start).
 """
 
 from __future__ import annotations
@@ -17,6 +18,9 @@ SPAN_PREFIX = "bench."
 @dataclasses.dataclass
 class DeviceTrace:
     busy_s: float
+    # from the first host span or device operation to the last one's end:
+    # the traced window, which holds every busy interval
+    window_s: float
     ops: int
     by_name: dict[str, float]  # seconds by operation name
     idle_by_span: dict[str, float]  # idle seconds by the host span they fell in
@@ -45,7 +49,9 @@ def read_events(device_ops: list[tuple[float, float, str]],
         k = bisect.bisect_right(starts, mid) - 1
         label = spans[k][2] if k >= 0 and spans[k][1] >= mid else "between spans"
         idle[label] += (start - end) * 1e-6
-    return DeviceTrace(busy, len(device_ops), dict(by_name), dict(idle))
+    window = (max(e for _, e, _ in device_ops + spans)
+              - min(s for s, _, _ in device_ops + spans)) * 1e-6
+    return DeviceTrace(busy, window, len(device_ops), dict(by_name), dict(idle))
 
 
 def profiled(fn) -> DeviceTrace:
