@@ -17,11 +17,18 @@ On the CPU:
   off; a span and a ``record_function`` range opened around the same
   call agree on the profiler's ``start_ns`` within 1 ms;
 - ``profiling.trace()`` writes the spans into ``trace.json`` on the
-  file's time base.
+  file's time base;
+- a bind is one ``solver.bind`` span with its rows, fluid rows and
+  boundary rows, and adds to the counters ``bind.calls``, ``bind.s`` and
+  ``bind.boundary_rows``; a pure-fluid bind sums no boundary volume; a
+  ``solver.rollout`` span carries the last bind's fluid and boundary rows;
+  a sweep launch adds its rows to its wrapper's ``rows``, a counter of the
+  graph runner's registry.
 
 Marked ``cuda`` (skipped here): after graphed rollouts the wrappers'
-``launches`` and ``part_launches`` rose as the eager rollouts' did, and
-``solver.rollout``'s ``launches`` is that rise.
+``launches``, ``part_launches`` and ``rows`` rose as the eager rollouts'
+did, and ``solver.rollout``'s ``launches`` is that rise; a V2 rollout's
+``sweep_rows`` is two sweeps of every row a step.
 """
 
 import json
@@ -34,6 +41,7 @@ import torch
 import tisph_tpu_torch as pt
 from tisph_tpu_torch.models import graphs
 from tisph_tpu_torch.models.graphs import GroupRunner
+from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.grid import state_fields
 from tisph_tpu_torch.utils import profiling
 
@@ -49,8 +57,12 @@ RAW = {
 }
 
 
-def _solver(R=2, legacy=False, device="cpu"):
-    scene = pt.scene_from_dict(RAW)
+# RAW on a floor of static boundary rows, two layers at the diameter
+RAW_WALLS = RAW | {"boundaryBlocks": [{"start": [0.1, 0.02], "end": [0.9, 0.07]}]}
+
+
+def _solver(R=2, legacy=False, device="cpu", raw=RAW):
+    scene = pt.scene_from_dict(raw)
     cls = pt.WCSPHLegacy if legacy else pt.WCSPH
     solver = cls(scene, device=device, resort_every=R)
     return solver, solver.bind(pt.build_state(scene, device=device))
@@ -228,6 +240,64 @@ def test_counters_add_and_copy():
     assert profiling.counters()["test.events"] != -1
 
 
+def test_a_bind_with_boundary_rows_is_traced():
+    scene = pt.scene_from_dict(RAW_WALLS)
+    state = pt.build_state(scene, device="cpu")
+    fluid, walls = int(state.fluid_mask.sum()), int(state.boundary_mask.sum())
+    assert fluid > 0 and walls > 0
+    solver = pt.WCSPH(scene, device="cpu", resort_every=2)
+    before = profiling.counters()
+    with profiling.recording():
+        bound = solver.bind(state)
+    after = profiling.counters()
+    assert [s.name for s in profiling.recorded()] == ["solver.bind"]
+    assert profiling.recorded()[0].attrs == {"rows": state.capacity, "fluid_rows": fluid,
+                                             "boundary_rows": walls}
+    assert after["bind.calls"] - before.get("bind.calls", 0) == 1
+    assert after["bind.s"] - before.get("bind.s", 0) > 0
+    assert after["bind.boundary_rows"] - before.get("bind.boundary_rows", 0) == walls
+    assert not torch.equal(bound.volume, state.volume)  # the Akinci volumes
+
+
+def test_a_pure_fluid_bind_sums_no_boundary_volume(monkeypatch):
+    monkeypatch.setattr(cuda_sweeps, "bvol_sweep", _raise)
+    before = profiling.counters()
+    solver, state = _solver()
+    after = profiling.counters()
+    assert after["bind.calls"] - before.get("bind.calls", 0) == 1
+    assert after["bind.boundary_rows"] - before.get("bind.boundary_rows", 0) == 0
+    assert solver._bind_rows == {"fluid_rows": state.num_active, "boundary_rows": 0}
+
+
+@pytest.mark.parametrize("graphed", [False, True])
+def test_a_rollout_carries_the_bound_rows(graphed):
+    solver, state = _solver(raw=RAW_WALLS)
+    if graphed:
+        _direct(solver)
+    with profiling.recording():
+        solver.rollout(state, 3)
+    root = profiling.recorded()[0]
+    assert root.name == "solver.rollout"
+    assert root.attrs["fluid_rows"] == int(state.fluid_mask.sum())
+    assert root.attrs["boundary_rows"] == int(state.boundary_mask.sum()) > 0
+    assert root.attrs["sweep_rows"] == 0  # the CPU runs the plain sweeps
+
+
+def test_a_launch_adds_its_rows(monkeypatch):
+    assert all((w, "rows") in graphs._COUNTERS for w in (
+        cuda_sweeps.density_sweep, cuda_sweeps.force_sweep, cuda_sweeps.bvol_sweep,
+        cuda_sweeps.force_react_sweep, cuda_sweeps.reaction_sweep,
+        cuda_sweeps.density_sweep_linear, cuda_sweeps.force_sweep_linear))
+    w = cuda_sweeps.force_sweep
+    for c in ("launches", "part_launches", "rows"):
+        monkeypatch.setattr(w, c, getattr(w, c))  # restored after the test
+    before = (w.launches, w.part_launches, w.rows, graphs.sweep_rows())
+    cuda_sweeps._count(w, False, 1000)
+    cuda_sweeps._count(w, True, 24)
+    after = (w.launches, w.part_launches, w.rows, graphs.sweep_rows())
+    assert [b - a for a, b in zip(before, after)] == [2, 1, 1024, 1024]
+
+
 def _counts():
     return [getattr(w, c) for w, c in graphs._COUNTERS]
 
@@ -257,3 +327,19 @@ def test_graph_launch_counters_settle_as_eager(legacy):
         assert sum(s.attrs["launches"] for s in roots) == launched > 0
         assert not [s for s in profiling.recorded() if s.name == "runner.capture"]
     assert rises["graph"] == rises["eager"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("raw", [RAW, RAW_WALLS], ids=["fluid", "walls"])
+def test_a_v2_rollout_sweeps_every_row_twice_a_step(raw):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    solver, state = _solver(R=2, device="cuda", raw=raw)
+    assert solver.graphs
+    solver.rollout(state, 3)  # kernels built, graphs captured
+    with profiling.recording():
+        solver.rollout(state, 7)
+    torch.cuda.synchronize()
+    root = profiling.recorded()[0]
+    assert root.name == "solver.rollout" and root.attrs["replays"] == 4
+    assert root.attrs["sweep_rows"] == 2 * state.capacity * 7

@@ -49,11 +49,11 @@ Where a capture could go wrong, and what the runner does about it:
 - aliasing: graph tensors live in the pool and the next replay rewrites
   the buffers, so the carry a rollout returns is a clone and no group
   cache leaves the graph;
-- launch counters: the wrappers count launches in Python, and a replay
-  makes no Python call, so the runner records what a capture counted,
-  counts a rollout's replays per key and adds replays times counted at
-  the rollout's end: between calls the counters read as if every group
-  had run eagerly;
+- launch counters: the wrappers count launches (the sweeps also the rows
+  they cover) in Python, and a replay makes no Python call, so the runner
+  records what a capture counted, counts a rollout's replays per key and
+  adds replays times counted at the rollout's end: between calls the
+  counters read as if every group had run eagerly;
 - bitwise: a replay runs the eager group's kernels with the same launch
   shapes in the same order (``launch_shape`` reads only the row count),
   so it equals the eager group bitwise, not within a tolerance.
@@ -89,8 +89,9 @@ from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.grid import state_fields
 from tisph_tpu_torch.utils.profiling import count, span
 
-# every wrapper's launch counters (``launches``, and ``part_launches``
-# where it has them): a rollout's end adds what its replays' captures counted
+# every wrapper's launch counters (``launches``, and ``part_launches`` and
+# ``rows`` where it has them): a rollout's end adds what its replays'
+# captures counted
 _COUNTERS = tuple(
     (w, c)
     for w in (cuda_bounds.sort_and_bound, cuda_bounds.csr_bounds_sorted,
@@ -99,7 +100,7 @@ _COUNTERS = tuple(
               cuda_sweeps.density_sweep_linear, cuda_sweeps.force_sweep_linear,
               cuda_legacy.legacy_density_sweep, cuda_legacy.legacy_force_sweep,
               cuda_pointwise.eos_pack, cuda_pointwise.advance)
-    for c in ("launches", "part_launches") if hasattr(w, c)
+    for c in ("launches", "part_launches", "rows") if hasattr(w, c)
 )
 
 
@@ -115,6 +116,11 @@ def _set_counters(values: list[int]) -> None:
 def launches() -> int:
     """Every wrapper's ``launches`` summed (``part_launches`` are among them)."""
     return sum(getattr(w, c) for w, c in _COUNTERS if c == "launches")
+
+
+def sweep_rows() -> int:
+    """The rows the sweep wrappers' launches covered (``ops.cuda.sweeps``), summed."""
+    return sum(getattr(w, c) for w, c in _COUNTERS if c == "rows")
 
 
 def _tensors(obj) -> dict[str, torch.Tensor]:

@@ -42,13 +42,14 @@ import torch
 
 from tisph_tpu_torch.config import SceneConfig, SolverParams
 from tisph_tpu_torch.geometry.emitter import EmitterState, activate, count_step, due_step
-from tisph_tpu_torch.models.graphs import GroupRunner, launches
+from tisph_tpu_torch.models.graphs import GroupRunner, launches, sweep_rows
 from tisph_tpu_torch.models.state import SimState
 from tisph_tpu_torch.ops import grid as gridops
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
+from tisph_tpu_torch.ops.cuda import build as cuda_build
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.neighbors import pack4
-from tisph_tpu_torch.utils.profiling import span
+from tisph_tpu_torch.utils.profiling import count, span
 
 
 class SolverBase:
@@ -129,6 +130,8 @@ class SolverBase:
             graphs = self.device.type == "cuda" and self.eager_loop is None
         self.graphs = bool(graphs)
         self._runner: GroupRunner | None = None
+        # the fluid and boundary rows of the state last bound, as host ints
+        self._bind_rows: dict[str, int] = {}
 
     def _check_resort(self, R: int) -> None:
         if R < 1:
@@ -145,20 +148,36 @@ class SolverBase:
             raise ValueError(f"state is on {dev}, solver on {self.device}")
 
     def bind(self, state: SimState) -> SimState:
-        """Check the state's device and, under ``boundary_mode="static"``,
-        compute the Akinci boundary volumes once."""
+        """Check the state's device, count its fluid and boundary rows (one
+        device read) and, under ``boundary_mode="static"``, compute the
+        Akinci boundary volumes once.  One ``solver.bind`` span (``rows``,
+        ``fluid_rows``, ``boundary_rows``) and the counters ``bind.calls``,
+        ``bind.s`` (host seconds to the device's finish: a bind that
+        computed volumes waits for them) and ``bind.boundary_rows``."""
         self._check_device(state)
-        if self.boundary_mode == "static":
-            state = self._precompute_boundary_volumes(state)
-        self._bound = True
+        if self.device.type == "cuda":
+            cuda_build.load()  # a checkout's first build counts in build.s, not bind.s
+        t0 = time.perf_counter()
+        with span("solver.bind", rows=state.capacity) as sp:
+            fluid, boundary = torch.stack([state.fluid_mask.sum(),
+                                           state.boundary_mask.sum()]).tolist()
+            self._bind_rows = {"fluid_rows": fluid, "boundary_rows": boundary}
+            if sp is not None:
+                sp.attrs.update(self._bind_rows)
+            if self.boundary_mode == "static" and boundary:
+                state = self._precompute_boundary_volumes(state)
+                self.synchronize()
+            self._bound = True
+        count("bind.calls")
+        count("bind.s", time.perf_counter() - t0)
+        count("bind.boundary_rows", boundary)
         return state
 
     def _precompute_boundary_volumes(self, state: SimState) -> SimState:
         """V_b = 1 / (k_sig sum_{j boundary} w) on boundary rows
         (sph_basev2.py:190-201), by the sweep kernel's ``bvol`` mode;
-        returned in the caller's (unsorted) order."""
-        if not bool(state.boundary_mask.any()):
-            return state
+        returned in the caller's (unsorted) order.  The caller makes sure
+        the state has boundary rows."""
         spec, params = self.spec, self.params
         st, ids, perm, bounds = cuda_bounds.sort_and_bound(state, spec)
         bd = st.boundary_mask
@@ -260,22 +279,24 @@ class SolverBase:
         are replays of the runner's graphs, which emit on the same schedule
         (``carry`` then is ``(state, emitters)``).  The call is one
         ``solver.rollout`` span (``utils.profiling``), whose ``replays``,
-        ``captures`` and ``launches`` (the wrappers' launch counters' rise)
-        are read at its end while recording; each eager group is a
-        ``solver.group`` span."""
+        ``captures``, ``launches`` (the wrappers' launch counters' rise) and
+        ``sweep_rows`` (the rise of the sweeps' row tallies) are read at its
+        end while recording, with the ``fluid_rows`` and ``boundary_rows``
+        of the last bind; each eager group is a ``solver.group`` span."""
         with span("solver.rollout", steps=num_steps, R=R) as sp:
             if sp is None:
                 return self._group_loop(carry, num_steps, R, substep, emit)
             before = self._call_counts()
             carry = self._group_loop(carry, num_steps, R, substep, emit)
             sp.attrs.update({k: v - before[k] for k, v in self._call_counts().items()})
+            sp.attrs.update(self._bind_rows)
             return carry
 
     def _call_counts(self) -> dict[str, int]:
         """The counts a ``solver.rollout`` span reports the rise of."""
         r = self._runner
-        return {"launches": launches(), "replays": r.replays if r else 0,
-                "captures": r.captures if r else 0}
+        return {"launches": launches(), "sweep_rows": sweep_rows(),
+                "replays": r.replays if r else 0, "captures": r.captures if r else 0}
 
     def _group_loop(self, carry: tuple, num_steps: int, R: int, substep, emit) -> tuple:
         """:meth:`_groups`' work: the runner's replays, or the eager loop."""

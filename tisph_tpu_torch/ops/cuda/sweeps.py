@@ -15,9 +15,10 @@
 The plain versions are the functions of the same names in
 ``ops.neighbors``, with the same signatures and pack layouts: a CPU tensor
 goes there, a CUDA tensor launches the kernel or raises.  Each wrapper
-counts its launches in ``<wrapper>.launches``, and of those the ones over
+counts its launches in ``<wrapper>.launches``, of those the ones over
 part of the arrays in ``<wrapper>.part_launches`` (an i-row map for
-``csrc/sweeps.cu``, a row range for ``csrc/sweeps_linear.cu``).
+``csrc/sweeps.cu``, a row range for ``csrc/sweeps_linear.cu``), and the
+rows its launches swept in ``<wrapper>.rows``.
 
 Every wrapper of ``csrc/sweeps.cu`` takes ``rows``: None sweeps every
 row, the launch it always was; ``(row0, n)`` sweeps rows [row0, row0 + n)
@@ -128,10 +129,12 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _count(wrapper, part: bool) -> None:
-    """One launch of ``wrapper``'s kernel, over part of the arrays or not."""
+def _count(wrapper, part: bool, n: int) -> None:
+    """One launch of ``wrapper``'s kernel over ``n`` rows, over part of the
+    arrays or not."""
     wrapper.launches += 1
     wrapper.part_launches += int(part)
+    wrapper.rows += n
 
 
 def _launch(mode: str, pos, vel, aux, ids, bounds, material,
@@ -207,7 +210,7 @@ def density_sweep(pos, ids, bounds, material, spec: GridSpec,
                                        rows)
     out = _launch("density", pos, None, None, ids, bounds, material, spec, params, fast_math,
                   rows)
-    _count(density_sweep, isinstance(rows, torch.Tensor))
+    _count(density_sweep, isinstance(rows, torch.Tensor), out.shape[0])
     return out
 
 
@@ -219,7 +222,7 @@ def bvol_sweep(pos, ids, bounds, material, spec: GridSpec,
         return neighbors.bvol_sweep(pos, ids, bounds, material, spec, params, fast_math, rows)
     out = _launch("bvol", pos, None, None, ids, bounds, material, spec, params, fast_math,
                   rows)
-    _count(bvol_sweep, isinstance(rows, torch.Tensor))
+    _count(bvol_sweep, isinstance(rows, torch.Tensor), out.shape[0])
     return out
 
 
@@ -232,7 +235,7 @@ def force_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
                                      params, fast_math, rows)
     out = _launch("force", pos, vel, aux, ids, bounds, material, spec, params, fast_math,
                   rows)
-    _count(force_sweep, isinstance(rows, torch.Tensor))
+    _count(force_sweep, isinstance(rows, torch.Tensor), out.shape[0])
     return out
 
 
@@ -245,7 +248,7 @@ def force_react_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
                                            params, fast_math, rows)
     out = _launch("force_react", pos, vel, aux, ids, bounds, material, spec, params,
                   fast_math, rows)
-    _count(force_react_sweep, isinstance(rows, torch.Tensor))
+    _count(force_react_sweep, isinstance(rows, torch.Tensor), out.shape[0])
     return out
 
 
@@ -258,7 +261,7 @@ def reaction_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
                                         params, fast_math, rows)
     out = _launch("reaction", pos, vel, aux, ids, bounds, material, spec, params, fast_math,
                   rows)
-    _count(reaction_sweep, isinstance(rows, torch.Tensor))
+    _count(reaction_sweep, isinstance(rows, torch.Tensor), out.shape[0])
     return out
 
 
@@ -277,7 +280,7 @@ def density_sweep_linear(pos, ids, bounds, material, spec: GridSpec, params: Sol
                                               fast_math, rows)
     out = _launch_linear("density", pos, None, None, ids, bounds, material, spec, params,
                          fast_math, windows, rows)
-    _count(density_sweep_linear, rows is not None)
+    _count(density_sweep_linear, rows is not None, out.shape[0])
     return out
 
 
@@ -294,7 +297,7 @@ def force_sweep_linear(pos, vel, aux, ids, bounds, material, spec: GridSpec,
                                             params, fast_math, rows)
     out = _launch_linear("force", pos, vel, aux, ids, bounds, material, spec, params,
                          fast_math, windows, rows)
-    _count(force_sweep_linear, rows is not None)
+    _count(force_sweep_linear, rows is not None, out.shape[0])
     return out
 
 
@@ -302,4 +305,5 @@ for _w in (density_sweep, bvol_sweep, force_sweep, force_react_sweep, reaction_s
            density_sweep_linear, force_sweep_linear):
     _w.launches = 0
     _w.part_launches = 0
+    _w.rows = 0
 del _w

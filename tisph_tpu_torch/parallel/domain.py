@@ -377,7 +377,7 @@ class ShardedWCSPH(MeshSolver):
         shard s's rows moved to its device."""
         dev0 = self.mesh.devices[0]
         state = _state_to(state, dev0)
-        if self.boundary_mode == "static":
+        if self.boundary_mode == "static" and bool(state.boundary_mask.any()):
             state = self._precompute_boundary_volumes(state)
         unit = self.n_shards * BLOCK
         state = pad_state_capacity(state, -(-state.capacity // unit) * unit)

@@ -241,7 +241,7 @@ class ShardedWCSPHRect(MeshSolver):
         if self._flags is None:
             self._counts = torch.zeros(self.n_shards, dtype=torch.int64, device=state.device)
             self._flags = torch.zeros(4, dtype=torch.int64, device=state.device)
-        if self.boundary_mode == "static":
+        if self.boundary_mode == "static" and bool(state.boundary_mask.any()):
             state = self._precompute_boundary_volumes(state)
         self._make_cuts(state)
         counts = self._counts_of(state).tolist()
