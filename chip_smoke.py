@@ -10,7 +10,8 @@ Phases, each of which raises on failure (nothing is caught):
    (a conditional graph node, which the slab's seam guard would need to
    run one resort branch on the graph path);
 2. build: compiles tisph_tpu_torch/csrc/*.cu (bounds.cu, sweeps.cu,
-   sweeps_linear.cu, legacy.cu, pointwise.cu) with nvcc for sm_90a;
+   sweeps_linear.cu, legacy.cu, pointwise.cu, legacy_rows.cu) with nvcc
+   for sm_90a;
 3. the rebuild kernel (csrc/bounds.cu through ops.cuda.bounds.sort_and_bound:
    after the cell sort, every state field in sorted order and the CSR
    bounds in one launch) vs its plain version (grid.sort_state_by_cell
@@ -261,6 +262,17 @@ Phases, each of which raises on failure (nothing is caught):
    same inputs, and their bytes bounds.  Every WCSPH path of phases 5-25
    counts one eos_pack and one advance launch a substep of a shard (one a
    density sweep), on the graph path and the eager loop alike.
+27. the legacy step's row ops (csrc/legacy_rows.cu through
+   ops.cuda.legacy_rows: legacy_pos_pack after the rebuild,
+   legacy_eos_pack between the two sums, legacy_advance after them)
+   against their plain versions (ops.neighbors.legacy_pos,
+   ops.forces.legacy_eos_pack_plain, legacy_advance_plain), bitwise in
+   every output, on demo_2d after 500 legacy steps and demo_3d after 252,
+   reference_exact off and on, each also with NaN and infinite rows in a
+   copy of its inputs; their CUDA-event times and launches against the
+   plain sequences' on the same inputs, and their bytes bounds.  Every
+   legacy path of phases 13 and 21 counts one launch of each a step (one
+   a legacy density sweep), on the graph path and the eager loop alike.
 
 The solvers of phases 5-13, 16, 17, 18, 20, 21, 22's WCSPHRigid and 23-25
 run the graph path (the default of a CUDA WCSPH, WCSPHRigid and
@@ -281,7 +293,9 @@ fluid rows inside h their sums take (fluid j for density, every live j
 for force).  The row ops' bounds count each row's bytes (the density
 sweep's rho on the sort-time fluid rows and the stored one elsewhere, dv
 on the fluid rows) and their operations per row from the CUDA source; no
-one PyTorch call computes either.
+one PyTorch call computes either.  The legacy row ops' bounds are their
+bytes alone (each at most 10 operations an axis a row, under a percent of
+its bytes' time).
 
 The launches in the JSON line are the sums of the main paths' runs:
 phases 5, 11, 12 with 14, 15, 17, 18 and 20-25 for kernel A's density and
@@ -289,14 +303,15 @@ force, the same and 13 and 19 for kernel B, 7, 15, 18, 22-25 for bvol
 and force_react, 9, 19, 23 and 25 for kernel C, 13 (demo_2d, the
 per-step golden scene, demo_3d and bench_3d_1m) and 21 for the legacy
 kernel's two modes (graph replays: a rebuild, a density and a force
-launch a step), and for eos_pack and advance every phase of A's density
-and of C's.  A's max_abs_err folds in its checks over a row range
-(phase 14), with an i-row map (17) and, for density and force, on
-demo_3d after 10,000 steps (20); C's over a row range (19); the legacy
-kernel's its checks on four states at every lane count (13); the row
-ops' their finite outputs over phase 26's states (0: bitwise).  The
-legacy entries also carry the lanes their launch on demo_2d's state
-takes and the rule (``lane_rule``: by dim, rows below, lanes).
+launch a step), for eos_pack and advance every phase of A's density and
+of C's, and for the legacy row ops those of the legacy kernel.  A's
+max_abs_err folds in its checks over a row range (phase 14), with an
+i-row map (17) and, for density and force, on demo_3d after 10,000 steps
+(20); C's over a row range (19); the legacy kernel's its checks on four
+states at every lane count (13); the row ops' their finite outputs over
+phase 26's states, the legacy row ops' over phase 27's (0: bitwise).
+The legacy sums' entries also carry the lanes their launch on demo_2d's
+state takes and the rule (``lane_rule``: by dim, rows below, lanes).
 
 The last two lines of standard output are the JSON kernel summary and
 {"ok": true, "device": {...}}; any failure exits nonzero before them.
@@ -456,6 +471,11 @@ LEGACY_FLOPS_PER_PAIR = {"legacy_density": {2: 21, 3: 24}, "legacy_force": {2: 4
 ROW_OPS = ("eos_pack", "advance")
 EOS_FLOPS_PER_ROW = 12
 ADVANCE_FLOPS_PER_FLUID_ROW = {2: 38, 3: 56}
+# csrc/legacy_rows.cu's three kernels, one launch each a legacy step, and
+# their outputs
+LEGACY_ROW_OPS = {"legacy_pos_pack": ("pos",),
+                  "legacy_eos_pack": ("rho", "pressure", "vel", "aux"),
+                  "legacy_advance": ("x", "v")}
 
 
 def phase(name: str) -> None:
@@ -517,9 +537,11 @@ def with_row_ops(want: dict) -> dict:
     """``want`` (launch counts) with the row ops' launches: one eos_pack
     and one advance (csrc/pointwise.cu) a density sweep of kernel A or C,
     i.e. one each a substep of a shard on every WCSPH path (none on the
-    legacy solver's)."""
+    legacy solver's), and one of each legacy row op (csrc/legacy_rows.cu)
+    a legacy density sweep."""
     n = want.get("sweep.density", 0) + want.get("linear.density", 0)
-    return want | {k: n for k in ROW_OPS}
+    n_legacy = want.get("legacy_density", 0)
+    return want | {k: n for k in ROW_OPS} | {k: n_legacy for k in LEGACY_ROW_OPS}
 
 
 def assert_no_host_wait(label: str, fn) -> None:
@@ -1853,8 +1875,7 @@ def legacy_inputs(solver, state):
     """The sorted state and the legacy sweeps' packs of one step, as
     ``WCSPHLegacy._apply`` makes them (its density from the plain version,
     so both sides of every comparison read identical inputs)."""
-    from tisph_tpu_torch.ops import neighbors
-    from tisph_tpu_torch.ops.eos import tait_pressure
+    from tisph_tpu_torch.ops import forces, neighbors
     from tisph_tpu_torch.ops.grid import csr_bounds, sort_state_by_cell
 
     spec, params = solver.spec, solver.params
@@ -1862,9 +1883,7 @@ def legacy_inputs(solver, state):
     bounds = csr_bounds(ids, spec)
     pos = neighbors.legacy_pos(st)
     rho = neighbors.legacy_density_sweep(pos, ids, bounds, st.material, spec, params)
-    rho, p = tait_pressure(torch.where(st.fluid_mask, rho, st.density), params.density0,
-                           params.stiffness, params.exponent)
-    vel, aux = neighbors.legacy_force_packs(st, rho, p)
+    _, _, vel, aux = forces.legacy_eos_pack_plain(rho, st, params)
     return {"st": st, "ids": ids, "bounds": bounds, "pos": pos, "vel": vel, "aux": aux}
 
 
@@ -2196,22 +2215,30 @@ def check_row_ops(label: str, inp: dict) -> dict[str, float]:
         adv = (c["st"], got[0], got[1], c["dv"], c["params"])
         g_st, w_st = pointwise.advance(*adv), forces.advance_plain(*adv)
         pairs |= {("advance", k): (getattr(g_st, k), getattr(w_st, k)) for k in ("x", "v")}
-        torch.cuda.synchronize()
-        for (kern, name), (g, w) in pairs.items():
-            differ = _bits(g) != _bits(w)
-            if differ.any():
-                idx = torch.nonzero(differ)[:4].tolist()
-                raise AssertionError(
-                    f"{label}{case}: {kern} {name} differs from its plain version in "
-                    f"{int(differ.sum())} words, e.g. at {idx}: kernel "
-                    f"{[float(g[tuple(i)]) for i in idx]} plain {[float(w[tuple(i)]) for i in idx]}")
-            fin = torch.isfinite(g) & torch.isfinite(w)
-            if fin.any():
-                err[kern] = max(err[kern], float((g[fin] - w[fin]).abs().max()))
-        bad = sum(int((~torch.isfinite(g)).sum()) for g, _ in pairs.values())
+        bad = same_words(f"{label}{case}", pairs, err)
         print(f"  {label}{case}: {c['st'].capacity} rows, eos_pack and advance bitwise equal to "
               f"their plain versions in every output ({bad} non-finite words)")
     return err
+
+
+def same_words(what: str, pairs: dict, err: dict) -> int:
+    """Each (kernel, output) pair of ``pairs``, {(kern, name): (kernel's,
+    plain version's)}, bitwise equal (NaNs in the same words), else raise;
+    raises ``err[kern]`` to the max abs difference over the words finite
+    on both sides.  Returns the kernels' non-finite words."""
+    torch.cuda.synchronize()
+    for (kern, name), (g, w) in pairs.items():
+        differ = _bits(g) != _bits(w)
+        if differ.any():
+            idx = torch.nonzero(differ)[:4].tolist()
+            raise AssertionError(
+                f"{what}: {kern} {name} differs from its plain version in "
+                f"{int(differ.sum())} words, e.g. at {idx}: kernel "
+                f"{[float(g[tuple(i)]) for i in idx]} plain {[float(w[tuple(i)]) for i in idx]}")
+        fin = torch.isfinite(g) & torch.isfinite(w)
+        if fin.any():
+            err[kern] = max(err[kern], float((g[fin] - w[fin]).abs().max()))
+    return sum(int((~torch.isfinite(g)).sum()) for g, _ in pairs.values())
 
 
 def row_op_bound(kern: str, inp: dict) -> tuple[float, str]:
@@ -2230,6 +2257,172 @@ def row_op_bound(kern: str, inp: dict) -> tuple[float, str]:
         ops = n_fl * ADVANCE_FLOPS_PER_FLUID_ROW[dim]
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def legacy_row_inputs(solver, state) -> dict:
+    """The legacy row ops' inputs of one ``WCSPHLegacy`` step on ``state``:
+    the sorted state, the legacy kernel's density sum over the plain pos
+    pack, and its force sum over the plain packs."""
+    from tisph_tpu_torch.ops import forces, neighbors
+    from tisph_tpu_torch.ops.cuda import legacy
+
+    st, (ids, bounds) = solver._build(state)
+    tail = (ids, bounds, st.material, solver.spec, solver.params)
+    pos = neighbors.legacy_pos(st)
+    acc = legacy.legacy_density_sweep(pos, *tail)
+    _, _, vel, aux = forces.legacy_eos_pack_plain(acc, st, solver.params)
+    return {"st": st, "acc": acc, "dv": legacy.legacy_force_sweep(pos, vel, aux, *tail),
+            "params": solver.params}
+
+
+def legacy_with_nan_rows(inp: dict) -> dict:
+    """A copy of ``inp`` with NaN and infinite entries in some rows of
+    every float input of the legacy row ops: the density sum, the stored
+    density (on non-fluid rows, which keep it), the volume, v, x and dv."""
+    st = inp["st"]
+    fl = torch.nonzero(st.fluid_mask).flatten()
+    rows = fl[torch.linspace(0, fl.numel() - 1, 8, device=fl.device).long()].tolist()
+    other = torch.nonzero(~st.fluid_mask).flatten()[:2].tolist()
+    acc, dv = inp["acc"].clone(), inp["dv"].clone()
+    x, v, density, volume = st.x.clone(), st.v.clone(), st.density.clone(), st.volume.clone()
+    nan, inf = float("nan"), float("inf")
+    acc[rows[:2]] = nan
+    acc[rows[2]] = inf
+    density[other] = nan
+    volume[rows[7]] = inf
+    v[rows[3], 0] = nan
+    x[rows[4], -1] = nan
+    x[rows[5], 0] = -inf
+    dv[rows[6]] = nan
+    dv[rows[7], 0] = inf
+    st = dataclasses.replace(st, x=x, v=v, density=density, volume=volume)
+    return inp | {"acc": acc, "dv": dv, "st": st}
+
+
+def legacy_row_calls(inp: dict) -> dict:
+    """{kernel: (its wrapper's call, its plain version's call)} on ``inp``,
+    each giving the outputs LEGACY_ROW_OPS names; the advance of both from
+    the plain EOS's rho and p."""
+    from tisph_tpu_torch.ops import forces, neighbors
+    from tisph_tpu_torch.ops.cuda import legacy_rows
+
+    st, acc, params = inp["st"], inp["acc"], inp["params"]
+    adv = (st, *forces.legacy_eos_pack_plain(acc, st, params)[:2], inp["dv"], params)
+
+    def xv(out):
+        return out.x, out.v
+
+    return {
+        "legacy_pos_pack": (lambda: (legacy_rows.legacy_pos_pack(st),),
+                            lambda: (neighbors.legacy_pos(st),)),
+        "legacy_eos_pack": (lambda: legacy_rows.legacy_eos_pack(acc, st, params),
+                            lambda: forces.legacy_eos_pack_plain(acc, st, params)),
+        "legacy_advance": (lambda: xv(legacy_rows.legacy_advance(*adv)),
+                           lambda: xv(forces.legacy_advance_plain(*adv))),
+    }
+
+
+def check_legacy_row_ops(label: str, inp: dict) -> dict[str, float]:
+    """The three kernels of csrc/legacy_rows.cu against their plain
+    versions on ``inp`` and on its copy with NaN rows: every output bitwise
+    equal.  Returns each kernel's max abs difference over the outputs
+    finite on both sides."""
+    err = dict.fromkeys(LEGACY_ROW_OPS, 0.0)
+    for case, c in (("", inp), (" with NaN rows", legacy_with_nan_rows(inp))):
+        pairs = {}
+        for kern, (kernel, plain) in legacy_row_calls(c).items():
+            outs = zip(kernel(), plain())
+            pairs |= {(kern, k): gw for k, gw in zip(LEGACY_ROW_OPS[kern], outs)}
+        bad = same_words(f"{label}{case}", pairs, err)
+        print(f"  {label}{case}: {c['st'].capacity} rows, the three kernels bitwise equal to "
+              f"their plain versions in every output ({bad} non-finite words)")
+    return err
+
+
+def legacy_row_bound(kern: str, inp: dict) -> float:
+    """The least time of ``kern`` on ``inp``, ms: its bytes (each input
+    read once, each output written once; the density sum on fluid rows and
+    the stored density elsewhere, 4 bytes a row either way; dv on fluid
+    rows only) at HBM_BYTES_PER_S."""
+    st = inp["st"]
+    n, dim = st.x.shape
+    if kern == "legacy_pos_pack":
+        nbytes = n * (4 * dim + 4 + 16)
+    elif kern == "legacy_eos_pack":
+        nbytes = n * (4 + 4 + 4 + 4 * dim) + n * (4 + 4 + 16 + 16)
+    else:
+        nbytes = n * (2 * 4 * dim + 4) + int(st.fluid_mask.sum()) * 4 * dim + n * 2 * 4 * dim
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def launches_of(fn) -> int:
+    """The device kernels one call of ``fn`` launches: the legacy row
+    wrappers' launches, plus the aten operations it dispatches that are
+    neither views nor allocations (a TorchDispatchMode count: one kernel
+    each for the plain sequences' compares, elementwise ops, fills, copies
+    and stack).  torch.profiler's device events of a call this short came
+    back incomplete on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from tisph_tpu_torch.ops.cuda import legacy_rows
+
+    allocations = (torch.ops.aten.empty, torch.ops.aten.empty_like)
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += not func.is_view and func.overloadpacket not in allocations
+            return func(*args, **(kwargs or {}))
+
+    wrappers = [getattr(legacy_rows, k) for k in LEGACY_ROW_OPS]
+    before = sum(w.launches for w in wrappers)
+    with Count() as count:
+        fn()
+    return count.n + sum(w.launches for w in wrappers) - before
+
+
+def legacy_row_ops_phase(tt, card_line: str):
+    """Phase 27: the legacy row ops against their plain versions on demo_2d
+    after LEGACY_STEPS legacy steps and demo_3d after LEGACY_3D_STEPS (the
+    graph path), with reference_exact off and on; their times and device
+    launches against the plain sequences'.  Returns each kernel's max abs
+    error over the finite outputs, and its times (kernel, plain) and
+    bounds on demo_2d's state."""
+    states = {}
+    for label, path, steps in ((f"demo_2d+{LEGACY_STEPS}", DEMO_2D, LEGACY_STEPS),
+                               (f"demo_3d+{LEGACY_3D_STEPS}", DEMO_3D, LEGACY_3D_STEPS)):
+        solver = tt.WCSPHLegacy(tt.load_scene(path), device=DEVICE)
+        end = solver.rollout(solver.bind(tt.build_state(solver.scene, device=DEVICE)), steps)
+        m = solver.metrics(end)
+        if m["nan_count"] != 0:
+            raise AssertionError(f"legacy {label} unhealthy: {m}")
+        states[label] = legacy_row_inputs(solver, end)
+    err = dict.fromkeys(LEGACY_ROW_OPS, 0.0)
+    for label, inp in states.items():
+        for exact in (False, True):
+            params = dataclasses.replace(inp["params"], reference_exact=exact)
+            e = check_legacy_row_ops(label + (" reference_exact" if exact else ""),
+                                     inp | {"params": params})
+            err = {k: max(v, e[k]) for k, v in err.items()}
+    times, bound = {}, {}
+    for label, inp in states.items():
+        calls = legacy_row_calls(inp)
+        # 20 calls of the plain sequences queue inside cuda_ms's spin: the
+        # device's time, not the host's pace
+        row_times = time_against_plain({k: (kern, plain, 200, 20)
+                                        for k, (kern, plain) in calls.items()})
+        row_bound = {k: (legacy_row_bound(k, inp), "bytes") for k in LEGACY_ROW_OPS}
+        for k, (kern, plain) in calls.items():
+            print(f"  {label} {k}: kernel {row_times[k][0]:.4f} ms in {launches_of(kern)} "
+                  f"launch(es), plain sequence {row_times[k][1]:.4f} ms in "
+                  f"{launches_of(plain)}, bound {row_bound[k][0]:.6f} ms (bytes); "
+                  f"{inp['st'].capacity} rows; on {card_line}")
+        if label.startswith("demo_2d"):  # the JSON's entries: the demo_2d_v1 cells' state
+            times, bound = row_times, row_bound
+    return err, times, bound
 
 
 def graph_pair(tt, path: str, layout: str, R: int):
@@ -2878,6 +3071,7 @@ def main() -> int:
     from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
     from tisph_tpu_torch.ops.cuda import build
     from tisph_tpu_torch.ops.cuda import legacy as cuda_legacy
+    from tisph_tpu_torch.ops.cuda import legacy_rows as cuda_legacy_rows
     from tisph_tpu_torch.ops.cuda import pointwise as cuda_pointwise
     from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 
@@ -2895,6 +3089,9 @@ def main() -> int:
         "legacy_force": cuda_legacy.legacy_force_sweep,
         "eos_pack": cuda_pointwise.eos_pack,
         "advance": cuda_pointwise.advance,
+        "legacy_pos_pack": cuda_legacy_rows.legacy_pos_pack,
+        "legacy_eos_pack": cuda_legacy_rows.legacy_eos_pack,
+        "legacy_advance": cuda_legacy_rows.legacy_advance,
     }
 
     phase("1 environment")
@@ -3569,6 +3766,15 @@ def main() -> int:
             bound |= row_bound
     print(f"  phase 26: {time.perf_counter() - t26:.1f} s")
     del row_inputs, emit_mid
+
+    phase(f"27 the legacy step's row ops (csrc/legacy_rows.cu) vs their plain versions: "
+          f"demo_2d after {LEGACY_STEPS} legacy steps and demo_3d after {LEGACY_3D_STEPS}, "
+          "reference_exact off and on, with NaN rows")
+    t27 = time.perf_counter()
+    leg_row_err, leg_row_times, leg_row_bound = legacy_row_ops_phase(tt, card_line)
+    times |= leg_row_times
+    bound |= leg_row_bound
+    print(f"  phase 27: {time.perf_counter() - t27:.1f} s")
     print(f"  run_sharded --mesh2d 2x2 --profile 20 (phase 17): "
           f"{rect_prof['device_ops_per_step']:.1f} device operations, "
           f"{rect_prof['device_busy_ms_per_step']:.4f} ms busy, profiled wall "
@@ -3595,6 +3801,9 @@ def main() -> int:
     # no Pallas kernel: row ops that XLA fuses inside tisph_tpu's seg step
     src["eos_pack"] = ("tisph_tpu_torch/csrc/pointwise.cu", "tisph_tpu/models/wcsph.py:255-264")
     src["advance"] = ("tisph_tpu_torch/csrc/pointwise.cu", "tisph_tpu/models/wcsph.py:283-311")
+    # no Pallas kernel: row ops inside tisph_tpu's legacy step's jit
+    src |= {k: ("tisph_tpu_torch/csrc/legacy_rows.cu", f"tisph_tpu/models/wcsph_legacy.py:{lines}")
+            for k, lines in zip(LEGACY_ROW_OPS, ("51", "60-76", "98-122"))}
     err_of = {"rebuild": rebuild_err, "csr_bounds": float(bounds_err)}
     # A's entries fold in its row-range (phase 14) and i-row-map (17)
     # checks and, for density and force, its check on the piled-up state
@@ -3605,6 +3814,7 @@ def main() -> int:
     err_of |= {f"linear.{m}": max(e, lin_shard[m][0]) for m, e in lin_errs.items()}
     err_of |= leg_errs  # demo_2d's evolved state and the 3D golden start
     err_of |= row_err  # phase 26's four states, NaN rows too
+    err_of |= leg_row_err  # phase 27's four cases, NaN rows too
     print("  the rebuild pass after the sort, ms (kernel, plain, library, bound):")
     for label, r in rebuild.items():
         print(f"    {label:<22} {r['ms']:.4f} {r['plain_ms']:.4f} {r['library_ms']:.4f} "
@@ -3617,7 +3827,7 @@ def main() -> int:
         for k in kernels
     ]}
     for entry in summary["kernels"]:  # the legacy kernel's launch rule
-        if entry["name"].startswith("legacy_"):
+        if entry["name"] in ("legacy_density", "legacy_force"):
             entry["lanes"] = cuda_legacy.legacy_launch_shape(2, leg_rows)[0]  # demo_2d
             entry["lane_rule"] = {"rows_below": cuda_legacy.LANE_RULE}  # by dim
     print(card_line)

@@ -84,6 +84,7 @@ import torch
 from tisph_tpu_torch.geometry.emitter import count_step, due_step
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
 from tisph_tpu_torch.ops.cuda import legacy as cuda_legacy
+from tisph_tpu_torch.ops.cuda import legacy_rows as cuda_legacy_rows
 from tisph_tpu_torch.ops.cuda import pointwise as cuda_pointwise
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.grid import state_fields
@@ -99,7 +100,9 @@ _COUNTERS = tuple(
               cuda_sweeps.force_react_sweep, cuda_sweeps.reaction_sweep,
               cuda_sweeps.density_sweep_linear, cuda_sweeps.force_sweep_linear,
               cuda_legacy.legacy_density_sweep, cuda_legacy.legacy_force_sweep,
-              cuda_pointwise.eos_pack, cuda_pointwise.advance)
+              cuda_pointwise.eos_pack, cuda_pointwise.advance,
+              cuda_legacy_rows.legacy_pos_pack, cuda_legacy_rows.legacy_eos_pack,
+              cuda_legacy_rows.legacy_advance)
     for c in ("launches", "part_launches", "rows") if hasattr(w, c)
 )
 

@@ -18,11 +18,14 @@ Each step rebuilds (``sort_and_bound``) and runs the two pair sums, the
 kernel ``csrc/legacy.cu`` on the card (``ops.cuda.legacy``) and its plain
 versions on the CPU (``ops.neighbors.legacy_*``): ``tisph_tpu`` runs them
 as jnp sweeps and no TPU kernel.  The self pair is excluded and a pair
-counts when r^2 < h^2 (``tisph_tpu/ops/neighbors.py:160-163``).  Both
-sums run over every row and are masked by ``torch.where``: a step reads
-nothing on the host, so on the card it replays as one CUDA graph (the
-rebuild and one step, ``models.graphs``), as ``tisph_tpu`` runs a legacy
-step as one jit.
+counts when r^2 < h^2 (``tisph_tpu/ops/neighbors.py:160-163``).  The row
+ops around the sums (the pos pack; the density keep, the EOS and the
+force packs; advection and the clamp) are three launches of
+``csrc/legacy_rows.cu`` on the card (``ops.cuda.legacy_rows``) and their
+plain versions on the CPU.  Both sums run over every row and are masked:
+a step reads nothing on the host, so on the card it replays as one CUDA
+graph (the rebuild and one step, ``models.graphs``), as ``tisph_tpu``
+runs a legacy step as one jit.
 """
 
 from __future__ import annotations
@@ -33,12 +36,11 @@ import torch
 
 from tisph_tpu_torch.models.solver_base import SolverBase
 from tisph_tpu_torch.models.state import SimState
-from tisph_tpu_torch.ops import forces as F
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
 from tisph_tpu_torch.ops.cuda import legacy as cuda_legacy
+from tisph_tpu_torch.ops.cuda import legacy_rows as cuda_legacy_rows
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
-from tisph_tpu_torch.ops.eos import tait_pressure
-from tisph_tpu_torch.ops.neighbors import legacy_force_packs, legacy_pos, pack4
+from tisph_tpu_torch.ops.neighbors import pack4
 
 
 class WCSPHLegacy(SolverBase):
@@ -65,27 +67,9 @@ class WCSPHLegacy(SolverBase):
             volume = torch.where(bd, 1.0 / torch.clamp(delta, min=1e-10), state.volume)
             state = dataclasses.replace(state, volume=volume)
 
-        pos = legacy_pos(state)
+        pos = cuda_legacy_rows.legacy_pos_pack(state)
         acc = cuda_legacy.legacy_density_sweep(pos, ids, bounds, state.material, spec, params)
-        density = torch.where(state.fluid_mask, acc, state.density)
-        rho, pressure = tait_pressure(density, params.density0, params.stiffness,
-                                      params.exponent)
-        vel, aux = legacy_force_packs(state, rho, pressure)
+        rho, pressure, vel, aux = cuda_legacy_rows.legacy_eos_pack(acc, state, params)
         dv = cuda_legacy.legacy_force_sweep(pos, vel, aux, ids, bounds, state.material, spec,
                                             params)
-
-        state = F.advect(dataclasses.replace(state, density=rho, pressure=pressure), dv, params)
-        if params.reference_exact:
-            return state  # the reference's V1 never calls its domain clamp
-        return self._enforce_boundary_v1(state)
-
-    def _enforce_boundary_v1(self, state: SimState) -> SimState:
-        """Per axis: clamp into [start + padding, end - padding] and reflect
-        a violating velocity component, v -= (1 + c_f) v."""
-        params = self.params
-        lo, hi = F.domain_box(params, state.device)
-        fluid = state.fluid_mask[:, None]
-        out = (state.x < lo) | (state.x > hi)
-        x = torch.where(fluid, torch.clamp(state.x, min=lo, max=hi), state.x)
-        v = torch.where(fluid & out, state.v - (1.0 + params.collision_factor) * state.v, state.v)
-        return dataclasses.replace(state, x=x, v=v)
+        return cuda_legacy_rows.legacy_advance(state, rho, pressure, dv, params)

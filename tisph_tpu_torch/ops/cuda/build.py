@@ -49,6 +49,11 @@ _SIGNATURES = {
     "tisph_eos_pack": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                        _F, _F, _F, _F, _I, _I, _F, _P],
     "tisph_advance": [_I, _I, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _F, _P],
+    "tisph_legacy_pos_pack": [_I, _I, _P, _P, _P, _P],
+    "tisph_legacy_eos_pack": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _I,
+                              _P],
+    "tisph_legacy_advance": [_I, _I, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F, _F, _F, _F, _F,
+                             _I, _P],
     "tisph_error_string": [_I],
 }
 

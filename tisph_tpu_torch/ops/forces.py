@@ -4,7 +4,9 @@ lines 277-365, and the f32 bound arithmetic of its seg step).
 
 :func:`eos_packs_plain` and :func:`advance_plain` chain them as a substep
 does around its force sweep; they are the plain versions of the kernels
-``csrc/pointwise.cu`` (``ops.cuda.pointwise``).
+``csrc/pointwise.cu`` (``ops.cuda.pointwise``).  The legacy (V1) step's
+:func:`legacy_eos_pack_plain` and :func:`legacy_advance_plain` are those of
+``csrc/legacy_rows.cu`` (``ops.cuda.legacy_rows``).
 
 The pair sums live in ``ops.neighbors`` (plain versions) and
 ``ops.cuda.sweeps`` (the kernels).
@@ -22,7 +24,7 @@ from tisph_tpu_torch.models.state import SimState
 from tisph_tpu_torch.ops.consts import device_constant
 from tisph_tpu_torch.ops.eos import tait_pressure
 from tisph_tpu_torch.ops.kernels import cubic_kernel_sigma
-from tisph_tpu_torch.ops.neighbors import pack4, pack_aux
+from tisph_tpu_torch.ops.neighbors import legacy_force_packs, pack4, pack_aux
 
 
 def compute_pressures(
@@ -108,3 +110,34 @@ def advance_plain(state: SimState, rho: torch.Tensor, pressure: torch.Tensor,
     state = dataclasses.replace(state, density=rho, pressure=pressure)
     state = advect(state, dv, params)  # fluid rows only
     return enforce_domain_boundary(state, params)
+
+
+def enforce_boundary_v1(state: SimState, params: SolverParams) -> SimState:
+    """The legacy (V1) domain clamp, per axis: fluid rows are clamped into
+    [start + padding, end - padding] and each violating velocity component
+    reflected, v -= (1 + c_f) v."""
+    lo, hi = domain_box(params, state.device)
+    fluid = state.fluid_mask[:, None]
+    out = (state.x < lo) | (state.x > hi)
+    x = torch.where(fluid, torch.clamp(state.x, min=lo, max=hi), state.x)
+    v = torch.where(fluid & out, state.v - (1.0 + params.collision_factor) * state.v, state.v)
+    return dataclasses.replace(state, x=x, v=v)
+
+
+def legacy_eos_pack_plain(acc: torch.Tensor, state: SimState,
+                          params: SolverParams) -> tuple[torch.Tensor, ...]:
+    """The legacy step between its sums: the density sum ``acc`` kept on
+    fluid rows (other rows keep their stored one), the Tait EOS, and the
+    force sum's packs: ``(rho, pressure, vel, aux)``."""
+    rho, pressure = compute_pressures(torch.where(state.fluid_mask, acc, state.density), params)
+    vel, aux = legacy_force_packs(state, rho, pressure)
+    return rho, pressure, vel, aux
+
+
+def legacy_advance_plain(state: SimState, rho: torch.Tensor, pressure: torch.Tensor,
+                         dv: torch.Tensor, params: SolverParams) -> SimState:
+    """The legacy step's end: store rho and p, advect fluid rows by ``dv``
+    and, unless ``reference_exact`` (the reference's V1 never calls its
+    domain clamp), clamp them per axis (:func:`enforce_boundary_v1`)."""
+    state = advect(dataclasses.replace(state, density=rho, pressure=pressure), dv, params)
+    return state if params.reference_exact else enforce_boundary_v1(state, params)
