@@ -526,11 +526,29 @@ def time_against_plain(timing: dict) -> dict[str, tuple[float, float]]:
     return times
 
 
-def reset_counts(kernels) -> None:
-    for k in kernels.values():
-        k.launches = 0
-        if hasattr(k, "part_launches"):
-            k.part_launches = 0
+_BASE: dict[str, int] = {}  # the launch counters at the last reset_counts()
+
+
+def reset_counts() -> None:
+    """Take the registry's launch counters as they are now as the zero of
+    ``rise``, ``launched`` and ``launch_counts``."""
+    from tisph_tpu_torch.utils import profiling
+
+    global _BASE
+    _BASE = profiling.launch_counters()
+
+
+def rise(name: str) -> int:
+    """The rise of the registry's counter ``name`` since reset_counts()."""
+    from tisph_tpu_torch.utils import profiling
+
+    return profiling.counters().get(name, 0) - _BASE.get(name, 0)
+
+
+def launched(kernels) -> dict[str, int]:
+    """Every kernel's launches since reset_counts() (``kernels``: short name
+    -> wrapper name)."""
+    return {k: rise(f"launches.{w}") for k, w in kernels.items()}
 
 
 def with_row_ops(want: dict) -> dict:
@@ -953,13 +971,14 @@ def check_rebuild(label: str, state, spec, min_largest: int = 0) -> float:
     abs difference (0.0)."""
     from tisph_tpu_torch.ops import grid as gridops
     from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
+    from tisph_tpu_torch.utils import profiling
 
-    before = cuda_bounds.sort_and_bound.launches
+    before = profiling.counters().get("launches.sort_and_bound", 0)
     st, ids, perm, bounds = cuda_bounds.sort_and_bound(state, spec)
     p_st, p_ids, p_perm = gridops.sort_state_by_cell(state, spec)
     p_bounds = gridops.csr_bounds(p_ids, spec)
     torch.cuda.synchronize()
-    if cuda_bounds.sort_and_bound.launches != before + 1:
+    if profiling.counters()["launches.sort_and_bound"] != before + 1:
         raise AssertionError(f"rebuild {label}: the kernel did not launch once")
     pairs = [("ids", ids, p_ids), ("perm", perm, p_perm), ("bounds", bounds, p_bounds)]
     pairs += [(k, getattr(st, k), getattr(p_st, k)) for k in gridops.state_fields(st)]
@@ -1295,7 +1314,7 @@ def sharded_demo(tt, kernels, scene, card_line: str):
         print(f"  {d} shards of {sh.shard_rows} rows on {[str(x) for x in sh.mesh.devices]}: "
               f"halo {sh.halo} rows ({sh.halo_path}), exchange edge {sh.resort_edge} rows, "
               f"windows {[b - a for a, b in windows]} rows")
-        reset_counts(kernels)
+        reset_counts()
         sh.occ_resort.zero_()
         shards = sh.rollout(shards, SHARD_CHECK)
         hold_to_single(f"{d} shards, {SHARD_CHECK} steps", sh.gather_state(shards), ref_check)
@@ -1304,7 +1323,7 @@ def sharded_demo(tt, kernels, scene, card_line: str):
         shards = sh.rollout(shards, SHARD_STEPS - SHARD_CHECK)
         torch.cuda.synchronize()
         swall = time.perf_counter() - t0
-        s_launches = {k: f.launches for k, f in kernels.items()}
+        s_launches = launched(kernels)
         groups, fb = SHARD_STEPS // 2, int(sh.occ_resort)
         s_want = {k: 0 for k in kernels} | {
             "rebuild": (groups - fb) * d + fb, "csr_bounds": groups * d,
@@ -1368,7 +1387,7 @@ def sharded_rigid(tt, kernels, r_scene, card_line: str):
     b_d0 = torch.linalg.vector_norm(r_start.x[sel0] - rg.com[0], dim=1)
     print(f"  boundary_mode {sh.boundary_mode}, {sh.shard_rows} rows a shard, halo {sh.halo} "
           f"({sh.halo_path}), edge {sh.resort_edge}")
-    reset_counts(kernels)
+    reset_counts()
     sh.occ_resort.zero_()
     shards, rg = sh.rollout_coupled(shards, rg, SHARD_CHECK)
     hold_to_single(f"coupled, 2 shards, {SHARD_CHECK} steps", sh.gather_state(shards), ref_st)
@@ -1382,7 +1401,7 @@ def sharded_rigid(tt, kernels, r_scene, card_line: str):
     shards, rg = sh.rollout_coupled(shards, rg, SHARD_RIGID - SHARD_CHECK)
     torch.cuda.synchronize()
     cwall = time.perf_counter() - t0
-    c15 = {k: f.launches for k, f in kernels.items()}
+    c15 = launched(kernels)
     groups, fb = SHARD_RIGID // 2, int(sh.occ_resort)
     c_want = {k: 0 for k in kernels} | {
         "rebuild": (groups - fb) * 2 + fb, "csr_bounds": groups * 2,
@@ -1416,7 +1435,6 @@ def rect_demo(tt, kernels, scene, card_line: str):
 
     from tisph_tpu_torch import run_sharded
     from tisph_tpu_torch.models.solver_base import SolverBase
-    from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
     from tisph_tpu_torch.parallel import ShardedWCSPHRect, make_mesh2d, make_mesh3d
 
     print("  every shard on the one card: particle-steps/s here is what the exchanges cost, "
@@ -1434,7 +1452,7 @@ def rect_demo(tt, kernels, scene, card_line: str):
         print(f"  {label}: {d} shards of {sh.shard_rows} rows, live rows "
               f"{[st.num_active for st in shards]}, halo caps {sh.cap_h}, migration caps "
               f"{sh.cap_m}")
-        reset_counts(kernels)
+        reset_counts()
         shards = sh.rollout(shards, RECT_CHECK)
         errs = hold_to_single(f"{label}, {RECT_CHECK} steps", sh.gather_state(shards), ref_check)
         print(f"  {label}: x, v and density bitwise equal to the single-device run: "
@@ -1444,13 +1462,13 @@ def rect_demo(tt, kernels, scene, card_line: str):
         shards = sh.rollout(shards, RECT_STEPS - RECT_CHECK)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = {k: f.launches for k, f in kernels.items()}
+        got = launched(kernels)
         groups = RECT_STEPS // 2
         want = {k: 0 for k in kernels} | {
             "rebuild": groups * d, "csr_bounds": groups * d,
             "sweep.density": RECT_STEPS * d, "sweep.force": RECT_STEPS * d}
         want = with_row_ops(want)
-        maps = {m: getattr(cuda_sweeps, f"{m}_sweep").part_launches for m in ("density", "force")}
+        maps = {m: rise(f"part_launches.{m}_sweep") for m in ("density", "force")}
         if got != want or maps != {"density": RECT_STEPS * d, "force": RECT_STEPS * d}:
             raise AssertionError(f"{label}: launch counts {got} ({maps} with an i-row map), "
                                  f"expected {want}, every sweep with an i-row map")
@@ -1500,7 +1518,6 @@ def rect_demo(tt, kernels, scene, card_line: str):
 def rect_rigid(tt, kernels, r_scene, card_line: str):
     """Phase 18: the coupled ``r_scene`` on a 2x2 mesh of one card; returns
     the launch counts."""
-    from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
     from tisph_tpu_torch.parallel import ShardedWCSPHRect, make_mesh2d
 
     start = tagged(tt.build_state(r_scene, device=DEVICE))
@@ -1523,7 +1540,7 @@ def rect_rigid(tt, kernels, r_scene, card_line: str):
     b_d0 = torch.linalg.vector_norm(start.x[sel0] - rg.com[0], dim=1)
     print(f"  boundary_mode {sh.boundary_mode}, {sh.shard_rows} rows a shard, live rows "
           f"{[st.num_active for st in shards]}, halo caps {sh.cap_h}")
-    reset_counts(kernels)
+    reset_counts()
     shards, rg = sh.rollout_coupled(shards, rg, RECT_CHECK)
     hold_to_single(f"coupled, 2x2, {RECT_CHECK} steps", sh.gather_state(shards), ref_st)
     body = {k: float((getattr(rg, k) - getattr(ref_rg, k)).abs().max())
@@ -1537,13 +1554,13 @@ def rect_rigid(tt, kernels, r_scene, card_line: str):
     shards, rg = sh.rollout_coupled(shards, rg, RECT_RIGID - RECT_CHECK)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    got = {k: f.launches for k, f in kernels.items()}
+    got = launched(kernels)
     groups = RECT_RIGID // 2
     want = {k: 0 for k in kernels} | {
         "rebuild": groups * 4, "csr_bounds": groups * 4, "sweep.bvol": RECT_RIGID * 4,
         "sweep.density": RECT_RIGID * 4, "sweep.force_react": RECT_RIGID * 4}
     want = with_row_ops(want)
-    maps = {m: getattr(cuda_sweeps, f"{m}_sweep").part_launches
+    maps = {m: rise(f"part_launches.{m}_sweep")
             for m in ("bvol", "density", "force_react")}
     if got != want or set(maps.values()) != {RECT_RIGID * 4}:
         raise AssertionError(f"coupled rectangle launch counts {got} ({maps} with an i-row "
@@ -1569,7 +1586,6 @@ def linear_sharded(tt, kernels, scene, card_line: str):
     """Phase 19: ``scene`` on the linear layout at R=1 on 2 and 4 slab
     shards of one card; returns the launch counts of both runs added and
     kernel C's checks over a shard's row range."""
-    from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
     from tisph_tpu_torch.parallel import ShardedWCSPH, make_mesh
 
     start = tagged(tt.build_state(scene, device=DEVICE))
@@ -1579,7 +1595,7 @@ def linear_sharded(tt, kernels, scene, card_line: str):
     for d in (2, 4):
         sh = ShardedWCSPH(scene, make_mesh(devices=[DEVICE] * d), layout="linear", graphs=False)
         shards = sh.bind(start)
-        reset_counts(kernels)
+        reset_counts()
         sh.occ_resort.zero_()
         shards = sh.rollout(shards, RECT_CHECK)
         errs = hold_to_single(f"linear, {d} shards, {RECT_CHECK} steps", sh.gather_state(shards),
@@ -1591,13 +1607,13 @@ def linear_sharded(tt, kernels, scene, card_line: str):
         shards = sh.rollout(shards, LIN_SHARD_STEPS - RECT_CHECK)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        got = {k: f.launches for k, f in kernels.items()}
+        got = launched(kernels)
         fb = int(sh.occ_resort)
         want = {k: 0 for k in kernels} | {
             "rebuild": (LIN_SHARD_STEPS - fb) * d + fb, "csr_bounds": LIN_SHARD_STEPS * d,
             "linear.density": LIN_SHARD_STEPS * d, "linear.force": LIN_SHARD_STEPS * d}
         want = with_row_ops(want)
-        ranged = {m: getattr(cuda_sweeps, f"{m}_sweep_linear").part_launches
+        ranged = {m: rise(f"part_launches.{m}_sweep_linear")
                   for m in ("density", "force")}
         if got != want or set(ranged.values()) != {LIN_SHARD_STEPS * d}:
             raise AssertionError(f"linear, {d} shards: launch counts {got} ({ranged} over a "
@@ -1683,9 +1699,9 @@ def soak_run(kernels, path: str, steps: int, chunk: int, card_line: str):
     record, the solver, the end state and the launch counts."""
     from tisph_tpu_torch.tools import soak
 
-    reset_counts(kernels)
+    reset_counts()
     rec, solver, state = soak.soak(path, steps, 2, chunk, torch.device(DEVICE))
-    got = {k: f.launches for k, f in kernels.items()}
+    got = launched(kernels)
     bind = int(bool(state.boundary_mask.any()))  # static volumes at bind
     want = {k: 0 for k in kernels} | {"rebuild": bind + groups_of(steps, chunk, 2),
                                       "sweep.bvol": bind, "sweep.density": steps,
@@ -1758,7 +1774,7 @@ def cadence_and_compat(kernels, card_line: str):
     from tisph_tpu_torch.tools import compare_compat, compare_resort
 
     dev = torch.device(DEVICE)
-    reset_counts(kernels)
+    reset_counts()
     # tisph_tpu's figures on the TPU (ROADMAP.md, "Facts that hold on any
     # hardware"): physics, not speed
     tpu = {2: "0.13 h (p99 0.50 h)", 3: "0.29 h"}
@@ -1781,7 +1797,7 @@ def cadence_and_compat(kernels, card_line: str):
             raise AssertionError(f"compare_compat {name} step {step}: non-finite RMSE")
         print(f"  compare_compat demo_2d {name:<6} {step:>3} steps: pos RMSE {row['rmse']:.6f} m "
               f"= {row['rmse_over_h']:.4f} h (README: {want:.2f} h)")
-    got = {k: f.launches for k, f in kernels.items()}
+    got = launched(kernels)
     # each tool runs its two modes; the legacy solver rebuilds every step and
     # sweeps through csrc/legacy.cu, replaying one graph a step
     resort = sum(groups_of(RESORT_STEPS, RESORT_CHUNK, 1) + groups_of(RESORT_STEPS, RESORT_CHUNK, R)
@@ -1814,12 +1830,12 @@ def coupled_long_runs(tt, kernels, r_scene, card_line: str):
             sh = ShardedWCSPH(scene, make_mesh(devices=[DEVICE] * d), graphs=False)
             shards = sh.bind(tt.build_state(scene, device=DEVICE))
             rigid = sh.init_rigid(shards)
-            reset_counts(kernels)
+            reset_counts()
             t0 = time.perf_counter()
             shards, rigid = sh.run_coupled(shards, rigid, BUOYANCY_STEPS)
             com = rigid.com[0].tolist()
             wall = time.perf_counter() - t0
-            got = {k: f.launches for k, f in kernels.items()}
+            got = launched(kernels)
             groups = groups_of(BUOYANCY_STEPS, 400, sh.resort_every)
             # rebuild: d per exchange group, 1 per fallback to the global sort
             fb = (groups * d - got["rebuild"]) // (d - 1) if d > 1 else 0
@@ -1846,11 +1862,11 @@ def coupled_long_runs(tt, kernels, r_scene, card_line: str):
 
     solver, state, rigid = tt.make_solver(r_scene, tt.build_state(r_scene, device=DEVICE),
                                           device=DEVICE, resort_every=2)
-    reset_counts(kernels)
+    reset_counts()
     by_run = solver.run_coupled(state, rigid, COUPLED_RUN, check_every=COUPLED_CHECK)
     by_roll = solver.rollout_coupled(state, rigid, COUPLED_RUN)
     torch.cuda.synchronize()
-    got = {k: f.launches for k, f in kernels.items()}
+    got = launched(kernels)
     for (a, b) in zip(by_run, by_roll):
         names = (gridops.state_fields(a) if isinstance(a, SimState)
                  else [f.name for f in dataclasses.fields(a)])
@@ -1890,7 +1906,7 @@ def legacy_inputs(solver, state):
 def legacy_call(lib, mode: str, solver, inp, lanes: int | None = None):
     """One call of ``lib``'s (the kernel's wrapper or the plain version)
     legacy sweep in ``mode`` ("legacy_density" or "legacy_force"); the
-    kernel at ``lanes`` lanes a row where given (``_launch``, uncounted),
+    kernel at ``lanes`` lanes a row where given (``_launch``),
     else through its wrapper at its rule's."""
     args = (inp["ids"], inp["bounds"], inp["st"].material, solver.spec, solver.params)
     if lanes is not None:
@@ -2036,10 +2052,10 @@ def legacy_path(tt, kernels, card_line: str):
 
     cpu_solver = tt.WCSPHLegacy(l2_scene, device="cpu")
     ref = cpu_solver.rollout(cpu_solver.bind(starts["cpu"]), LEGACY_CHECK)
-    reset_counts(kernels)
+    reset_counts()
     check = g.rollout(sg, LEGACY_CHECK)
     torch.cuda.synchronize()
-    total = {k: total[k] + kernels[k].launches for k in kernels}
+    total = {k: total[k] + n for k, n in launched(kernels).items()}
 
     def by_tag(st):
         order = torch.argsort(st.color[:st.num_active, 0])
@@ -2104,11 +2120,12 @@ def legacy_path(tt, kernels, card_line: str):
         start = solver.bind(tt.build_state(solver.scene, device=DEVICE))
         if path == DEMO_3D:
             d3_start, dense = start, legacy_inputs(solver, start)
-        reset_counts(kernels)
+        reset_counts()
         end = solver.rollout(start, steps)
         torch.cuda.synchronize()
-        counted = {k: kernels[k].launches for k in ("rebuild", "legacy_density", "legacy_force")}
-        total = {k: total[k] + kernels[k].launches for k in kernels}
+        got = launched(kernels)
+        counted = {k: got[k] for k in ("rebuild", "legacy_density", "legacy_force")}
+        total = {k: total[k] + got[k] for k in kernels}
         m = solver.metrics(end)
         print(f"  legacy {label}: {end.num_active} particles, launches {counted}; metrics {m}")
         if counted != dict.fromkeys(counted, steps):
@@ -2364,7 +2381,7 @@ def launches_of(fn) -> int:
     back incomplete on the card."""
     from torch.utils._python_dispatch import TorchDispatchMode
 
-    from tisph_tpu_torch.ops.cuda import legacy_rows
+    from tisph_tpu_torch.utils import profiling
 
     allocations = (torch.ops.aten.empty, torch.ops.aten.empty_like)
 
@@ -2377,11 +2394,14 @@ def launches_of(fn) -> int:
             self.n += not func.is_view and func.overloadpacket not in allocations
             return func(*args, **(kwargs or {}))
 
-    wrappers = [getattr(legacy_rows, k) for k in LEGACY_ROW_OPS]
-    before = sum(w.launches for w in wrappers)
+    def rows_launched() -> int:
+        c = profiling.counters()
+        return sum(c.get(f"launches.{k}", 0) for k in LEGACY_ROW_OPS)
+
+    before = rows_launched()
     with Count() as count:
         fn()
-    return count.n + sum(w.launches for w in wrappers) - before
+    return count.n + rows_launched() - before
 
 
 def legacy_row_ops_phase(tt, card_line: str):
@@ -2551,8 +2571,8 @@ def graph_turns(tt, label: str, g, e, state, rigid, ems, steps: int, card_line: 
 def launch_counts(kernels) -> dict[str, int]:
     """Every kernel's launches and, where it has them, its launches over
     part of the arrays (``<name>.part``)."""
-    return {k: f.launches for k, f in kernels.items()} | {
-        f"{k}.part": f.part_launches for k, f in kernels.items() if hasattr(f, "part_launches")}
+    return launched(kernels) | {f"{k}.part": rise(f"part_launches.{w}")
+                                for k, w in kernels.items() if k.startswith(("sweep.", "linear."))}
 
 
 def graph_against_eager(kernels, label: str, run_graph, run_eager, expect: dict):
@@ -2561,7 +2581,7 @@ def graph_against_eager(kernels, label: str, run_graph, run_eager, expect: dict)
     launches too); returns both outputs and the graph run's counts."""
     out, counts = [], []
     for run in (run_graph, run_eager):
-        reset_counts(kernels)
+        reset_counts()
         out.append(run())
         torch.cuda.synchronize()
         counts.append(launch_counts(kernels))
@@ -2802,7 +2822,7 @@ def slab_emit_graphs(tt, kernels, e_scene, e_start, ems0, scene, r_scene, soak_m
         out, counts, trips = [], [], []
         for sol, run in ((g, run_g), (e, run_e)):
             sol.reset_flags()
-            reset_counts(kernels)
+            reset_counts()
             out.append(run())
             torch.cuda.synchronize()
             counts.append(launch_counts(kernels))
@@ -3036,9 +3056,9 @@ def slab_emit_graphs(tt, kernels, e_scene, e_start, ems0, scene, r_scene, soak_m
                           balance_slack=RECT_LONG_SLACK))):
         shards = sh.bind(plain)
         print(f"  {label}: {sh.shard_rows} rows a shard")
-        reset_counts(kernels)
+        reset_counts()
         shards = steered_run(label, sh, shards, SOAK_STEPS, SHARD_LONG_CHUNK, card_line)
-        got = {k: f.launches for k, f in kernels.items()}
+        got = launched(kernels)
         d = sh.n_shards
         m = sh.metrics(shards)
         print(f"  {label}: launches {got}; metrics {m}")
@@ -3071,27 +3091,27 @@ def main() -> int:
     from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
     from tisph_tpu_torch.ops.cuda import build
     from tisph_tpu_torch.ops.cuda import legacy as cuda_legacy
-    from tisph_tpu_torch.ops.cuda import legacy_rows as cuda_legacy_rows
     from tisph_tpu_torch.ops.cuda import pointwise as cuda_pointwise
     from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 
+    # short name -> the wrapper whose launches.<wrapper> counter it reads
     kernels = {
-        "rebuild": cuda_bounds.sort_and_bound,
-        "csr_bounds": cuda_bounds.csr_bounds_sorted,
-        "sweep.density": cuda_sweeps.density_sweep,
-        "sweep.force": cuda_sweeps.force_sweep,
-        "sweep.bvol": cuda_sweeps.bvol_sweep,
-        "sweep.force_react": cuda_sweeps.force_react_sweep,
-        "sweep.reaction": cuda_sweeps.reaction_sweep,
-        "linear.density": cuda_sweeps.density_sweep_linear,
-        "linear.force": cuda_sweeps.force_sweep_linear,
-        "legacy_density": cuda_legacy.legacy_density_sweep,
-        "legacy_force": cuda_legacy.legacy_force_sweep,
-        "eos_pack": cuda_pointwise.eos_pack,
-        "advance": cuda_pointwise.advance,
-        "legacy_pos_pack": cuda_legacy_rows.legacy_pos_pack,
-        "legacy_eos_pack": cuda_legacy_rows.legacy_eos_pack,
-        "legacy_advance": cuda_legacy_rows.legacy_advance,
+        "rebuild": "sort_and_bound",
+        "csr_bounds": "csr_bounds_sorted",
+        "sweep.density": "density_sweep",
+        "sweep.force": "force_sweep",
+        "sweep.bvol": "bvol_sweep",
+        "sweep.force_react": "force_react_sweep",
+        "sweep.reaction": "reaction_sweep",
+        "linear.density": "density_sweep_linear",
+        "linear.force": "force_sweep_linear",
+        "legacy_density": "legacy_density_sweep",
+        "legacy_force": "legacy_force_sweep",
+        "eos_pack": "eos_pack",
+        "advance": "advance",
+        "legacy_pos_pack": "legacy_pos_pack",
+        "legacy_eos_pack": "legacy_eos_pack",
+        "legacy_advance": "legacy_advance",
     }
 
     phase("1 environment")
@@ -3172,18 +3192,18 @@ def main() -> int:
     d_start = state  # demo_3d's start state, for the rebuild's times
     state = solver.rollout(state, 2)  # warm-up, outside the counted run
     assert_no_host_wait("demo_3d, one R=2 group", lambda: solver.rollout(state, 2))
-    reset_counts(kernels)
+    reset_counts()
     t0 = time.perf_counter()
     state = solver.rollout(state, STEPS_R2)
     torch.cuda.synchronize()
     wall2 = time.perf_counter() - t0
-    after_r2 = {k: f.launches for k, f in kernels.items()}
+    after_r2 = launched(kernels)
     solver.resort_every = 1
     t0 = time.perf_counter()
     state = solver.rollout(state, STEPS_R1)
     torch.cuda.synchronize()
     wall1 = time.perf_counter() - t0
-    launches = {k: f.launches for k, f in kernels.items()}
+    launches = launched(kernels)
     groups = -(-STEPS_R2 // 2)
     zero = {k: 0 for k in kernels if k not in ("rebuild", "sweep.density", "sweep.force")}
     want_r2 = {"rebuild": groups, "sweep.density": STEPS_R2, "sweep.force": STEPS_R2} | zero
@@ -3225,13 +3245,13 @@ def main() -> int:
     # The boundary-volume mode runs at bind on static boundaries; demo_3d has
     # none, so its launch is checked on the golden 3D scene's bind (the
     # rigid path of phase 7 runs it every substep).
-    reset_counts(kernels)
+    reset_counts()
     g_solver2 = tt.WCSPH(g_scene, device=DEVICE)
     g_state = g_solver2.bind(tt.build_state(g_scene, device=DEVICE))
     g_solver2.rollout(g_state, 2)
     torch.cuda.synchronize()
-    if cuda_sweeps.bvol_sweep.launches != 1:
-        raise AssertionError(f"bvol launches {cuda_sweeps.bvol_sweep.launches} at bind, want 1")
+    if rise("launches.bvol_sweep") != 1:
+        raise AssertionError(f"bvol launches {rise('launches.bvol_sweep')} at bind, want 1")
 
     print("  sweep checks on the evolved demo_3d state:")
     inp = sweep_inputs(solver, state)
@@ -3301,7 +3321,7 @@ def main() -> int:
     r_state, rigid = r_solver.rollout_coupled(r_state, rigid, 2)  # warm-up, not counted
     assert_no_host_wait("bench_3d_rigid, one coupled R=2 group",
                         lambda: r_solver.rollout_coupled(r_state, rigid, 2))
-    reset_counts(kernels)
+    reset_counts()
     t0 = time.perf_counter()
     r_state, rigid = r_solver.rollout_coupled(r_state, rigid, RIGID_R2)
     torch.cuda.synchronize()
@@ -3311,7 +3331,7 @@ def main() -> int:
     r_state, rigid = r_solver.rollout_coupled(r_state, rigid, RIGID_R1)
     torch.cuda.synchronize()
     rwall1 = time.perf_counter() - t0
-    r_launches = {k: f.launches for k, f in kernels.items()}
+    r_launches = launched(kernels)
     r_steps = RIGID_R2 + RIGID_R1
     r_want = {k: 0 for k in kernels} | {
         "rebuild": -(-RIGID_R2 // 2) + RIGID_R1, "sweep.density": r_steps,
@@ -3393,12 +3413,12 @@ def main() -> int:
     l_state = l_solver.bind(tt.build_state(scene, device=DEVICE))
     l_state = l_solver.rollout(l_state, 2)  # warm-up, outside the counted run
     assert_no_host_wait("demo_3d linear, one step", lambda: l_solver.rollout(l_state, 1))
-    reset_counts(kernels)
+    reset_counts()
     t0 = time.perf_counter()
     l_state = l_solver.rollout(l_state, LINEAR_STEPS)
     torch.cuda.synchronize()
     lwall = time.perf_counter() - t0
-    l_launches = {k: f.launches for k, f in kernels.items()}
+    l_launches = launched(kernels)
     l_want = {k: 0 for k in kernels} | {"rebuild": LINEAR_STEPS,
                                         "linear.density": LINEAR_STEPS,
                                         "linear.force": LINEAR_STEPS}
@@ -3477,12 +3497,12 @@ def main() -> int:
     print(f"  {b_state.num_active} particles, capacity {b_n}; launch shapes {b_shapes}")
     if any(lanes != 1 for lanes, _ in b_shapes.values()):
         raise AssertionError(f"{b_n} rows should launch one thread per row: {b_shapes}")
-    reset_counts(kernels)
+    reset_counts()
     t0 = time.perf_counter()
     b_state = b_solver.rollout(b_state, LARGE_STEPS)
     torch.cuda.synchronize()
     bwall = time.perf_counter() - t0
-    b_launches = {k: f.launches for k, f in kernels.items()}
+    b_launches = launched(kernels)
     b_want = {k: 0 for k in kernels} | {"rebuild": -(-LARGE_STEPS // 2),
                                         "sweep.density": LARGE_STEPS,
                                         "sweep.force": LARGE_STEPS}
@@ -3536,9 +3556,9 @@ def main() -> int:
 
     e_scene = tt.load_scene(EMIT_3D)
     e_solver = tt.WCSPH(e_scene, device=DEVICE, resort_every=2)
-    reset_counts(kernels)
+    reset_counts()
     e_start = e_solver.bind(tt.build_state(e_scene, device=DEVICE))
-    e_bind = {k: f.launches for k, f in kernels.items()}
+    e_bind = launched(kernels)
     if e_bind != with_row_ops({k: 0 for k in kernels} | {"rebuild": 1, "sweep.bvol": 1}):
         raise AssertionError(f"emitter scene bind launched {e_bind}: want the rebuild and bvol "
                              "once each")
@@ -3556,7 +3576,7 @@ def main() -> int:
     e_solver.resort_every = 1
     e_state, ems = e_solver.rollout_emit(e_state, ems, EMIT_R1)
     torch.cuda.synchronize()
-    e_launches = {k: f.launches for k, f in kernels.items()}
+    e_launches = launched(kernels)
     e_steps = EMIT_R2 + EMIT_R1
     e_want = {k: 0 for k in kernels} | {
         "rebuild": 1 + -(-EMIT_R2 // 2) + EMIT_R1, "sweep.bvol": 1,
@@ -3649,7 +3669,7 @@ def main() -> int:
     phase(f"12 checkpoint on the card: {CKPT_STEPS} steps at R=2 against "
           f"{CKPT_STEPS // 2} + save_npz + load_npz + {CKPT_STEPS // 2}")
     e_solver.resort_every = 2
-    reset_counts(kernels)
+    reset_counts()
     ck_a, ck_ems_a = e_solver.rollout_emit(e_start, ems0, CKPT_STEPS)
     half, ck_half = e_solver.rollout_emit(e_start, ems0, CKPT_STEPS // 2)
     with tempfile.TemporaryDirectory() as tmp:
@@ -3658,7 +3678,7 @@ def main() -> int:
         loaded, ck_loaded = checkpoint.load_npz(path, with_emitters=True, device=DEVICE)
     ck_b, ck_ems_b = e_solver.rollout_emit(loaded, ck_loaded, CKPT_STEPS // 2)
     torch.cuda.synchronize()
-    c_launches = {k: f.launches for k, f in kernels.items()}
+    c_launches = launched(kernels)
     c_want = {k: 0 for k in kernels} | {"rebuild": CKPT_STEPS, "sweep.density": 2 * CKPT_STEPS,
                                         "sweep.force": 2 * CKPT_STEPS}
     c_want = with_row_ops(c_want)

@@ -20,6 +20,7 @@ import tisph_tpu_torch as pt
 from tisph_tpu_torch.models.state import pad_state_capacity
 from tisph_tpu_torch.ops import grid
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
+from tisph_tpu_torch.utils import profiling
 
 from test_pallas import _scene
 
@@ -122,9 +123,9 @@ def test_block_windows_match_jax(dim):
 def test_bounds_wrapper_takes_plain_version_on_cpu():
     _, port, _, spec = _states(3, seed=7)
     _, ids, _ = grid.sort_state_by_cell(port, spec)
-    before = cuda_bounds.csr_bounds_sorted.launches
+    before = profiling.launch_counters()
     got = cuda_bounds.csr_bounds_sorted(ids, spec)
-    assert cuda_bounds.csr_bounds_sorted.launches == before
+    assert profiling.launch_counters() == before
     assert torch.equal(got, grid.csr_bounds(ids, spec))
 
 

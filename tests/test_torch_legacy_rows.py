@@ -5,8 +5,8 @@ versions ``ops.neighbors.legacy_pos``, ``ops.forces.legacy_eos_pack_plain``
 and ``legacy_advance_plain`` on the CPU.
 
 - On a CPU tensor the dispatchers return the plain versions' outputs
-  bitwise and count no launch; each wrapper is a launch counter of the
-  graph runner (``models.graphs._COUNTERS``).
+  bitwise and count no launch; on the card each launch counts as
+  ``launches.<wrapper>`` in ``utils.profiling``'s registry.
 - The plain versions against ``tisph_tpu``'s legacy step
   (``tisph_tpu/models/wcsph_legacy.py``): the fluid mask of the pos pack
   (:51), the density kept on fluid rows, ``tait_pressure`` and the force
@@ -44,12 +44,12 @@ from tisph_tpu.ops import eos as jeos
 from tisph_tpu.ops import forces as jF
 
 import tisph_tpu_torch as pt
-from tisph_tpu_torch.models import graphs
 from tisph_tpu_torch.models.state import MATERIAL_BOUNDARY, MATERIAL_FLUID, MATERIAL_INVALID
 from tisph_tpu_torch.ops import forces as F
 from tisph_tpu_torch.ops import neighbors
 from tisph_tpu_torch.ops.cuda import legacy_rows
 from tisph_tpu_torch.ops.grid import state_fields
+from tisph_tpu_torch.utils import profiling
 from test_torch_legacy_sweeps import DAM_3D
 
 torch.set_num_threads(2)
@@ -159,7 +159,8 @@ def _same_bits(got, want):
 
 
 def _launches():
-    return [w.launches for w in WRAPPERS]
+    c = profiling.counters()
+    return [c.get(f"launches.{w.__name__}", 0) for w in WRAPPERS]
 
 
 def _jax_row_ops(h, jparams):
@@ -208,12 +209,10 @@ def _against_tisph_tpu(h, params, jparams):
 def test_dispatchers_on_cpu_are_the_plain_versions(dim):
     params, _ = _params(dim)
     h = _inputs(dim, 100 + dim, params)
-    before = _launches()
+    before = profiling.launch_counters()
     got = _row_ops(WRAPPERS, h, params)
-    assert _launches() == before
+    assert profiling.launch_counters() == before
     _same_bits(got, _row_ops(PLAIN, h, params))
-    # and the graph runner counts their launches
-    assert all((w, "launches") in graphs._COUNTERS for w in WRAPPERS)
 
 
 @pytest.mark.parametrize("dim,exact,gamma", CASES, ids=IDS)

@@ -34,9 +34,9 @@ import tisph_tpu_torch as pt
 from tisph_tpu_torch.ops import neighbors
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
 from tisph_tpu_torch.ops.cuda import legacy as cuda_legacy
-from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.models.state import pad_state_capacity
 from tisph_tpu_torch.ops.grid import state_fields
+from tisph_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -230,18 +230,17 @@ def test_graph_path_equals_eager_on_cuda(boundary_mode):
     per_step = boundary_mode == "per_step"
     scene = pt.scene_from_dict(DAM_3D) if per_step else pt.load_scene("scenes/demo_2d.json")
     start = pt.build_state(scene, device="cuda")
-    counters = (cuda_legacy.legacy_density_sweep, cuda_legacy.legacy_force_sweep,
-                cuda_bounds.sort_and_bound, cuda_sweeps.bvol_sweep)
+    counters = ("legacy_density_sweep", "legacy_force_sweep", "sort_and_bound", "bvol_sweep")
     out = []
     for graphs in (True, False):
         solver = pt.WCSPHLegacy(scene, device="cuda", graphs=graphs,
                                 boundary_mode=boundary_mode)
         assert solver.graphs == graphs
         bound = solver.bind(start)
-        before = [c.launches for c in counters]
+        before = [profiling.counters().get(f"launches.{c}", 0) for c in counters]
         out.append(solver.rollout(bound, 30))
         torch.cuda.synchronize()
-        after = [c.launches for c in counters]
+        after = [profiling.counters().get(f"launches.{c}", 0) for c in counters]
         assert [a - b for a, b in zip(after, before)] == [30, 30, 30, 30 if per_step else 0]
     assert solver._runner is None
     for k in state_fields(out[0]):

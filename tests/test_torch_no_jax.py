@@ -28,7 +28,7 @@ import json, sys
 import matplotlib
 matplotlib.use("Agg")
 import tisph_tpu_torch as tt
-from tisph_tpu_torch import (bench, bench_ladder, checkpoint, demo, paired_bench, run_scene,
+from tisph_tpu_torch import (bench, bench_ladder, checkpoint, demo, kernel_times, run_scene,
                              run_sharded)
 from tisph_tpu_torch.parallel import (ShardedWCSPH, ShardedWCSPH2D, ShardedWCSPHRect, make_mesh,
                                       make_mesh2d, make_mesh3d)

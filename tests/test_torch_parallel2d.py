@@ -584,7 +584,7 @@ def test_rect_on_cuda_matches_single_device():
     every sweep launched with an i-row map."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the sweep kernel has no CPU mode")
-    from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
+    from tisph_tpu_torch.utils import profiling
 
     scene = pt.scene_from_dict(_raw(0.02))
     start = pt.build_state(scene, device="cuda")
@@ -597,7 +597,8 @@ def test_rect_on_cuda_matches_single_device():
         solver = ShardedWCSPHRect(scene, make(*shape, devices=["cuda:0"] * int(np.prod(shape))),
                                   resort_every=2)
         shards = solver.bind(start)
-        cuda_sweeps.density_sweep.part_launches = 0
+        before = profiling.counters().get("part_launches.density_sweep", 0)
         got = solver.gather_state(solver.rollout(shards, 6))
-        assert cuda_sweeps.density_sweep.part_launches == 6 * solver.n_shards
+        assert (profiling.counters()["part_launches.density_sweep"] - before
+                == 6 * solver.n_shards)
         _close(got, want)

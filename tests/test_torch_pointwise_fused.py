@@ -41,7 +41,7 @@ import tisph_tpu_torch as pt
 from tisph_tpu_torch.models import wcsph
 from tisph_tpu_torch.models.state import MATERIAL_BOUNDARY, MATERIAL_FLUID, MATERIAL_INVALID
 from tisph_tpu_torch.ops import forces as F
-from tisph_tpu_torch.ops.cuda import pointwise as cuda_pointwise
+from tisph_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -114,6 +114,12 @@ def _row_ops(h, params, device="cpu"):
     return eos, out, st, t
 
 
+def _launches():
+    """The kernels' launch counters: (eos_pack, advance)."""
+    c = profiling.counters()
+    return c.get("launches.eos_pack", 0), c.get("launches.advance", 0)
+
+
 def _bits(t):
     return t.contiguous().view(torch.int32)
 
@@ -122,9 +128,9 @@ def _bits(t):
 def test_dispatchers_on_cpu_are_the_plain_versions(dim):
     params, _ = _params(dim)
     h = _inputs(dim, 100 + dim, params)
-    before = (cuda_pointwise.eos_pack.launches, cuda_pointwise.advance.launches)
+    before = profiling.launch_counters()
     eos, out, st, t = _row_ops(h, params)
-    assert (cuda_pointwise.eos_pack.launches, cuda_pointwise.advance.launches) == before
+    assert profiling.launch_counters() == before
     want = F.eos_packs_plain(t["rho"], st, t["fluid"], t["flm"], params)
     for g, w in zip(eos, want):
         assert torch.equal(_bits(g), _bits(w))
@@ -223,10 +229,9 @@ def test_kernels_match_plain_on_cuda(dim, exact, gamma):
     params, _ = _params(dim, exact, gamma)
     base = _inputs(dim, 70 + 10 * dim + 2 * exact + int(gamma), params)
     for h in (base, _with_nan_rows(base)):
-        before = (cuda_pointwise.eos_pack.launches, cuda_pointwise.advance.launches)
+        before = _launches()
         eos, out, st, t = _row_ops(h, params, device="cuda")
-        assert (cuda_pointwise.eos_pack.launches, cuda_pointwise.advance.launches) == (
-            before[0] + 1, before[1] + 1)
+        assert _launches() == (before[0] + 1, before[1] + 1)
         want = F.eos_packs_plain(t["rho"], st, t["fluid"], t["flm"], params)
         for name, g, w in zip(("rho", "pressure", "vel", "aux"), eos, want):
             assert torch.equal(_bits(g), _bits(w)), name

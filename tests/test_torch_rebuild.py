@@ -22,6 +22,7 @@ import tisph_tpu_torch as pt
 from tisph_tpu_torch.models.state import MATERIAL_INVALID, pad_state_capacity
 from tisph_tpu_torch.ops import grid
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
+from tisph_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -109,12 +110,11 @@ def test_rebuild_wrappers_take_the_plain_version_on_cpu():
     """On CPU tensors every wrapper returns the plain version's result and
     counts no launch."""
     port, _, spec, _ = _states(3, "tail", seed=5)
-    before = (cuda_bounds.sort_and_bound.launches, cuda_bounds.csr_bounds_sorted.launches)
+    before = profiling.launch_counters()
     st, ids, perm, bounds = cuda_bounds.sort_and_bound(port, spec)
     st2, bounds2 = cuda_bounds.gather_and_bound(port, ids, perm, spec)
     bounds3 = cuda_bounds.csr_bounds_sorted(ids, spec)
-    after = (cuda_bounds.sort_and_bound.launches, cuda_bounds.csr_bounds_sorted.launches)
-    assert after == before
+    assert profiling.launch_counters() == before
     plain_st, plain_ids, plain_perm = grid.sort_state_by_cell(port, spec)
     plain_bounds = grid.csr_bounds(plain_ids, spec)
     assert torch.equal(ids, plain_ids) and torch.equal(perm, plain_perm)
@@ -171,13 +171,13 @@ def test_rebuild_kernel_matches_plain_on_cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the rebuild kernel has no CPU mode")
     for label, state, spec in _cuda_cases():
-        before = cuda_bounds.sort_and_bound.launches
+        before = profiling.counters().get("launches.sort_and_bound", 0)
         st, ids, perm, bounds = cuda_bounds.sort_and_bound(state, spec)
         plain_st, plain_ids, plain_perm = grid.sort_state_by_cell(state, spec)
         plain_bounds = grid.csr_bounds(plain_ids, spec)
         only_bounds = cuda_bounds.csr_bounds_sorted(ids, spec)
         torch.cuda.synchronize()
-        assert cuda_bounds.sort_and_bound.launches == before + 1, label
+        assert profiling.counters()["launches.sort_and_bound"] == before + 1, label
         assert torch.equal(ids, plain_ids) and torch.equal(perm, plain_perm), label
         assert torch.equal(bounds, plain_bounds), label
         assert torch.equal(only_bounds, plain_bounds), label

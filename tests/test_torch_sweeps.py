@@ -34,6 +34,7 @@ from tisph_tpu_torch.models.state import pad_state_capacity
 from tisph_tpu_torch.ops import forces as F
 from tisph_tpu_torch.ops import grid, neighbors
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
+from tisph_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -207,8 +208,7 @@ def test_sweep_wrappers_take_plain_versions_on_cpu():
     pos = neighbors.pack4(st.x, effm)
     vel = neighbors.pack4(st.v, st.density)
     aux = neighbors.pack_aux(F.compute_pressures(st.density, params)[1] / 1e6, flm, st.mass)
-    before = [f.launches for f in (cuda_sweeps.density_sweep, cuda_sweeps.force_sweep,
-                                   cuda_sweeps.bvol_sweep)]
+    before = profiling.launch_counters()
     assert torch.equal(cuda_sweeps.density_sweep(pos, ids, bounds, st.material, spec, params),
                        neighbors.density_sweep(pos, ids, bounds, st.material, spec, params))
     assert torch.equal(
@@ -216,8 +216,7 @@ def test_sweep_wrappers_take_plain_versions_on_cpu():
         neighbors.force_sweep(pos, vel, aux, ids, bounds, st.material, spec, params))
     assert torch.equal(cuda_sweeps.bvol_sweep(pos, ids, bounds, st.material, spec, params),
                        neighbors.bvol_sweep(pos, ids, bounds, st.material, spec, params))
-    assert before == [f.launches for f in (cuda_sweeps.density_sweep, cuda_sweeps.force_sweep,
-                                           cuda_sweeps.bvol_sweep)]
+    assert profiling.launch_counters() == before
 
 
 @pytest.mark.parametrize("mode,lanes,below", [

@@ -36,6 +36,7 @@ from tisph_tpu_torch.models.state import pad_state_capacity
 from tisph_tpu_torch.ops import forces as F
 from tisph_tpu_torch.ops import grid, neighbors
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
+from tisph_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -227,15 +228,14 @@ def test_linear_wrappers_take_plain_versions_on_cpu():
     pos = neighbors.pack4(st.x, flm)
     vel = neighbors.pack4(st.v, st.density)
     aux = neighbors.pack_aux(F.compute_pressures(st.density, params)[1] / 1e6, flm, st.mass)
-    kernels = (cuda_sweeps.density_sweep_linear, cuda_sweeps.force_sweep_linear)
-    before = [f.launches for f in kernels]
+    before = profiling.launch_counters()
     assert torch.equal(
         cuda_sweeps.density_sweep_linear(pos, ids, bounds, st.material, spec, params),
         neighbors.density_sweep_linear(pos, ids, bounds, st.material, spec, params))
     assert torch.equal(
         cuda_sweeps.force_sweep_linear(pos, vel, aux, ids, bounds, st.material, spec, params),
         neighbors.force_sweep_linear(pos, vel, aux, ids, bounds, st.material, spec, params))
-    assert before == [f.launches for f in kernels]
+    assert profiling.launch_counters() == before
     with pytest.raises(ValueError):
         cuda_sweeps.density_sweep_linear(pos, ids, bounds, st.material, spec, params,
                                          windows=torch.zeros((1, 3, 2), dtype=torch.int32))

@@ -22,18 +22,26 @@ On the CPU:
   boundary rows, and adds to the counters ``bind.calls``, ``bind.s`` and
   ``bind.boundary_rows``; a pure-fluid bind sums no boundary volume; a
   ``solver.rollout`` span carries the last bind's fluid and boundary rows;
-  a sweep launch adds its rows to its wrapper's ``rows``, a counter of the
-  graph runner's registry.
+  a launch through ``ops.cuda.build.launch`` counts ``launches.<wrapper>``
+  and, on a sweep, its ``part_launches`` and ``rows`` in the registry;
+- the graph runner works on whatever launch counters the registry holds:
+  a capture (``torch.cuda``'s graph calls patched to stand-ins) takes back
+  what its warm-up and capture counted of a counter no module names, a
+  rollout's end adds replays times the captured rises, and ``graphs.py``
+  imports nothing from ``ops.cuda``.
 
-Marked ``cuda`` (skipped here): after graphed rollouts the wrappers'
-``launches``, ``part_launches`` and ``rows`` rose as the eager rollouts'
-did, and ``solver.rollout``'s ``launches`` is that rise; a V2 rollout's
-``sweep_rows`` is two sweeps of every row a step.
+Marked ``cuda`` (skipped here): after graphed rollouts the launch
+counters rose as the eager rollouts' did, and ``solver.rollout``'s
+``launches`` is that rise; a V2 rollout's ``sweep_rows`` is two sweeps of
+every row a step.
 """
 
+import ast
+import contextlib
 import json
 import math
 import tracemalloc
+import types
 
 import pytest
 import torch
@@ -41,6 +49,7 @@ import torch
 import tisph_tpu_torch as pt
 from tisph_tpu_torch.models import graphs
 from tisph_tpu_torch.models.graphs import GroupRunner
+from tisph_tpu_torch.ops.cuda import build
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.grid import state_fields
 from tisph_tpu_torch.utils import profiling
@@ -284,22 +293,108 @@ def test_a_rollout_carries_the_bound_rows(graphed):
 
 
 def test_a_launch_adds_its_rows(monkeypatch):
-    assert all((w, "rows") in graphs._COUNTERS for w in (
-        cuda_sweeps.density_sweep, cuda_sweeps.force_sweep, cuda_sweeps.bvol_sweep,
-        cuda_sweeps.force_react_sweep, cuda_sweeps.reaction_sweep,
-        cuda_sweeps.density_sweep_linear, cuda_sweeps.force_sweep_linear))
-    w = cuda_sweeps.force_sweep
-    for c in ("launches", "part_launches", "rows"):
-        monkeypatch.setattr(w, c, getattr(w, c))  # restored after the test
-    before = (w.launches, w.part_launches, w.rows, graphs.sweep_rows())
-    cuda_sweeps._count(w, False, 1000)
-    cuda_sweeps._count(w, True, 24)
-    after = (w.launches, w.part_launches, w.rows, graphs.sweep_rows())
-    assert [b - a for a, b in zip(before, after)] == [2, 1, 1024, 1024]
+    """``build.launch`` with the library, the device and the stream stood
+    in for: the entry gets the arguments and the stream, and the launch
+    counts in the registry."""
+    monkeypatch.setattr(profiling, "_counters", dict(profiling._counters))  # put back after
+    calls = []
+    lib = types.SimpleNamespace(tisph_sweep=lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(build, "load", lambda: lib)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=7))
+    before = profiling.counters()
+    rows0 = profiling.sweep_rows()
+    build.launch("force_sweep", "tisph_sweep", "cuda", 1, 2, part_launches=0, rows=1000)
+    build.launch("force_sweep", "tisph_sweep", "cuda", 3, part_launches=1, rows=24)
+    after = profiling.counters()
+    assert calls == [(1, 2, 7), (3, 7)]
+    assert [after[f"{c}.force_sweep"] - before.get(f"{c}.force_sweep", 0)
+            for c in ("launches", "part_launches", "rows")] == [2, 1, 1024]
+    assert profiling.sweep_rows() - rows0 == 1024
+    assert profiling.launches() - sum(v for k, v in before.items()
+                                      if k.startswith("launches.")) == 2
+
+
+class _Graph:
+    """A stand-in for ``torch.cuda.CUDAGraph``: a replay runs nothing."""
+
+    replays = 0
+
+    def replay(self):
+        _Graph.replays += 1
+
+
+def _stand_in_graphs(monkeypatch):
+    """``torch.cuda``'s stream and graph calls of ``GroupRunner._capture``
+    as no-ops, so the runner's capture path runs on the CPU."""
+    stream = types.SimpleNamespace(wait_stream=lambda other: None)
+    for name, fn in (("graph_pool_handle", lambda: None), ("Stream", lambda dev: stream),
+                     ("current_stream", lambda dev=None: stream),
+                     ("stream", lambda s: contextlib.nullcontext()), ("CUDAGraph", _Graph),
+                     ("graph", lambda g, pool=None: contextlib.nullcontext())):
+        monkeypatch.setattr(torch.cuda, name, fn)
+
+
+def test_a_capture_takes_back_and_settles_any_launch_counter(monkeypatch):
+    """A counter no module outside the test names, counted by every
+    substep: the warm-ups' and captures' counts are taken back, and the
+    rollout's end adds replays times what each capture counted, so the
+    counters and the ``solver.rollout`` span read as an eager run's."""
+    monkeypatch.setattr(profiling, "_counters", dict(profiling._counters))  # put back after
+    _stand_in_graphs(monkeypatch)
+    solver, state = _solver(R=2)
+    plain = solver._substep
+
+    def substep(carry, cache):
+        profiling.count("launches.made_up_kernel")
+        profiling.count("rows.made_up_kernel", 100)
+        return plain(carry, cache)
+
+    solver._substep = substep
+    solver.graphs = True
+    solver._runner = runner = GroupRunner(solver)
+    _Graph.replays = 0
+    with profiling.recording():
+        solver.rollout(state, 7)  # groups of 2, 2, 2, then 1
+    counted = profiling.counters()
+    assert runner.captures == 2 and _Graph.replays == 4
+    assert runner._graphs[(2, None)][1] == {"launches.made_up_kernel": 2,
+                                            "rows.made_up_kernel": 200}
+    assert runner._graphs[(1, None)][1] == {"launches.made_up_kernel": 1,
+                                            "rows.made_up_kernel": 100}
+    assert counted["launches.made_up_kernel"] == 7
+    assert counted["rows.made_up_kernel"] == 700
+    root = profiling.recorded()[0]
+    assert root.name == "solver.rollout"
+    assert root.attrs["launches"] == 7 and root.attrs["sweep_rows"] == 700
+    assert root.attrs["captures"] == 2 and root.attrs["replays"] == 4
+
+
+def test_settle_adds_replays_times_captured(monkeypatch):
+    monkeypatch.setattr(profiling, "_counters", dict(profiling._counters))  # put back after
+    solver, _ = _solver(R=2)
+    runner = GroupRunner(solver)
+    runner._graphs[(2, None)] = (None, {"launches.made_up_kernel": 3,
+                                        "part_launches.made_up_kernel": 1})
+    runner._graphs[(1, None)] = (None, {"launches.made_up_kernel": 2})
+    before = profiling.launches()
+    runner._settle({(2, None): 5, (1, None): 1})
+    counted = profiling.counters()
+    assert counted["launches.made_up_kernel"] == 17
+    assert counted["part_launches.made_up_kernel"] == 5
+    assert profiling.launches() - before == 17 and runner.replays == 6
+
+
+def test_the_graph_runner_imports_no_kernel_module():
+    tree = ast.parse(open(graphs.__file__).read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert names and not [m for m in names if m.startswith("tisph_tpu_torch.ops.cuda")]
+    assert not hasattr(graphs, "_COUNTERS")
 
 
 def _counts():
-    return [getattr(w, c) for w, c in graphs._COUNTERS]
+    return profiling.launch_counters()
 
 
 @pytest.mark.cuda
@@ -320,9 +415,8 @@ def test_graph_launch_counters_settle_as_eager(legacy):
             solver.rollout(st, 7)
             solver.step(st)
         torch.cuda.synchronize()
-        rises[name] = [b - a for a, b in zip(c0, _counts())]
-        launched = sum(r for r, (_, c) in zip(rises[name], graphs._COUNTERS)
-                       if c == "launches")
+        rises[name] = {k: v - c0.get(k, 0) for k, v in _counts().items() if v != c0.get(k, 0)}
+        launched = sum(r for k, r in rises[name].items() if k.startswith("launches."))
         roots = [s for s in profiling.recorded() if s.name == "solver.rollout"]
         assert sum(s.attrs["launches"] for s in roots) == launched > 0
         assert not [s for s in profiling.recorded() if s.name == "runner.capture"]

@@ -1,6 +1,5 @@
 """Times of the seg sweep kernel (csrc/sweeps.cu) and of the R-group
-rebuild on the states they are tuned on, for one checkout or for two in
-turns.
+rebuild on the states they are tuned on.
 
 The states: demo_3d's dense start state and its state after 252 steps (200
 at R=2, 52 at R=1), bench_3d_1m's dense start state and its state after
@@ -10,11 +9,9 @@ every mode that scene's step launches (all five on bench_3d_rigid) is
 called through its public wrapper (``ops.cuda.sweeps``), whose signature
 no redesign changes, and timed with CUDA events behind a device-side spin.
 So is the rebuild of that state: ``rebuild`` is the pass after the cell
-sort (with ``ops.cuda.bounds.gather_and_bound``, the rebuild kernel; in
-a checkout without it, one ``index_select`` per field and the bounds
-kernel ``csr_bounds_sorted``), ``sort+rebuild`` the whole rebuild with the
-cell ids and the sort (``sort_and_bound``; without it
-``grid.sort_state_by_cell`` and ``csr_bounds_sorted``).
+sort (``ops.cuda.bounds.gather_and_bound``, the rebuild kernel),
+``sort+rebuild`` the whole rebuild with the cell ids and the sort
+(``sort_and_bound``).
 Prints one JSON object: ``card`` and ``ms`` {"<state> <mode>": mean ms}.
 
 With ``--legacy`` it times the legacy solver's kernel (csrc/legacy.cu,
@@ -24,20 +21,12 @@ large (12,600 to 50,400 rows), demo_3d's dense start and after 252 steps
 (195,304 rows) and with its block cut to 1/16, 1/8 and 1/4 (13,952 to
 50,224 rows), bench_3d_100k after 252 steps and bench_3d_1m after 20.
 Each mode is called through its public wrapper with the launch it picks
-itself (``<state> <mode>``) and, where the package has
-``legacy_launch_shape``, at every built lane count (``<state> <mode>
-L=<lanes>``), each with its error against the plain version (``...
-err``: density's max relative error, force's max|err| / max|ref|, over
-the fluid rows).
+itself (``<state> <mode>``) and at every built lane count (``<state>
+<mode> L=<lanes>``), each with its error against the plain version
+(``... err``: density's max relative error, force's max|err| / max|ref|,
+over the fluid rows).  Needs a CUDA device.
 
-With ``--parent DIR`` (a commit unpacked into a directory that
-``.gitignore`` lists, e.g. ``mkdir -p build/parent && git archive <commit>
-| tar -x -C build/parent``) this file runs as a script against each
-checkout's package, in the order parent, change, change, parent, each
-process building its own kernels and states; the last line then holds per
-state and mode both means and their ratio.  Needs a CUDA device.
-
-Usage: python -m tisph_tpu_torch.kernel_times [--legacy] [--parent build/parent]
+Usage: python -m tisph_tpu_torch.kernel_times [--legacy]
 """
 
 from __future__ import annotations
@@ -52,7 +41,6 @@ import sys
 import torch
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_ORDER = ("parent", "change", "change", "parent")
 # (label, scene, the fluid block's scale along x and y, steps) of the
 # legacy kernel's states
 _LEGACY_STATES = (("demo_2d+500", "demo_2d.json", (1, 1), 500),
@@ -86,26 +74,15 @@ def _cuda_ms(fn, reps: int) -> float:
 
 
 def _rebuilds(state, spec) -> dict:
-    """{"rebuild": fn, "sort+rebuild": fn} on ``state`` with the
-    importable package's rebuild (see the module's docstring)."""
+    """{"rebuild": fn, "sort+rebuild": fn} on ``state`` (see the
+    module's docstring)."""
     from tisph_tpu_torch.ops import grid
     from tisph_tpu_torch.ops.cuda import bounds
 
     ids = grid.flat_cell_ids(grid.cell_coords(state.x, spec), state.material, spec)
     sorted_ids, perm = torch.sort(ids, stable=True)
-    if hasattr(bounds, "sort_and_bound"):
-        return {"rebuild": lambda: bounds.gather_and_bound(state, sorted_ids, perm, spec),
-                "sort+rebuild": lambda: bounds.sort_and_bound(state, spec)}
-    fields = [getattr(state, f.name) for f in dataclasses.fields(state)
-              if isinstance(getattr(state, f.name), torch.Tensor)]
-
-    def sort_rebuild():
-        st, ids, perm = grid.sort_state_by_cell(state, spec)
-        return st, bounds.csr_bounds_sorted(ids, spec)
-
-    return {"rebuild": lambda: ([f.index_select(0, perm) for f in fields],
-                                bounds.csr_bounds_sorted(sorted_ids, spec)),
-            "sort+rebuild": sort_rebuild}
+    return {"rebuild": lambda: bounds.gather_and_bound(state, sorted_ids, perm, spec),
+            "sort+rebuild": lambda: bounds.sort_and_bound(state, spec)}
 
 
 def _inputs(solver, state, per_step: bool = False) -> dict:
@@ -134,7 +111,7 @@ def _inputs(solver, state, per_step: bool = False) -> dict:
 
 
 def measure() -> dict:
-    """{"<state> <mode>": ms} of the importable ``tisph_tpu_torch``."""
+    """{"<state> <mode>": ms}."""
     import tisph_tpu_torch as tt
     from tisph_tpu_torch.ops.cuda import sweeps
 
@@ -210,13 +187,11 @@ def _scaled_scene(name: str, scale: tuple[float, float]):
 
 
 def measure_legacy() -> dict:
-    """{"<state> <mode>[ L=<lanes>][ err]": value} of the importable
-    ``tisph_tpu_torch``'s legacy kernel."""
+    """{"<state> <mode>[ L=<lanes>][ err]": value} of the legacy kernel."""
     import tisph_tpu_torch as tt
     from tisph_tpu_torch.ops import neighbors
     from tisph_tpu_torch.ops.cuda import legacy
 
-    lanes = legacy.LANES if hasattr(legacy, "legacy_launch_shape") else ()
     out = {}
     for label, name, scale, steps in _LEGACY_STATES:
         solver = tt.WCSPHLegacy(_scaled_scene(name, scale), device="cuda")
@@ -232,7 +207,7 @@ def measure_legacy() -> dict:
                 packs = (*packs, None, None)
             calls = {f"{label} legacy_{mode}": lambda fn=fn, a=args[mode]: fn(*a)}
             calls |= {f"{label} legacy_{mode} L={L}": lambda m=mode, L=L, p=packs, t=tail:
-                      legacy._launch(m, L, *p, *t) for L in lanes}
+                      legacy._launch(m, L, *p, *t) for L in legacy.LANES}
             ref = getattr(neighbors, f"legacy_{mode}_sweep")(*args[mode])[fluid]
             for key, call in calls.items():
                 out[key] = (_cuda_ms(call, reps) + _cuda_ms(call, reps)) / 2
@@ -253,40 +228,14 @@ def _card() -> str:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="root of the parent checkout; times both in turns")
     ap.add_argument("--legacy", action="store_true", help="the legacy kernel's states")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device; kernels are timed on a GPU only", file=sys.stderr)
         return 2
-    if args.parent is None:
-        print(json.dumps({"card": _card(), "ms": measure_legacy() if args.legacy else measure()}))
-        return 0
-    roots = {"parent": os.path.abspath(args.parent), "change": _ROOT}
-    runs: dict[str, list[dict]] = {"parent": [], "change": []}
-    for label in _ORDER:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__)]
-                              + (["--legacy"] if args.legacy else []), cwd=roots[label],
-                              env=dict(os.environ, PYTHONPATH=roots[label]),
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"kernel_times in {roots[label]} exited {proc.returncode}:\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        line = json.loads(proc.stdout.strip().splitlines()[-1])
-        print(label, json.dumps(line), flush=True)
-        runs[label].append(line["ms"])
-    paired, change_only = {}, {}
-    for key in runs["change"][0]:
-        change = sum(r[key] for r in runs["change"]) / len(runs["change"])
-        if key not in runs["parent"][0]:  # e.g. a lane count the parent lacks
-            change_only[key] = change
-            continue
-        parent = sum(r[key] for r in runs["parent"]) / len(runs["parent"])
-        paired[key] = {"parent": parent, "change": change, "ratio": change / parent}
-    print(json.dumps({"card": _card(), "paired": paired, "change_only": change_only}))
+    print(json.dumps({"card": _card(), "ms": measure_legacy() if args.legacy else measure()}))
     return 0
 
 
 if __name__ == "__main__":
-    sys.path.insert(0, os.environ.get("PYTHONPATH", _ROOT).split(os.pathsep)[0])
     raise SystemExit(main())

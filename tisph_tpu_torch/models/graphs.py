@@ -49,10 +49,12 @@ Where a capture could go wrong, and what the runner does about it:
 - aliasing: graph tensors live in the pool and the next replay rewrites
   the buffers, so the carry a rollout returns is a clone and no group
   cache leaves the graph;
-- launch counters: the wrappers count launches (the sweeps also the rows
-  they cover) in Python, and a replay makes no Python call, so the runner
-  records what a capture counted, counts a rollout's replays per key and
-  adds replays times counted at the rollout's end: between calls the
+- launch counters: every kernel launch counts in Python, in
+  ``utils.profiling``'s registry (``launches.*``, ``part_launches.*`` and
+  ``rows.*``, whichever kernels there are), and a replay makes no Python
+  call, so the runner takes back what a warm-up and a capture counted,
+  keeps the capture's rises per key, counts a rollout's replays per key
+  and adds replays times rises at the rollout's end: between calls the
   counters read as if every group had run eagerly;
 - bitwise: a replay runs the eager group's kernels with the same launch
   shapes in the same order (``launch_shape`` reads only the row count),
@@ -82,48 +84,8 @@ from typing import Callable
 import torch
 
 from tisph_tpu_torch.geometry.emitter import count_step, due_step
-from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
-from tisph_tpu_torch.ops.cuda import legacy as cuda_legacy
-from tisph_tpu_torch.ops.cuda import legacy_rows as cuda_legacy_rows
-from tisph_tpu_torch.ops.cuda import pointwise as cuda_pointwise
-from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.grid import state_fields
-from tisph_tpu_torch.utils.profiling import count, span
-
-# every wrapper's launch counters (``launches``, and ``part_launches`` and
-# ``rows`` where it has them): a rollout's end adds what its replays'
-# captures counted
-_COUNTERS = tuple(
-    (w, c)
-    for w in (cuda_bounds.sort_and_bound, cuda_bounds.csr_bounds_sorted,
-              cuda_sweeps.density_sweep, cuda_sweeps.force_sweep, cuda_sweeps.bvol_sweep,
-              cuda_sweeps.force_react_sweep, cuda_sweeps.reaction_sweep,
-              cuda_sweeps.density_sweep_linear, cuda_sweeps.force_sweep_linear,
-              cuda_legacy.legacy_density_sweep, cuda_legacy.legacy_force_sweep,
-              cuda_pointwise.eos_pack, cuda_pointwise.advance,
-              cuda_legacy_rows.legacy_pos_pack, cuda_legacy_rows.legacy_eos_pack,
-              cuda_legacy_rows.legacy_advance)
-    for c in ("launches", "part_launches", "rows") if hasattr(w, c)
-)
-
-
-def _read_counters() -> list[int]:
-    return [getattr(w, c) for w, c in _COUNTERS]
-
-
-def _set_counters(values: list[int]) -> None:
-    for (w, c), v in zip(_COUNTERS, values):
-        setattr(w, c, v)
-
-
-def launches() -> int:
-    """Every wrapper's ``launches`` summed (``part_launches`` are among them)."""
-    return sum(getattr(w, c) for w, c in _COUNTERS if c == "launches")
-
-
-def sweep_rows() -> int:
-    """The rows the sweep wrappers' launches covered (``ops.cuda.sweeps``), summed."""
-    return sum(getattr(w, c) for w, c in _COUNTERS if c == "rows")
+from tisph_tpu_torch.utils.profiling import count, launch_counters, set_launch_counters, span
 
 
 def _tensors(obj) -> dict[str, torch.Tensor]:
@@ -153,8 +115,8 @@ class GroupRunner:
         self._base: tuple | None = None  # the key without the group's part
         self._bufs: list[dict[str, torch.Tensor]] = []  # one per carry leaf, then emitter
         self._starts: dict[tuple[int, int], torch.Tensor] = {}  # (slot, emitter) start rows
-        # group key -> (graph, launches its capture counted); None without capture
-        self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, list[int]] | None] = {}
+        # group key -> (graph, the launch counters' rises in its capture); None without capture
+        self._graphs: dict[tuple, tuple[torch.cuda.CUDAGraph, dict[str, int]] | None] = {}
         self._pool = None
         self._part = ""  # the part of the group being captured, for errors
         self._bytes = (0, 0)  # the bytes copied in and cloned out by a rollout
@@ -239,14 +201,13 @@ class GroupRunner:
 
     def _settle(self, replays: dict[tuple, int]) -> None:
         """Add each key's replays times what its capture counted to the
-        wrappers' launch counters, once a rollout."""
+        launch counters, once a rollout."""
         self.replays += sum(replays.values())
         if not self.capture:
             return
-        total = [0] * len(_COUNTERS)
         for key, n in replays.items():
-            total = [t + n * c for t, c in zip(total, self._graphs[key][1])]
-        _set_counters([a + b for a, b in zip(_read_counters(), total)])
+            for name, c in self._graphs[key][1].items():
+                count(name, n * c)
 
     def _count(self, ems: list, n_active: int, capacity: int, slots: int,
                before: bool) -> tuple[tuple, int]:
@@ -316,11 +277,12 @@ class GroupRunner:
                     buf[name].copy_(t)
 
     def _capture(self, template: tuple, ems: list, k: int, substep: Callable,
-                 pattern: tuple | None) -> tuple[torch.cuda.CUDAGraph, list[int]]:
-        """Warm up, then capture one group of k substeps on the buffers."""
+                 pattern: tuple | None) -> tuple[torch.cuda.CUDAGraph, dict[str, int]]:
+        """Warm up, then capture one group of k substeps on the buffers;
+        the graph and the launch counters' rises in the capture."""
         with span("runner.capture", k=k, pattern=pattern):
             t0 = time.perf_counter()
-            before = _read_counters()
+            before = launch_counters()
             dev = self.solver.device
             held = self.solver._inplace()
             try:
@@ -338,7 +300,7 @@ class GroupRunner:
                 for t, v in zip(held, saved):
                     t.copy_(v)
                 del scratch, saved
-                _set_counters(before)
+                set_launch_counters(before)
                 graph = torch.cuda.CUDAGraph()
                 try:
                     with torch.cuda.graph(graph, pool=self._pool):
@@ -347,9 +309,10 @@ class GroupRunner:
                     raise RuntimeError(
                         f"{type(self.solver).__name__}: {self._part} broke the capture of a group "
                         f"of {k} substeps ({type(e).__name__}: {e})") from e
-                counted = [a - b for a, b in zip(_read_counters(), before)]
+                counted = {name: v - before.get(name, 0)
+                           for name, v in launch_counters().items() if v != before.get(name, 0)}
             finally:
-                _set_counters(before)  # neither the warm-up nor the capture launched
+                set_launch_counters(before)  # neither the warm-up nor the capture launched
             seconds = time.perf_counter() - t0
             self.captures += 1
             self.capture_seconds += seconds

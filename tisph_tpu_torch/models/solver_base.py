@@ -42,14 +42,14 @@ import torch
 
 from tisph_tpu_torch.config import SceneConfig, SolverParams
 from tisph_tpu_torch.geometry.emitter import EmitterState, activate, count_step, due_step
-from tisph_tpu_torch.models.graphs import GroupRunner, launches, sweep_rows
+from tisph_tpu_torch.models.graphs import GroupRunner
 from tisph_tpu_torch.models.state import SimState
 from tisph_tpu_torch.ops import grid as gridops
 from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
 from tisph_tpu_torch.ops.cuda import build as cuda_build
 from tisph_tpu_torch.ops.cuda import sweeps as cuda_sweeps
 from tisph_tpu_torch.ops.neighbors import pack4
-from tisph_tpu_torch.utils.profiling import count, span
+from tisph_tpu_torch.utils.profiling import count, launches, span, sweep_rows
 
 
 class SolverBase:
@@ -279,10 +279,11 @@ class SolverBase:
         are replays of the runner's graphs, which emit on the same schedule
         (``carry`` then is ``(state, emitters)``).  The call is one
         ``solver.rollout`` span (``utils.profiling``), whose ``replays``,
-        ``captures``, ``launches`` (the wrappers' launch counters' rise) and
-        ``sweep_rows`` (the rise of the sweeps' row tallies) are read at its
-        end while recording, with the ``fluid_rows`` and ``boundary_rows``
-        of the last bind; each eager group is a ``solver.group`` span."""
+        ``captures``, ``launches`` (the rise of the registry's launch
+        counters) and ``sweep_rows`` (the rise of its ``rows.*``) are read
+        at its end while recording, with the ``fluid_rows`` and
+        ``boundary_rows`` of the last bind; each eager group is a
+        ``solver.group`` span."""
         with span("solver.rollout", steps=num_steps, R=R) as sp:
             if sp is None:
                 return self._group_loop(carry, num_steps, R, substep, emit)

@@ -16,8 +16,9 @@ writes the bounds and every state field in sorted order.
   ``grid.csr_bounds`` (``torch.searchsorted``).
 
 A CPU tensor goes to the plain version, a CUDA tensor launches the kernel
-or raises.  ``sort_and_bound.launches`` counts the rebuild's launches and
-``csr_bounds_sorted.launches`` the bounds-only ones.
+or raises.  ``launches.sort_and_bound`` in ``utils.profiling``'s registry
+counts the rebuild's launches (``gather_and_bound``'s among them) and
+``launches.csr_bounds_sorted`` the bounds-only ones.
 """
 
 from __future__ import annotations
@@ -39,13 +40,18 @@ ITEMS_PER_CTA = 2048
 _MAX_FIELDS, _MAX_WIDTH = 9, 3  # the kernel's field table
 
 
-def _check_ids(name: str, sorted_ids: torch.Tensor, spec: GridSpec) -> None:
-    if sorted_ids.dtype != torch.int32 or sorted_ids.dim() != 1:
-        raise ValueError(f"{name}: need (N,) int32 ids, got "
-                         f"{tuple(sorted_ids.shape)} {sorted_ids.dtype}")
-    if not sorted_ids.is_contiguous() or sorted_ids.data_ptr() % 16:
+def _check_ids(name: str, sorted_ids: torch.Tensor, spec: GridSpec, perm=None) -> None:
+    """(N,) int32 ids and, where given, an (N,) int64 ``perm``
+    (``build.check_tensors``); the ids 16-byte aligned, ids plus cells in
+    int32."""
+    n = sorted_ids.shape[0] if sorted_ids.dim() else 0
+    tensors = {"ids": (sorted_ids, torch.int32, (n,))}
+    if perm is not None:
+        tensors["perm"] = (perm, torch.int64, (n,))
+    build.check_tensors(name, n, spec.dim, tensors)
+    if sorted_ids.data_ptr() % 16:
         raise ValueError(f"{name}: ids must be contiguous and 16-byte aligned")
-    if sorted_ids.shape[0] + spec.num_cells + 1 >= 2**31:
+    if n + spec.num_cells + 1 >= 2**31:
         raise ValueError(f"{name}: ids plus cells must fit in int32")
 
 
@@ -83,14 +89,10 @@ def _launch(name: str, sorted_ids, perm, spec: GridSpec, src=(), dst=()) -> torc
     out = torch.empty((spec.num_cells + 1,), dtype=torch.int32, device=sorted_ids.device)
     table = array.array("q", [t.data_ptr() for t in src] + [t.data_ptr() for t in dst]
                         + [_width(t) for t in src])
-    with torch.cuda.device(sorted_ids.device):
-        err = build.load().tisph_rebuild(
-            sorted_ids.data_ptr(), perm.data_ptr() if perm is not None else None,
-            sorted_ids.shape[0], spec.num_cells, out.data_ptr(), ITEMS_PER_CTA, len(src),
-            # the stream read at every call: the capture stream under torch.cuda.graph
-            table.buffer_info()[0], torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, name)
+    build.launch(name, "tisph_rebuild", sorted_ids.device,
+                 sorted_ids.data_ptr(), perm.data_ptr() if perm is not None else None,
+                 sorted_ids.shape[0], spec.num_cells, out.data_ptr(), ITEMS_PER_CTA, len(src),
+                 table.buffer_info()[0])
     return out
 
 
@@ -108,16 +110,14 @@ def gather_and_bound(state: SimState, sorted_ids: torch.Tensor, perm: torch.Tens
         return gridops.gather_state(state, perm), gridops.csr_bounds(sorted_ids, spec)
     if dev.type != "cuda":
         raise ValueError(f"sort_and_bound: unsupported device {dev}")
-    _check_ids("sort_and_bound", sorted_ids, spec)
+    _check_ids("sort_and_bound", sorted_ids, spec, perm)
     n = sorted_ids.shape[0]
-    if (n > state.capacity or perm.dtype != torch.int64 or tuple(perm.shape) != (n,)
-            or not perm.is_contiguous() or sorted_ids.device != dev or perm.device != dev):
+    if n > state.capacity or sorted_ids.device != dev:
         raise ValueError(f"sort_and_bound: need ({n},) int32 ids and int64 perm on {dev}, "
                          f"at most the state's {state.capacity} rows")
     src = [getattr(state, k) for k in names]
     dst = [t.new_empty((n,) + tuple(t.shape[1:])) for t in src]
     bounds = _launch("sort_and_bound", sorted_ids, perm, spec, src, dst)
-    sort_and_bound.launches += 1
     return dataclasses.replace(state, **dict(zip(names, dst))), bounds
 
 
@@ -140,9 +140,6 @@ def sort_and_bound(state: SimState, spec: GridSpec
     return st, sorted_ids, perm, bounds
 
 
-sort_and_bound.launches = 0
-
-
 def csr_bounds_sorted(sorted_ids: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     """bounds[c] = first sorted index with id >= c, for c in [0,
     num_cells]: (num_cells + 1,) int32.  ``sorted_ids``: (N,) int32,
@@ -152,9 +149,4 @@ def csr_bounds_sorted(sorted_ids: torch.Tensor, spec: GridSpec) -> torch.Tensor:
     if sorted_ids.device.type != "cuda":
         raise ValueError(f"csr_bounds_sorted: unsupported device {sorted_ids.device}")
     _check_ids("csr_bounds_sorted", sorted_ids, spec)
-    out = _launch("csr_bounds_sorted", sorted_ids, None, spec)
-    csr_bounds_sorted.launches += 1
-    return out
-
-
-csr_bounds_sorted.launches = 0
+    return _launch("csr_bounds_sorted", sorted_ids, None, spec)

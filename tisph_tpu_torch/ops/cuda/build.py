@@ -2,7 +2,10 @@
 plain C interface and loads it with ctypes: one ``nvcc -c`` per source,
 all started together, then one link.
 
-The one place that runs ``nvcc``.  The library lands in
+The one place that runs ``nvcc``, and the one launch path of the
+wrappers in ``ops/cuda``: :func:`launch` calls an entry point on the
+current stream, raises on a refused launch and counts it, and
+:func:`check_tensors` is their tensor check.  The library lands in
 ``build/tisph_tpu_torch/`` beside the package, named by a hash of the
 sources and flags, so a checkout builds once on first use and a changed
 source builds anew; delete that directory to force a rebuild.  A missing
@@ -22,6 +25,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 from tisph_tpu_torch.utils.profiling import count
 
@@ -116,8 +121,6 @@ def load() -> ctypes.CDLL:
     the build's seconds go to the counter ``build.s`` (0 when it found the
     library).  Never first called inside a CUDA graph capture (``models.graphs``
     warms a group up before its capture)."""
-    import torch
-
     if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
         raise RuntimeError("build.load: first call inside a CUDA graph capture (warm up first)")
     path, seconds = build()
@@ -137,3 +140,43 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = load().tisph_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} at launch ({msg})")
+
+
+def launch(name: str, entry: str, device: torch.device, *args, what: str | None = None,
+           **counts: int) -> None:
+    """One launch of the library's ``entry`` on ``device``: ``args``, then
+    the current stream, read at every call (the capture stream under
+    ``torch.cuda.graph``, so a capture records the launch).  A non-zero
+    return raises through :func:`check` as ``what`` (``name`` by default).
+    Counts ``launches.<name>`` in ``utils.profiling``'s registry, and each
+    of ``counts`` as ``<kind>.<name>`` (the sweeps' ``rows`` and
+    ``part_launches``)."""
+    with torch.cuda.device(device):
+        err = getattr(load(), entry)(*args, torch.cuda.current_stream().cuda_stream)
+    check(err, what or name)
+    count(f"launches.{name}")
+    for kind, n in counts.items():
+        count(f"{kind}.{name}", n)
+
+
+def check_tensors(name: str, n: int, dim: int, tensors: dict) -> None:
+    """``dim`` 2 or 3, ``n`` rows in int32, and every tensor of ``tensors``
+    ({key: (tensor, dtype, shape)}) on the first one's CUDA device, of its
+    dtype and shape, contiguous."""
+    if dim not in (2, 3):
+        raise ValueError(f"{name}: dim must be 2 or 3, got {dim}")
+    if n >= 2**31 - 1:
+        raise ValueError(f"{name}: {n} rows do not fit in int32")
+    dev = next(iter(tensors.values()))[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    for key, (t, dtype, shape) in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise ValueError(f"{name}: {key} must be a tensor, got {type(t).__name__}")
+        if t.device != dev:
+            raise ValueError(f"{name}: {key} on {t.device}, want {dev}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} must be {shape} {dtype}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")

@@ -5,7 +5,8 @@ No TPU kernel stands behind them (``tisph_tpu`` runs them as jnp sweeps,
 ``tisph_tpu/models/wcsph_legacy.py:50-93``).  The plain versions are the
 functions of the same names in ``ops.neighbors``, with the same signatures
 and packs: a CPU tensor goes there, a CUDA tensor launches the kernel or
-raises.  Each wrapper counts its launches in ``<wrapper>.launches``.
+raises.  Each launch counts as ``launches.<wrapper>`` in
+``utils.profiling``'s registry (``build.launch``).
 
 How many threads of the kernel share a row is a launch rule of the row
 count and the dim (``legacy_launch_shape``), decided on the host, so
@@ -52,11 +53,9 @@ def legacy_launch_shape(dim: int, n: int) -> tuple[int, int]:
 
 def _launch(mode: str, lanes: int, pos, vel, aux, ids, bounds, material, spec: GridSpec,
             params: SolverParams) -> torch.Tensor:
-    """One launch of ``mode`` at ``lanes`` threads a row, uncounted; on a
-    CUDA tensor only."""
+    """One launch of ``mode`` at ``lanes`` threads a row; on a CUDA tensor
+    only."""
     name = f"legacy_{mode}_sweep"
-    if ids.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {ids.device}")
     force = mode == "force"
     _check(name, spec, ids, bounds, material,
            {"pos": pos} | ({"vel": vel, "aux": aux} if force else {}))
@@ -64,17 +63,12 @@ def _launch(mode: str, lanes: int, pos, vel, aux, ids, bounds, material, spec: G
     k_sig = cubic_kernel_sigma(dim, h)
     m_v, mass = neighbors.legacy_masses(params)
     out = torch.empty((n, dim) if force else (n,), dtype=torch.float32, device=ids.device)
-    with torch.cuda.device(ids.device):
-        err = build.load().tisph_legacy_sweep(
-            _MODES[mode], dim, lanes, pos.data_ptr(), _ptr(vel), _ptr(aux), ids.data_ptr(),
-            bounds.data_ptr(), material.data_ptr(), out.data_ptr(), n, *_grid_args(spec),
-            h, h * h, k_sig, m_v, 2.0 * (dim + 2) * params.viscosity, mass, 0.01 * h * h,
-            params.density0 * m_v,
-            params.density0, -9.80,
-            # read at every call: the capture stream under torch.cuda.graph
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, f"{name} (lanes={lanes})")
+    build.launch(name, "tisph_legacy_sweep", ids.device,
+                 _MODES[mode], dim, lanes, pos.data_ptr(), _ptr(vel), _ptr(aux), ids.data_ptr(),
+                 bounds.data_ptr(), material.data_ptr(), out.data_ptr(), n, *_grid_args(spec),
+                 h, h * h, k_sig, m_v, 2.0 * (dim + 2) * params.viscosity, mass, 0.01 * h * h,
+                 params.density0 * m_v,
+                 params.density0, -9.80, what=f"{name} (lanes={lanes})")
     return out
 
 
@@ -85,9 +79,7 @@ def legacy_density_sweep(pos, ids, bounds, material, spec: GridSpec,
     if ids.device.type == "cpu":
         return neighbors.legacy_density_sweep(pos, ids, bounds, material, spec, params)
     lanes, _ = legacy_launch_shape(spec.dim, ids.shape[0])
-    out = _launch("density", lanes, pos, None, None, ids, bounds, material, spec, params)
-    legacy_density_sweep.launches += 1
-    return out
+    return _launch("density", lanes, pos, None, None, ids, bounds, material, spec, params)
 
 
 def legacy_force_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
@@ -97,10 +89,4 @@ def legacy_force_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
     if ids.device.type == "cpu":
         return neighbors.legacy_force_sweep(pos, vel, aux, ids, bounds, material, spec, params)
     lanes, _ = legacy_launch_shape(spec.dim, ids.shape[0])
-    out = _launch("force", lanes, pos, vel, aux, ids, bounds, material, spec, params)
-    legacy_force_sweep.launches += 1
-    return out
-
-
-legacy_density_sweep.launches = 0
-legacy_force_sweep.launches = 0
+    return _launch("force", lanes, pos, vel, aux, ids, bounds, material, spec, params)

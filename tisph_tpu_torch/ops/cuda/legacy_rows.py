@@ -13,9 +13,10 @@ plain versions are ``ops.neighbors.legacy_pos``,
 ``ops.forces.legacy_eos_pack_plain`` and ``legacy_advance_plain``, with
 the same signatures: a CPU tensor goes there, a CUDA tensor launches the
 kernel or raises.  On the card the outputs are bitwise the plain
-versions', NaN rows included.  Each wrapper counts its launches in
-``<wrapper>.launches``; it reads the current stream at every call, so a
-CUDA graph capture records the launch, and returns fresh tensors.
+versions', NaN rows included.  Each wrapper launches through
+``build.launch`` (the current stream, read at every call, and
+``launches.<wrapper>`` in ``utils.profiling``'s registry) and returns
+fresh tensors.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ from tisph_tpu_torch.config import SolverParams
 from tisph_tpu_torch.models.state import SimState
 from tisph_tpu_torch.ops import forces, neighbors
 from tisph_tpu_torch.ops.cuda import build
-from tisph_tpu_torch.ops.cuda.pointwise import _check
 from tisph_tpu_torch.ops.eos import integer_exponent
 
 
@@ -39,18 +39,12 @@ def legacy_pos_pack(state: SimState) -> torch.Tensor:
     if state.x.device.type == "cpu":
         return neighbors.legacy_pos(state)
     n, dim = state.x.shape
-    _check("legacy_pos_pack", n, dim, {
+    build.check_tensors("legacy_pos_pack", n, dim, {
         "x": (state.x, torch.float32, (n, dim)),
         "material": (state.material, torch.int32, (n,))})
     pos = torch.empty((n, 4), dtype=torch.float32, device=state.x.device)
-    with torch.cuda.device(pos.device):
-        err = build.load().tisph_legacy_pos_pack(
-            dim, n, state.x.data_ptr(), state.material.data_ptr(), pos.data_ptr(),
-            # read at every call: the capture stream under torch.cuda.graph
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "legacy_pos_pack")
-    legacy_pos_pack.launches += 1
+    build.launch("legacy_pos_pack", "tisph_legacy_pos_pack", pos.device,
+                 dim, n, state.x.data_ptr(), state.material.data_ptr(), pos.data_ptr())
     return pos
 
 
@@ -63,7 +57,7 @@ def legacy_eos_pack(acc: torch.Tensor, state: SimState,
         return forces.legacy_eos_pack_plain(acc, state, params)
     n, dim = state.v.shape
     f32 = torch.float32
-    _check("legacy_eos_pack", n, dim, {
+    build.check_tensors("legacy_eos_pack", n, dim, {
         "acc": (acc, f32, (n,)), "density": (state.density, f32, (n,)),
         "material": (state.material, torch.int32, (n,)), "volume": (state.volume, f32, (n,)),
         "v": (state.v, f32, (n, dim))})
@@ -72,16 +66,11 @@ def legacy_eos_pack(acc: torch.Tensor, state: SimState,
     pressure = torch.empty_like(acc)
     vel = torch.empty((n, 4), dtype=f32, device=acc.device)
     aux = torch.empty((n, 4), dtype=f32, device=acc.device)
-    with torch.cuda.device(acc.device):
-        err = build.load().tisph_legacy_eos_pack(
-            dim, n, acc.data_ptr(), state.density.data_ptr(), state.material.data_ptr(),
-            state.volume.data_ptr(), state.v.data_ptr(), rho.data_ptr(), pressure.data_ptr(),
-            vel.data_ptr(), aux.data_ptr(), float(rho0), float(np.float32(1.0) / rho0),
-            params.stiffness, params.exponent, integer_exponent(params.exponent),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "legacy_eos_pack")
-    legacy_eos_pack.launches += 1
+    build.launch("legacy_eos_pack", "tisph_legacy_eos_pack", acc.device,
+                 dim, n, acc.data_ptr(), state.density.data_ptr(), state.material.data_ptr(),
+                 state.volume.data_ptr(), state.v.data_ptr(), rho.data_ptr(), pressure.data_ptr(),
+                 vel.data_ptr(), aux.data_ptr(), float(rho0), float(np.float32(1.0) / rho0),
+                 params.stiffness, params.exponent, integer_exponent(params.exponent))
     return rho, pressure, vel, aux
 
 
@@ -94,25 +83,15 @@ def legacy_advance(state: SimState, rho: torch.Tensor, pressure: torch.Tensor,
         return forces.legacy_advance_plain(state, rho, pressure, dv, params)
     n, dim = state.x.shape
     f32 = torch.float32
-    _check("legacy_advance", n, dim, {
+    build.check_tensors("legacy_advance", n, dim, {
         "x": (state.x, f32, (n, dim)), "v": (state.v, f32, (n, dim)),
         "dv": (dv, f32, (n, dim)), "material": (state.material, torch.int32, (n,))})
     lo, hi = forces.box_bounds(params)
     lo, hi = lo + [0.0] * (3 - dim), hi + [0.0] * (3 - dim)
     x = torch.empty_like(state.x)
     v = torch.empty_like(state.v)
-    with torch.cuda.device(dv.device):
-        err = build.load().tisph_legacy_advance(
-            dim, n, state.x.data_ptr(), state.v.data_ptr(), dv.data_ptr(),
-            state.material.data_ptr(), x.data_ptr(), v.data_ptr(), params.dt, *lo, *hi,
-            1.0 + params.collision_factor, int(not params.reference_exact),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, "legacy_advance")
-    legacy_advance.launches += 1
+    build.launch("legacy_advance", "tisph_legacy_advance", dv.device,
+                 dim, n, state.x.data_ptr(), state.v.data_ptr(), dv.data_ptr(),
+                 state.material.data_ptr(), x.data_ptr(), v.data_ptr(), params.dt, *lo, *hi,
+                 1.0 + params.collision_factor, int(not params.reference_exact))
     return dataclasses.replace(state, x=x, v=v, density=rho, pressure=pressure)
-
-
-legacy_pos_pack.launches = 0
-legacy_eos_pack.launches = 0
-legacy_advance.launches = 0

@@ -14,11 +14,12 @@
 
 The plain versions are the functions of the same names in
 ``ops.neighbors``, with the same signatures and pack layouts: a CPU tensor
-goes there, a CUDA tensor launches the kernel or raises.  Each wrapper
-counts its launches in ``<wrapper>.launches``, of those the ones over
-part of the arrays in ``<wrapper>.part_launches`` (an i-row map for
-``csrc/sweeps.cu``, a row range for ``csrc/sweeps_linear.cu``), and the
-rows its launches swept in ``<wrapper>.rows``.
+goes there, a CUDA tensor launches the kernel or raises.  Each launch
+counts in ``utils.profiling``'s registry (``build.launch``):
+``launches.<wrapper>``, of those the ones over part of the arrays in
+``part_launches.<wrapper>`` (an i-row map for ``csrc/sweeps.cu``, a row
+range for ``csrc/sweeps_linear.cu``), and the rows it swept in
+``rows.<wrapper>``.
 
 Every wrapper of ``csrc/sweeps.cu`` takes ``rows``: None sweeps every
 row, the launch it always was; ``(row0, n)`` sweeps rows [row0, row0 + n)
@@ -57,26 +58,16 @@ _GRAD = ("force", "force_react", "reaction")  # read vel and aux, write (N, dim)
 
 
 def _check(name: str, spec: GridSpec, ids, bounds, material, packs) -> None:
-    dev = ids.device
+    """A sweep's tensors (``build.check_tensors``), ids first: on their CUDA
+    device, the grid's cells in int32, and ``packs`` {key: (N, 4) f32}."""
     n = ids.shape[0]
-    if n >= 2**31 - 1 or spec.num_cells >= 2**31 - 1:
+    if spec.num_cells >= 2**31 - 1:
         raise ValueError(f"{name}: sizes must fit in int32")
-    wants = [("ids", ids, torch.int32, (n,)),
-             ("bounds", bounds, torch.int32, (spec.num_cells + 1,)),
-             ("material", material, torch.int32, (n,))]
-    wants += [(k, t, torch.float32, (n, 4)) for k, t in packs.items()]
-    for key, t, dtype, shape in wants:
-        if not isinstance(t, torch.Tensor):
-            raise ValueError(f"{name}: {key} must be a tensor, got {type(t).__name__}")
-        if t.device != dev:
-            raise ValueError(f"{name}: {key} on {t.device}, ids on {dev}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name}: {key} must be {shape} {dtype}, "
-                             f"got {tuple(t.shape)} {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-    if spec.dim not in (2, 3):
-        raise ValueError(f"{name}: dim must be 2 or 3, got {spec.dim}")
+    build.check_tensors(name, n, spec.dim, {
+        "ids": (ids, torch.int32, (n,)),
+        "bounds": (bounds, torch.int32, (spec.num_cells + 1,)),
+        "material": (material, torch.int32, (n,)),
+        **{k: (t, torch.float32, (n, 4)) for k, t in packs.items()}})
 
 
 def _grid_args(spec: GridSpec) -> tuple[int, ...]:
@@ -129,19 +120,9 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
-def _count(wrapper, part: bool, n: int) -> None:
-    """One launch of ``wrapper``'s kernel over ``n`` rows, over part of the
-    arrays or not."""
-    wrapper.launches += 1
-    wrapper.part_launches += int(part)
-    wrapper.rows += n
-
-
 def _launch(mode: str, pos, vel, aux, ids, bounds, material,
             spec: GridSpec, params: SolverParams, fast_math: bool, rows) -> torch.Tensor:
     name = f"{mode}_sweep"
-    if ids.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {ids.device}")
     packs = {"pos": pos} | ({"vel": vel, "aux": aux} if mode in _GRAD else {})
     _check(name, spec, ids, bounds, material, packs)
     irows = None
@@ -153,24 +134,18 @@ def _launch(mode: str, pos, vel, aux, ids, bounds, material,
     dim = spec.dim
     out = torch.empty((n, dim) if mode in _GRAD else (n,),
                       dtype=torch.float32, device=ids.device)
-    with torch.cuda.device(ids.device):
-        err = build.load().tisph_sweep(
-            _MODES[mode], dim, int(fast_math), launch_shape(mode, n)[0], pos.data_ptr(),
-            _ptr(vel), _ptr(aux), ids.data_ptr(), bounds.data_ptr(), material.data_ptr(),
-            _ptr(irows), out.data_ptr(), row0, n, ids.shape[0],
-            *_grid_args(spec), *_phys_args(mode in _GRAD, spec, params),
-            # read at every call: the capture stream under torch.cuda.graph
-            torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, name)
+    build.launch(name, "tisph_sweep", ids.device,
+                 _MODES[mode], dim, int(fast_math), launch_shape(mode, n)[0], pos.data_ptr(),
+                 _ptr(vel), _ptr(aux), ids.data_ptr(), bounds.data_ptr(), material.data_ptr(),
+                 _ptr(irows), out.data_ptr(), row0, n, ids.shape[0],
+                 *_grid_args(spec), *_phys_args(mode in _GRAD, spec, params),
+                 part_launches=int(irows is not None), rows=n)
     return out
 
 
 def _launch_linear(mode: str, pos, vel, aux, ids, bounds, material, spec: GridSpec,
                    params: SolverParams, fast_math: bool, windows, rows) -> torch.Tensor:
     name = f"{mode}_sweep_linear"
-    if ids.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {ids.device}")
     grad = mode == "force"
     _check(name, spec, ids, bounds, material,
            {"pos": pos} | ({"vel": vel, "aux": aux} if grad else {}))
@@ -188,15 +163,12 @@ def _launch_linear(mode: str, pos, vel, aux, ids, bounds, material, spec: GridSp
             raise ValueError(f"{name}: windows must be a contiguous {shape} int32 tensor "
                              f"on {ids.device}")
     out = torch.empty((n, dim) if grad else (n,), dtype=torch.float32, device=ids.device)
-    with torch.cuda.device(ids.device):
-        err = build.load().tisph_linear_sweep(
-            _LINEAR_MODES[mode], dim, int(fast_math), pos.data_ptr(), _ptr(vel), _ptr(aux),
-            ids.data_ptr(), bounds.data_ptr(), material.data_ptr(), out.data_ptr(),
-            _ptr(windows), row0, n, *_grid_args(spec), spec.num_cells,
-            # the stream read at every call: the capture stream under torch.cuda.graph
-            *_phys_args(grad, spec, params), torch.cuda.current_stream().cuda_stream,
-        )
-    build.check(err, name)
+    build.launch(name, "tisph_linear_sweep", ids.device,
+                 _LINEAR_MODES[mode], dim, int(fast_math), pos.data_ptr(), _ptr(vel), _ptr(aux),
+                 ids.data_ptr(), bounds.data_ptr(), material.data_ptr(), out.data_ptr(),
+                 _ptr(windows), row0, n, *_grid_args(spec), spec.num_cells,
+                 *_phys_args(grad, spec, params),
+                 part_launches=int(rows is not None), rows=n)
     return out
 
 
@@ -208,10 +180,8 @@ def density_sweep(pos, ids, bounds, material, spec: GridSpec,
     if ids.device.type == "cpu":
         return neighbors.density_sweep(pos, ids, bounds, material, spec, params, fast_math,
                                        rows)
-    out = _launch("density", pos, None, None, ids, bounds, material, spec, params, fast_math,
-                  rows)
-    _count(density_sweep, isinstance(rows, torch.Tensor), out.shape[0])
-    return out
+    return _launch("density", pos, None, None, ids, bounds, material, spec, params, fast_math,
+                   rows)
 
 
 def bvol_sweep(pos, ids, bounds, material, spec: GridSpec,
@@ -220,10 +190,8 @@ def bvol_sweep(pos, ids, bounds, material, spec: GridSpec,
     (``neighbors.bvol_sweep``)."""
     if ids.device.type == "cpu":
         return neighbors.bvol_sweep(pos, ids, bounds, material, spec, params, fast_math, rows)
-    out = _launch("bvol", pos, None, None, ids, bounds, material, spec, params, fast_math,
-                  rows)
-    _count(bvol_sweep, isinstance(rows, torch.Tensor), out.shape[0])
-    return out
+    return _launch("bvol", pos, None, None, ids, bounds, material, spec, params, fast_math,
+                   rows)
 
 
 def force_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
@@ -233,10 +201,8 @@ def force_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
     if ids.device.type == "cpu":
         return neighbors.force_sweep(pos, vel, aux, ids, bounds, material, spec,
                                      params, fast_math, rows)
-    out = _launch("force", pos, vel, aux, ids, bounds, material, spec, params, fast_math,
-                  rows)
-    _count(force_sweep, isinstance(rows, torch.Tensor), out.shape[0])
-    return out
+    return _launch("force", pos, vel, aux, ids, bounds, material, spec, params, fast_math,
+                   rows)
 
 
 def force_react_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
@@ -246,10 +212,8 @@ def force_react_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
     if ids.device.type == "cpu":
         return neighbors.force_react_sweep(pos, vel, aux, ids, bounds, material, spec,
                                            params, fast_math, rows)
-    out = _launch("force_react", pos, vel, aux, ids, bounds, material, spec, params,
-                  fast_math, rows)
-    _count(force_react_sweep, isinstance(rows, torch.Tensor), out.shape[0])
-    return out
+    return _launch("force_react", pos, vel, aux, ids, bounds, material, spec, params,
+                   fast_math, rows)
 
 
 def reaction_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
@@ -259,10 +223,8 @@ def reaction_sweep(pos, vel, aux, ids, bounds, material, spec: GridSpec,
     if ids.device.type == "cpu":
         return neighbors.reaction_sweep(pos, vel, aux, ids, bounds, material, spec,
                                         params, fast_math, rows)
-    out = _launch("reaction", pos, vel, aux, ids, bounds, material, spec, params, fast_math,
-                  rows)
-    _count(reaction_sweep, isinstance(rows, torch.Tensor), out.shape[0])
-    return out
+    return _launch("reaction", pos, vel, aux, ids, bounds, material, spec, params, fast_math,
+                   rows)
 
 
 def density_sweep_linear(pos, ids, bounds, material, spec: GridSpec, params: SolverParams,
@@ -278,10 +240,8 @@ def density_sweep_linear(pos, ids, bounds, material, spec: GridSpec, params: Sol
             raise ValueError("density_sweep_linear: windows are written by the kernel only")
         return neighbors.density_sweep_linear(pos, ids, bounds, material, spec, params,
                                               fast_math, rows)
-    out = _launch_linear("density", pos, None, None, ids, bounds, material, spec, params,
-                         fast_math, windows, rows)
-    _count(density_sweep_linear, rows is not None, out.shape[0])
-    return out
+    return _launch_linear("density", pos, None, None, ids, bounds, material, spec, params,
+                           fast_math, windows, rows)
 
 
 def force_sweep_linear(pos, vel, aux, ids, bounds, material, spec: GridSpec,
@@ -295,15 +255,6 @@ def force_sweep_linear(pos, vel, aux, ids, bounds, material, spec: GridSpec,
             raise ValueError("force_sweep_linear: windows are written by the kernel only")
         return neighbors.force_sweep_linear(pos, vel, aux, ids, bounds, material, spec,
                                             params, fast_math, rows)
-    out = _launch_linear("force", pos, vel, aux, ids, bounds, material, spec, params,
-                         fast_math, windows, rows)
-    _count(force_sweep_linear, rows is not None, out.shape[0])
-    return out
+    return _launch_linear("force", pos, vel, aux, ids, bounds, material, spec, params,
+                           fast_math, windows, rows)
 
-
-for _w in (density_sweep, bvol_sweep, force_sweep, force_react_sweep, reaction_sweep,
-           density_sweep_linear, force_sweep_linear):
-    _w.launches = 0
-    _w.part_launches = 0
-    _w.rows = 0
-del _w

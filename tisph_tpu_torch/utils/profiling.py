@@ -13,7 +13,8 @@ and the port's own tracer.
   the health read), recorded in memory while :func:`recording` is on or
   a ``torch.profiler`` session records, and read back by
   :func:`recorded`; :func:`count` and :func:`counters`, a process-wide
-  registry of counters at build, capture and call granularity.
+  registry of counters at build, capture and call granularity, and of the
+  kernel wrappers' launch counters (:func:`launch_counters`).
 
 A span is stamped with ``time.time_ns()``, the Unix-epoch clock on which
 ``torch.profiler`` stamps its events (``start_ns``; a Chrome trace's
@@ -232,7 +233,7 @@ def recorded() -> list[Span]:
 
 def count(name: str, n: float = 1) -> None:
     """Add ``n`` to the process-wide counter ``name`` (always on: keep
-    it to build, capture and call granularity, never per replay)."""
+    it to launch, build, capture and call granularity, never per replay)."""
     _counters[name] = _counters.get(name, 0) + n
 
 
@@ -240,8 +241,40 @@ def counters() -> dict[str, float]:
     """The process-wide counters: ``graphs.captures`` and
     ``graphs.capture_s`` (the graph runner's warm-ups and captures),
     ``build.s`` (seconds the kernel build compiled, 0 when it found the
-    library)."""
+    library), ``bind.calls``, ``bind.s`` and ``bind.boundary_rows``
+    (``SolverBase.bind``), and the launch counters: ``launches.<wrapper>``
+    for every kernel launch, and on the sweep wrappers
+    ``part_launches.<wrapper>`` (the launches over part of the arrays) and
+    ``rows.<wrapper>`` (the rows the launches swept).  Each launch counts
+    in Python (``ops.cuda.build.launch``); a graph replay makes no Python
+    call, so the graph runner takes back what a warm-up and a capture
+    counted and adds replays times captured counts once a rollout."""
     return dict(_counters)
+
+
+_LAUNCH_KINDS = ("launches.", "part_launches.", "rows.")  # the launch counters' prefixes
+
+
+def launch_counters() -> dict[str, float]:
+    """The launch counters (see :func:`counters`), by name."""
+    return {k: v for k, v in _counters.items() if k.startswith(_LAUNCH_KINDS)}
+
+
+def set_launch_counters(values: dict[str, float]) -> None:
+    """Set every launch counter to its value in ``values``, 0 where it has
+    none; the other counters stay as they are."""
+    for k in launch_counters():
+        _counters[k] = values.get(k, 0)
+
+
+def launches() -> int:
+    """Every launch counted (the part launches are among them)."""
+    return sum(v for k, v in _counters.items() if k.startswith("launches."))
+
+
+def sweep_rows() -> int:
+    """The rows the sweep wrappers' launches covered, summed."""
+    return sum(v for k, v in _counters.items() if k.startswith("rows."))
 
 
 # the host track the program's spans take in a Chrome trace
