@@ -9,9 +9,9 @@ Phases, each of which raises on failure (nothing is caught):
    limit, and whether torch.cuda.CUDAGraph has begin_capture_to_if_node
    (a conditional graph node, which the slab's seam guard would need to
    run one resort branch on the graph path);
-2. build: compiles tisph_tpu_torch/csrc/*.cu (bounds.cu, sweeps.cu,
-   sweeps_linear.cu, legacy.cu, pointwise.cu, legacy_rows.cu) with nvcc
-   for sm_90a;
+2. build: compiles tisph_tpu_torch/csrc/*.cu (bounds.cu, cell_sort.cu,
+   sweeps.cu, sweeps_linear.cu, legacy.cu, pointwise.cu, legacy_rows.cu)
+   with nvcc for sm_90a;
 3. the rebuild kernel (csrc/bounds.cu through ops.cuda.bounds.sort_and_bound:
    after the cell sort, every state field in sorted order and the CSR
    bounds in one launch) vs its plain version (grid.sort_state_by_cell
@@ -22,7 +22,10 @@ Phases, each of which raises on failure (nothing is caught):
    a cell of 10,000 particles (more ids than a bounds CTA holds); the same
    on phase 5's evolved state and on phase 7's and phase 10's; and the
    bounds-only launch (csr_bounds_sorted) vs torch.searchsorted on
-   demo_3d's sorted ids, an all-sentinel and a one-particle case;
+   demo_3d's sorted ids, an all-sentinel and a one-particle case.  Each
+   rebuild launches the rebuild kernel once and, on a state of at most
+   ops.cuda.bounds.SMALL_SORT_ROWS rows (the 2D golden scene, one
+   particle), the front kernel (csrc/cell_sort.cu) once, else not at all;
 4. sweep kernel vs its plain version (ops.neighbors), modes density, force
    and bvol, on the 3D golden scene (boundary particles) and on demo_3d:
    - fast_math off: density and bvol rtol 2e-5, force / max|force| atol
@@ -273,6 +276,26 @@ Phases, each of which raises on failure (nothing is caught):
    plain sequences' on the same inputs, and their bytes bounds.  Every
    legacy path of phases 13 and 21 counts one launch of each a step (one
    a legacy density sweep), on the graph path and the eager loop alike.
+28. the rebuild's front on small states (csrc/cell_sort.cu through
+   ops.cuda.bounds.cell_sort: the cell ids and their stable sort in one
+   launch on one CTA) against the torch sequence it replaces
+   (ops.grid.cell_sort: the ids, then torch.sort(stable=True)): sorted ids
+   and permutation bitwise equal, and check_rebuild (every field, the
+   bounds) with launches.cell_sort risen by exactly one, on demo_2d's start
+   and after 500 legacy steps (one front launch a step of the graph
+   path), the 2D band (demo_2d's block twice as long, 12,600 rows, after
+   500 legacy steps on the graph path: no front launch) and its first
+   SMALL_SORT_ROWS rows, demo_2d with 2,000 inactive rows (8,304), all
+   rows in one cell, rows in reverse cell order, every coordinate on a
+   cell edge or one float step from it, rows with NaN, infinite and
+   far-out coordinates, and the 3D golden start; at SMALL_SORT_ROWS + 1
+   rows and on the band the torch sequence runs and launches.cell_sort
+   does not rise.  Its CUDA-event times against the torch sequence and
+   torch.sort alone on demo_2d after 500 steps and the band's first
+   SMALL_SORT_ROWS rows, and its bytes bound.  Phases 13 and 21 count one
+   front launch a step of their demo_2d runs (and of the 3D golden
+   per-step run, 4,496 rows), and phase 22 one a rebuild of the buoyancy
+   scene's global sort; every other phase counts none.
 
 The solvers of phases 5-13, 16, 17, 18, 20, 21, 22's WCSPHRigid and 23-25
 run the graph path (the default of a CUDA WCSPH, WCSPHRigid and
@@ -304,7 +327,8 @@ and force_react, 9, 19, 23 and 25 for kernel C, 13 (demo_2d, the
 per-step golden scene, demo_3d and bench_3d_1m) and 21 for the legacy
 kernel's two modes (graph replays: a rebuild, a density and a force
 launch a step), for eos_pack and advance every phase of A's density and
-of C's, and for the legacy row ops those of the legacy kernel.  A's
+of C's, for the legacy row ops those of the legacy kernel, and for the
+front (cell_sort) those of phases 13, 21 and 22.  A's
 max_abs_err folds in its checks over a row range (phase 14), with an
 i-row map (17) and, for density and force, on demo_3d after 10,000 steps
 (20); C's over a row range (19); the legacy kernel's its checks on four
@@ -967,20 +991,31 @@ def check_rebuild(label: str, state, spec, min_largest: int = 0) -> float:
     """The rebuild kernel (sort_and_bound) against its plain version
     (sort_state_by_cell, csr_bounds) on ``state``: every field, the sorted
     ids, the permutation and the bounds must be equal bit for bit, and the
-    largest cell must hold at least ``min_largest`` ids.  Returns the max
-    abs difference (0.0)."""
+    largest cell must hold at least ``min_largest`` ids.  The rebuild
+    launches the rebuild kernel once and the front kernel (cell_sort) once
+    where the rule takes it (at most ``SMALL_SORT_ROWS`` rows), else not;
+    there the front alone is checked too.  Returns the max abs difference
+    (0.0)."""
     from tisph_tpu_torch.ops import grid as gridops
     from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
     from tisph_tpu_torch.utils import profiling
 
-    before = profiling.counters().get("launches.sort_and_bound", 0)
+    names = ("sort_and_bound", "cell_sort")
+    before = profiling.counters()
     st, ids, perm, bounds = cuda_bounds.sort_and_bound(state, spec)
+    after = profiling.counters()
     p_st, p_ids, p_perm = gridops.sort_state_by_cell(state, spec)
     p_bounds = gridops.csr_bounds(p_ids, spec)
     torch.cuda.synchronize()
-    if profiling.counters()["launches.sort_and_bound"] != before + 1:
-        raise AssertionError(f"rebuild {label}: the kernel did not launch once")
+    small = state.capacity <= cuda_bounds.SMALL_SORT_ROWS
+    counted = {k: after.get(f"launches.{k}", 0) - before.get(f"launches.{k}", 0) for k in names}
+    if counted != {"sort_and_bound": 1, "cell_sort": int(small)}:
+        raise AssertionError(f"rebuild {label}: launches {counted}, the front's rule "
+                             f"takes cell_sort: {small}")
     pairs = [("ids", ids, p_ids), ("perm", perm, p_perm), ("bounds", bounds, p_bounds)]
+    if small:
+        f_ids, f_perm = cuda_bounds.cell_sort(state.x, state.material, spec)
+        pairs += [("cell_sort ids", f_ids, p_ids), ("cell_sort perm", f_perm, p_perm)]
     pairs += [(k, getattr(st, k), getattr(p_st, k)) for k in gridops.state_fields(st)]
     err = 0.0
     for name, got, want in pairs:
@@ -996,7 +1031,7 @@ def check_rebuild(label: str, state, spec, min_largest: int = 0) -> float:
     print(f"  rebuild {label}: {n} rows ({active} active, {n - active} "
           f"inactive), {words} words a row, {nc + 1} cells, largest cell {largest} ids "
           f"(a bounds CTA holds {cuda_bounds.ITEMS_PER_CTA}): every field, ids, perm and "
-          "bounds bitwise equal")
+          f"bounds bitwise equal; launches {counted}")
     if largest < min_largest:
         raise AssertionError(f"rebuild {label}: largest cell {largest} < {min_largest} ids")
     return err
@@ -1799,14 +1834,16 @@ def cadence_and_compat(kernels, card_line: str):
               f"= {row['rmse_over_h']:.4f} h (README: {want:.2f} h)")
     got = launched(kernels)
     # each tool runs its two modes; the legacy solver rebuilds every step and
-    # sweeps through csrc/legacy.cu, replaying one graph a step
+    # sweeps through csrc/legacy.cu, replaying one graph a step; demo_2d's
+    # rebuilds (6,304 rows) take the front kernel, demo_3d's do not
     resort = sum(groups_of(RESORT_STEPS, RESORT_CHUNK, 1) + groups_of(RESORT_STEPS, RESORT_CHUNK, R)
                  for R in (2, 3))
     wc, lg = 2 * COMPAT_STEPS["wcsph"], 2 * COMPAT_STEPS["legacy"]
     want = {k: 0 for k in kernels} | {"rebuild": resort + wc + lg,
                                       "sweep.density": 4 * RESORT_STEPS + wc,
                                       "sweep.force": 4 * RESORT_STEPS + wc,
-                                      "legacy_density": lg, "legacy_force": lg}
+                                      "legacy_density": lg, "legacy_force": lg,
+                                      "cell_sort": wc + lg}
     want = with_row_ops(want)
     print(f"  launches: {got}")
     if got != want:
@@ -1821,6 +1858,7 @@ def coupled_long_runs(tt, kernels, r_scene, card_line: str):
     returns the launch counts."""
     from tisph_tpu_torch.models.state import SimState
     from tisph_tpu_torch.ops import grid as gridops
+    from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
     from tisph_tpu_torch.parallel import ShardedWCSPH, make_mesh
 
     total = {k: 0 for k in kernels}
@@ -1838,11 +1876,15 @@ def coupled_long_runs(tt, kernels, r_scene, card_line: str):
             got = launched(kernels)
             groups = groups_of(BUOYANCY_STEPS, 400, sh.resort_every)
             # rebuild: d per exchange group, 1 per fallback to the global sort
+            # (every group on one shard), whose front is cell_sort on a small
+            # scene
             fb = (groups * d - got["rebuild"]) // (d - 1) if d > 1 else 0
+            small = sh.shard_rows * d <= cuda_bounds.SMALL_SORT_ROWS
             want = {k: 0 for k in kernels} | {
                 "rebuild": (groups - fb) * d + fb, "csr_bounds": groups * d,
                 "sweep.bvol": BUOYANCY_STEPS * d, "sweep.density": BUOYANCY_STEPS * d,
-                "sweep.force_react": BUOYANCY_STEPS * d}
+                "sweep.force_react": BUOYANCY_STEPS * d,
+                "cell_sort": (fb if d > 1 else groups) if small else 0}
             want = with_row_ops(want)
             m = sh.metrics(shards)
             n = sum(st.num_active for st in shards)
@@ -2041,7 +2083,7 @@ def legacy_path(tt, kernels, card_line: str):
         raise AssertionError(f"legacy: graphs {g.graphs} / {e.graphs}, want True / False")
     sg, se = g.bind(starts[DEVICE]), e.bind(starts[DEVICE])
     each = {"rebuild": LEGACY_STEPS, "legacy_density": LEGACY_STEPS,
-            "legacy_force": LEGACY_STEPS}
+            "legacy_force": LEGACY_STEPS, "cell_sort": LEGACY_STEPS}
     got, want, total = graph_against_eager(
         kernels, f"legacy demo_2d, {LEGACY_STEPS} steps", lambda: g.rollout(sg, LEGACY_STEPS),
         lambda: e.rollout(se, LEGACY_STEPS), each)
@@ -2104,7 +2146,8 @@ def legacy_path(tt, kernels, card_line: str):
     p_got, p_want, counted = graph_against_eager(
         kernels, f"legacy golden_3d per_step, {LEGACY_PER_STEP} steps",
         lambda: pg.rollout(p_start, LEGACY_PER_STEP), lambda: pe.rollout(p_start, LEGACY_PER_STEP),
-        {k: LEGACY_PER_STEP for k in ("rebuild", "sweep.bvol", "legacy_density", "legacy_force")})
+        {k: LEGACY_PER_STEP for k in ("rebuild", "sweep.bvol", "legacy_density", "legacy_force",
+                                      "cell_sort")})
     same_bits("legacy golden_3d per_step", p_got, p_want)
     total = {k: total[k] + counted[k] for k in kernels}
     print(f"  legacy golden_3d per_step: graphs=True bitwise equal to graphs=False in every "
@@ -2443,6 +2486,105 @@ def legacy_row_ops_phase(tt, card_line: str):
         if label.startswith("demo_2d"):  # the JSON's entries: the demo_2d_v1 cells' state
             times, bound = row_times, row_bound
     return err, times, bound
+
+
+def scaled_demo_2d(tt, along_x: int):
+    """demo_2d with its fluid blocks ``along_x`` times as long along x."""
+    with open(DEMO_2D) as f:
+        raw = json.load(f)
+    for block in raw["fluidBlocks"]:
+        block["end"][0] = block["start"][0] + (block["end"][0] - block["start"][0]) * along_x
+    return tt.scene_from_dict(raw)
+
+
+def head_rows(tt, state, n: int):
+    """The first ``n`` rows of ``state`` (a sorted state's are all live)."""
+    from tisph_tpu_torch.ops import grid as gridops
+
+    return tt.SimState(**{k: getattr(state, k)[:n].clone() for k in gridops.state_fields(state)},
+                       num_active=min(int(state.num_active), n))
+
+
+def front_phase(tt, card_line: str):
+    """Phase 28: the front kernel (cell_sort) on small states (see the
+    module's docstring).  Returns its max abs error (0.0: bitwise), its
+    times (kernel, torch sequence), bound and library time (torch.sort of
+    the ids alone) on demo_2d after LEGACY_STEPS legacy steps."""
+    from tisph_tpu_torch.ops import grid as gridops
+    from tisph_tpu_torch.ops.cuda import bounds as cuda_bounds
+
+    small = cuda_bounds.SMALL_SORT_ROWS
+    states = {}
+    for along_x in (1, 2):
+        solver = tt.WCSPHLegacy(scaled_demo_2d(tt, along_x), device=DEVICE)
+        start = solver.bind(tt.build_state(solver.scene, device=DEVICE))
+        reset_counts()
+        end = solver.rollout(start, LEGACY_STEPS)
+        torch.cuda.synchronize()
+        fronts, m = rise("launches.cell_sort"), solver.metrics(end)
+        want = LEGACY_STEPS if end.capacity <= small else 0
+        print(f"  legacy demo_2d*{along_x}: {end.capacity} rows, {LEGACY_STEPS} steps on the "
+              f"graph path: {fronts} front launches (want {want}); metrics {m}")
+        if fronts != want or m["nan_count"] != 0:
+            raise AssertionError(f"legacy demo_2d*{along_x}: {fronts} front launches, "
+                                 f"want {want}; metrics {m}")
+        spec = solver.spec
+        if along_x == 1:
+            l2_scene = solver.scene
+            states |= {"demo_2d+0": (start, spec), f"demo_2d+{LEGACY_STEPS}": (end, spec)}
+        else:
+            states[f"demo_2d*2+{LEGACY_STEPS}"] = (end, spec)
+            for n in (small, small + 1):
+                states[f"demo_2d*2+{LEGACY_STEPS}[:{n}]"] = (head_rows(tt, end, n), spec)
+    base, spec = states[f"demo_2d+{LEGACY_STEPS}"]
+    lo = torch.tensor(spec.domain_start, device=DEVICE)
+    h = spec.cell_size
+    res = torch.tensor(spec.res, device=DEVICE)
+    gen = torch.Generator(device="cpu").manual_seed(28)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen).to(DEVICE)
+
+    def moved(x):
+        return dataclasses.replace(base, x=x.contiguous())
+
+    states["demo_2d+2000 inactive"] = (
+        tt.build_state(l2_scene, device=DEVICE, extra_capacity=2000), spec)
+    middle = lo + (res // 2 + 0.5) * h
+    states["one cell"] = (moved(middle + (uniform(*base.x.shape) - 0.5) * (0.6 * h)), spec)
+    _, _, perm = gridops.sort_state_by_cell(base, spec)
+    states["reverse cell order"] = (gridops.gather_state(base, perm.flip(0)), spec)
+    k = lo + torch.floor(uniform(*base.x.shape) * (res + 1)) * h
+    side = torch.floor(uniform(*base.x.shape) * 3) - 1  # -1, 0, +1: a float step down, none, up
+    edges = torch.where(side < 0, torch.nextafter(k, k - 1),
+                        torch.where(side > 0, torch.nextafter(k, k + 1), k))
+    states["cell edges"] = (moved(edges), spec)
+    odd = base.x.clone()
+    for i, (col, v) in enumerate(((0, math.nan), (1, math.inf), (0, -math.inf), (1, 1e30),
+                                  (0, -1e30))):
+        odd[i::7, col] = v
+    states["nan, inf, far"] = (moved(odd), spec)
+    g3 = tt.scene_from_dict(GOLDEN["3d_dam_break"][0])
+    states["golden_3d+0"] = (tt.build_state(g3, device=DEVICE), tt.WCSPHLegacy(g3).spec)
+    err = 0.0
+    for label, (st, sp) in states.items():
+        err = max(err, check_rebuild(label, st, sp))
+    timed = {}
+    for label in (f"demo_2d+{LEGACY_STEPS}", f"demo_2d*2+{LEGACY_STEPS}[:{small}]"):
+        st, sp = states[label]
+        ids = gridops.flat_cell_ids(gridops.cell_coords(st.x, sp), st.material, sp)
+        t = time_against_plain({"cell_sort": (
+            lambda: cuda_bounds.cell_sort(st.x, st.material, sp),
+            lambda: gridops.cell_sort(st.x, st.material, sp), 200, 200)})["cell_sort"]
+        sort_ms = cuda_ms(lambda: torch.sort(ids, stable=True), 200)
+        n, dim = st.capacity, sp.dim
+        bound = n * (4 * dim + 4 + 4 + 8) / HBM_BYTES_PER_S * 1e3
+        print(f"  front {label}: {n} rows, kernel {t[0]:.4f} ms, torch sequence {t[1]:.4f} ms, "
+              f"torch.sort alone {sort_ms:.4f} ms, bound {bound:.6f} ms (bytes: x, material, "
+              f"the ids and perm once); on {card_line}")
+        timed[label] = (t, bound, sort_ms)
+    (ms, plain_ms), bound, sort_ms = timed[f"demo_2d+{LEGACY_STEPS}"]
+    return err, {"cell_sort": (ms, plain_ms)}, {"cell_sort": (bound, "bytes")}, sort_ms
 
 
 def graph_pair(tt, path: str, layout: str, R: int):
@@ -3112,6 +3254,7 @@ def main() -> int:
         "legacy_pos_pack": "legacy_pos_pack",
         "legacy_eos_pack": "legacy_eos_pack",
         "legacy_advance": "legacy_advance",
+        "cell_sort": "cell_sort",
     }
 
     phase("1 environment")
@@ -3795,6 +3938,15 @@ def main() -> int:
     times |= leg_row_times
     bound |= leg_row_bound
     print(f"  phase 27: {time.perf_counter() - t27:.1f} s")
+
+    phase(f"28 the rebuild's front (csrc/cell_sort.cu) vs the ids and torch.sort: demo_2d, "
+          f"the 2D band, SMALL_SORT_ROWS and one more, one cell, reverse order, cell edges, "
+          f"NaN and infinite rows, the 3D golden start")
+    t28 = time.perf_counter()
+    front_err, front_times, front_bound, library["cell_sort"] = front_phase(tt, card_line)
+    times |= front_times
+    bound |= front_bound
+    print(f"  phase 28: {time.perf_counter() - t28:.1f} s")
     print(f"  run_sharded --mesh2d 2x2 --profile 20 (phase 17): "
           f"{rect_prof['device_ops_per_step']:.1f} device operations, "
           f"{rect_prof['device_busy_ms_per_step']:.4f} ms busy, profiled wall "
@@ -3824,6 +3976,8 @@ def main() -> int:
     # no Pallas kernel: row ops inside tisph_tpu's legacy step's jit
     src |= {k: ("tisph_tpu_torch/csrc/legacy_rows.cu", f"tisph_tpu/models/wcsph_legacy.py:{lines}")
             for k, lines in zip(LEGACY_ROW_OPS, ("51", "60-76", "98-122"))}
+    # no Pallas kernel: the cell ids and XLA's stable sort_key_val
+    src["cell_sort"] = ("tisph_tpu_torch/csrc/cell_sort.cu", "tisph_tpu/ops/grid.py:107-145")
     err_of = {"rebuild": rebuild_err, "csr_bounds": float(bounds_err)}
     # A's entries fold in its row-range (phase 14) and i-row-map (17)
     # checks and, for density and force, its check on the piled-up state
@@ -3835,6 +3989,7 @@ def main() -> int:
     err_of |= leg_errs  # demo_2d's evolved state and the 3D golden start
     err_of |= row_err  # phase 26's four states, NaN rows too
     err_of |= leg_row_err  # phase 27's four cases, NaN rows too
+    err_of["cell_sort"] = front_err  # phase 28's states
     print("  the rebuild pass after the sort, ms (kernel, plain, library, bound):")
     for label, r in rebuild.items():
         print(f"    {label:<22} {r['ms']:.4f} {r['plain_ms']:.4f} {r['library_ms']:.4f} "

@@ -24,9 +24,19 @@ Each mode is called through its public wrapper with the launch it picks
 itself (``<state> <mode>``) and at every built lane count (``<state>
 <mode> L=<lanes>``), each with its error against the plain version
 (``... err``: density's max relative error, force's max|err| / max|ref|,
-over the fluid rows).  Needs a CUDA device.
+over the fluid rows).
 
-Usage: python -m tisph_tpu_torch.kernel_times [--legacy]
+With ``--front`` it times the rebuild's front alone on legacy states:
+``cell_sort`` (csrc/cell_sort.cu, ``ops.cuda.bounds.cell_sort``) against
+the torch sequence it replaces (``grid.cell_sort``: the cell ids, then
+``torch.sort``) and ``torch.sort`` of the ids alone, on demo_2d after 500
+steps (6,304 rows), demo_2d*2 after 500 (12,600) and its first
+``SMALL_SORT_ROWS`` and ``SMALL_SORT_ROWS`` + 1 rows (the kernel's output
+checked bitwise against the torch sequence's; above ``SMALL_SORT_ROWS``,
+which the kernel holds, the torch calls alone): the crossover that sets
+``SMALL_SORT_ROWS``.  Needs a CUDA device.
+
+Usage: python -m tisph_tpu_torch.kernel_times [--legacy | --front]
 """
 
 from __future__ import annotations
@@ -220,6 +230,37 @@ def measure_legacy() -> dict:
     return out
 
 
+def measure_front() -> dict:
+    """{"<state> <call>": ms} of the rebuild's front (see the module's
+    docstring), with "<state> rows"."""
+    import tisph_tpu_torch as tt
+    from tisph_tpu_torch.ops import grid
+    from tisph_tpu_torch.ops.cuda import bounds
+
+    ends = {}
+    for label, scale in (("demo_2d+500", (1, 1)), ("demo_2d*2+500", (2, 1))):
+        solver = tt.WCSPHLegacy(_scaled_scene("demo_2d.json", scale), device="cuda")
+        end = solver.rollout(solver.bind(tt.build_state(solver.scene, device="cuda")), 500)
+        ends[label] = (end.x, end.material, solver.spec)
+    x, mat, spec = ends["demo_2d*2+500"]
+    for n in (bounds.SMALL_SORT_ROWS, bounds.SMALL_SORT_ROWS + 1):
+        ends[f"demo_2d*2+500[:{n}]"] = (x[:n], mat[:n], spec)
+    out = {}
+    for label, (x, mat, spec) in ends.items():
+        ids = grid.flat_cell_ids(grid.cell_coords(x, spec), mat, spec)
+        calls = {"torch_front": lambda: grid.cell_sort(x, mat, spec),
+                 "torch.sort": lambda: torch.sort(ids, stable=True)}
+        if x.shape[0] <= bounds.SMALL_SORT_ROWS:
+            got, want = bounds.cell_sort(x, mat, spec), grid.cell_sort(x, mat, spec)
+            if not all(torch.equal(g, w) for g, w in zip(got, want)):
+                raise AssertionError(f"cell_sort {label}: differs from the torch sequence")
+            calls["cell_sort"] = lambda: bounds.cell_sort(x, mat, spec)
+        for name, fn in calls.items():
+            out[f"{label} {name}"] = (_cuda_ms(fn, 200) + _cuda_ms(fn, 200)) / 2
+        out[f"{label} rows"] = x.shape[0]
+    return out
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -228,12 +269,16 @@ def _card() -> str:
 
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--legacy", action="store_true", help="the legacy kernel's states")
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--legacy", action="store_true", help="the legacy kernel's states")
+    mode.add_argument("--front", action="store_true",
+                      help="the rebuild's front: cell_sort against the torch sequence")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device; kernels are timed on a GPU only", file=sys.stderr)
         return 2
-    print(json.dumps({"card": _card(), "ms": measure_legacy() if args.legacy else measure()}))
+    ms = measure_legacy() if args.legacy else measure_front() if args.front else measure()
+    print(json.dumps({"card": _card(), "ms": ms}))
     return 0
 
 

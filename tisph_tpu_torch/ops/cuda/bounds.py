@@ -6,9 +6,13 @@ from ``grid.csr_bounds_fast``) and, in the same launch, the row gather of
 ``tisph_tpu.ops.grid.sort_state_by_cell``: after the cell sort, one launch
 writes the bounds and every state field in sorted order.
 
-- :func:`sort_and_bound` is the rebuild of ``WCSPH._build``: cell ids,
-  ``torch.sort``, then the kernel.  Its plain version is
-  ``grid.sort_state_by_cell`` then ``grid.csr_bounds``.
+- :func:`sort_and_bound` is the rebuild of ``WCSPH._build``: the cell
+  ids and their stable sort (the front), then the kernel.  Its plain
+  version is ``grid.sort_state_by_cell`` then ``grid.csr_bounds``.
+- :func:`cell_sort` is the front of a small state in one launch of
+  ``csrc/cell_sort.cu`` (one CTA); plain version ``grid.cell_sort`` (the
+  ids, then ``torch.sort``), which ``sort_and_bound`` runs on the card
+  above ``SMALL_SORT_ROWS`` rows.
 - :func:`gather_and_bound` is the kernel's part alone, on a sort already
   made.
 - :func:`csr_bounds_sorted` is the counterpart of the JAX function of that
@@ -17,8 +21,9 @@ writes the bounds and every state field in sorted order.
 
 A CPU tensor goes to the plain version, a CUDA tensor launches the kernel
 or raises.  ``launches.sort_and_bound`` in ``utils.profiling``'s registry
-counts the rebuild's launches (``gather_and_bound``'s among them) and
-``launches.csr_bounds_sorted`` the bounds-only ones.
+counts the rebuild's launches (``gather_and_bound``'s among them),
+``launches.csr_bounds_sorted`` the bounds-only ones and
+``launches.cell_sort`` the small-state fronts.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from __future__ import annotations
 import array
 import dataclasses
 
+import numpy as np
 import torch
 
 from tisph_tpu_torch.models.state import SimState
@@ -38,6 +44,14 @@ from tisph_tpu_torch.ops.grid import GridSpec
 # shared memory a launch gets without asking
 ITEMS_PER_CTA = 2048
 _MAX_FIELDS, _MAX_WIDTH = 9, 3  # the kernel's field table
+# csrc/cell_sort.cu's capacity (one CTA of 1,024 threads, 8 rows a
+# thread), and sort_and_bound's rule: cell_sort up to this many rows, the
+# torch sequence (grid.cell_sort) above.  On an H100 80GB HBM3 at 700 W
+# (python -m tisph_tpu_torch.kernel_times --front) the kernel takes
+# 0.0128 ms at 6,304 rows and 0.0138 at 8,192, the torch sequence
+# 0.22-0.29 and torch.sort of the ids alone 0.056-0.064: no crossover
+# below the capacity, so the rule takes the kernel up to there
+SMALL_SORT_ROWS = 8192
 
 
 def _check_ids(name: str, sorted_ids: torch.Tensor, spec: GridSpec, perm=None) -> None:
@@ -127,17 +141,48 @@ def sort_and_bound(state: SimState, spec: GridSpec
     sort of the rows by cell id, every field in that order, and the CSR
     bounds (``bounds[c]`` = first sorted index with id >= c).  On the CPU
     ``grid.sort_state_by_cell`` then ``grid.csr_bounds``; on a CUDA state
-    the cell ids, ``torch.sort`` and one launch of the kernel."""
+    the front (``cell_sort``'s one launch up to ``SMALL_SORT_ROWS`` rows,
+    else the cell ids and ``torch.sort``) and one launch of the kernel."""
     if state.device.type == "cpu":
         _check_fields(state)
         st, ids, perm = gridops.sort_state_by_cell(state, spec)
         return st, ids, perm, gridops.csr_bounds(ids, spec)
     if state.device.type != "cuda":
         raise ValueError(f"sort_and_bound: unsupported device {state.device}")
-    ids = gridops.flat_cell_ids(gridops.cell_coords(state.x, spec), state.material, spec)
-    sorted_ids, perm = torch.sort(ids, stable=True)
+    front = cell_sort if state.capacity <= SMALL_SORT_ROWS else gridops.cell_sort
+    sorted_ids, perm = front(state.x, state.material, spec)
     st, bounds = gather_and_bound(state, sorted_ids, perm, spec)
     return st, sorted_ids, perm, bounds
+
+
+def cell_sort(x: torch.Tensor, material: torch.Tensor, spec: GridSpec
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sorted_ids, perm) of ``grid.cell_sort``: the rows' flat cell ids
+    ((N,) int32, inactive rows ``spec.num_cells``) sorted stably, and the
+    permutation ((N,) int64).  ``x`` (N, dim) float32 and ``material``
+    (N,) int32, contiguous, on one device, N <= ``SMALL_SORT_ROWS``.  On
+    the CPU the plain version; on the card one launch of
+    ``csrc/cell_sort.cu``, bitwise the plain version there."""
+    n = x.shape[0]
+    if n > SMALL_SORT_ROWS:
+        raise ValueError(f"cell_sort: {n} rows, the kernel holds {SMALL_SORT_ROWS}")
+    if x.device.type == "cpu":
+        return gridops.cell_sort(x, material, spec)
+    build.check_tensors("cell_sort", n, spec.dim, {"x": (x, torch.float32, (n, spec.dim)),
+                                                   "material": (material, torch.int32, (n,))})
+    if spec.num_cells >= 2**31 - 1:
+        raise ValueError(f"cell_sort: {spec.num_cells} cells do not fit in int32")
+    pad = 3 - spec.dim
+    start = [float(np.float32(s)) for s in spec.domain_start] + [0.0] * pad
+    inv_cell = float(np.float32(1.0) / np.float32(spec.cell_size))  # torch's x / cell
+    hi = [r - 1 for r in spec.res] + [0] * pad
+    strides = list(spec.strides) + [0] * pad
+    sorted_ids = torch.empty((n,), dtype=torch.int32, device=x.device)
+    perm = torch.empty((n,), dtype=torch.int64, device=x.device)
+    build.launch("cell_sort", "tisph_cell_sort", x.device, x.data_ptr(), material.data_ptr(),
+                 n, spec.dim, *start, inv_cell, *hi, *strides, spec.num_cells,
+                 spec.num_cells.bit_length(), sorted_ids.data_ptr(), perm.data_ptr())
+    return sorted_ids, perm
 
 
 def csr_bounds_sorted(sorted_ids: torch.Tensor, spec: GridSpec) -> torch.Tensor:

@@ -43,6 +43,8 @@ _F = ctypes.c_float
 # ctypes never cuts a 64-bit address to a C int.
 _SIGNATURES = {
     "tisph_rebuild": [_P, _P, _I, _I, _P, _I, _I, _P, _P],
+    "tisph_cell_sort": [_P, _P, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _P, _P, _P],
     "tisph_sweep": [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                     _I, _I, _I, _I, _I,
                     _F, _F, _F, _F, _F, _F, _F, _F, _F, _P],

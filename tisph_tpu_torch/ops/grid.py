@@ -116,10 +116,17 @@ def sort_state_by_cell(
     Returns (sorted_state, sorted_ids, perm), perm int64.  The sorted state
     holds fresh tensors, so nothing the caller holds is aliased.
     """
-    coords = cell_coords(state.x, spec)
-    ids = flat_cell_ids(coords, state.material, spec)
-    sorted_ids, perm = torch.sort(ids, stable=True)
+    sorted_ids, perm = cell_sort(state.x, state.material, spec)
     return gather_state(state, perm), sorted_ids, perm
+
+
+def cell_sort(x: torch.Tensor, material: torch.Tensor, spec: GridSpec
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(sorted_ids, perm): the rows' flat cell ids sorted stably, (N,)
+    int32, and the sort's permutation, (N,) int64.  The plain version of
+    the small-state front kernel (``ops.cuda.bounds.cell_sort``)."""
+    ids = flat_cell_ids(cell_coords(x, spec), material, spec)
+    return torch.sort(ids, stable=True)
 
 
 def state_fields(state: SimState) -> list[str]:
