@@ -35,7 +35,8 @@ def _seeds(cell, prog_cls, seeds: list[int], device, control: int = 0):
     prog = None
     for n, seed in enumerate(seeds):
         t0 = time.perf_counter()
-        s0 = inputs.start_state(cell.scene, float(cell.config["jitter"]), seed)
+        s0 = inputs.start_state(cell.scene, float(cell.config["jitter"]), seed,
+                                cell.scene_path.parent)
         if prog is None:
             prog, s0_dev, _ = harness.setup(prog_cls, cell, s0, device)
         else:
@@ -69,8 +70,9 @@ def readings(cell, seeds: list[int], n_control: int, faults: list[str], device) 
     for side, vals in [("program", out["program"]), ("control", out["control"])] + [
             (f, out["faults"][f]) for f in faults]:
         if vals:
-            out[side + "_max"] = {k: max(r[k] for r in vals.values()) for k in check.NUMBERS}
-            out[side + "_min"] = {k: min(r[k] for r in vals.values()) for k in check.NUMBERS}
+            keys = [k for k in next(iter(vals.values())) if k not in ("nan_answers", "correct")]
+            out[side + "_max"] = {k: max(r[k] for r in vals.values()) for k in keys}
+            out[side + "_min"] = {k: min(r[k] for r in vals.values()) for k in keys}
     return out
 
 

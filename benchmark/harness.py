@@ -28,13 +28,10 @@ import time
 import numpy as np
 import torch
 
-from benchmark import check, trace, work
-from benchmark.program import to_host
+from benchmark import check, inputs, trace, work
 
 # states of the traced pass spread over its episode, for the pair counts
 PAIR_STATES = 10
-# the fields of a chunk's answer that the check's second run has to repeat
-REPLAYED = ("x", "v", "density", "pressure", "object_id")
 
 
 @dataclasses.dataclass
@@ -180,26 +177,25 @@ def measure(prog, cell, s0_dev, s0_host, seed: int, episodes: int, traced: bool
     return rec, kept
 
 
-def step_bound(cell, states: list) -> float:
+def step_bound(cell, states: list[dict]) -> float:
     """The least ms of a step on the card (``work.step_bound_ms``), with
-    the pairs inside h averaged over ``states``."""
+    the pairs inside h averaged over ``states``: each the ``x`` and
+    ``material`` of every row, host arrays or tensors (``Program.rows``)."""
     scene = cell.scene["configuration"]
     dim = int(scene.get("dim", len(scene["domainStart"])))
     start, end = scene["domainStart"][:dim], scene["domainEnd"][:dim]
     h = 4.0 * float(scene["particleRadius"])
     dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    kind = cell.config["solver"]
     totals: dict[str, float] = {}
     for st in states:
-        x = torch.as_tensor(np.asarray(st["x"]) if isinstance(st, dict) else st.x, device=dev)
-        mat = torch.as_tensor(np.asarray(st["material"]) if isinstance(st, dict)
-                              else st.material, device=dev)
-        for k, v in work.count_pairs(x, mat, h, start, end).items():
+        x, mat = (torch.as_tensor(st[k], device=dev) for k in ("x", "material"))
+        for k, v in work.count_pairs(x, mat, h, start, end, boundary=kind == "rigid").items():
             totals[k] = totals.get(k, 0) + v / len(states)
-    st = states[0]
-    mat = np.asarray(st["material"]) if isinstance(st, dict) else st.material.cpu().numpy()
-    rows = int(st.x.shape[0]) if not isinstance(st, dict) else int(mat.shape[0])
-    phases = work.step_bound_ms(cell.config["solver"], dim, rows, int((mat == 1).sum()),
-                                work.grid_cells(start, end, h), resort_every(cell), totals)
+    mat = torch.as_tensor(states[0]["material"])
+    phases = work.step_bound_ms(kind, dim, int(mat.shape[0]), int((mat == 1).sum()),
+                                work.grid_cells(start, end, h), resort_every(cell), totals,
+                                bodies=len(inputs.dynamic_bodies(cell.scene)))
     return sum(phases.values())
 
 
@@ -217,14 +213,13 @@ def answers(prog, cell, kept: Kept, s0_dev, s0_host) -> list[tuple]:
     if cell.traffic["dump"]:
         return [(inp, out, plan[p], 0) for p, (inp, out) in sorted(kept.pairs.items())]
     first = prog.advance(s0_dev, R)
-    todo = [(s0_host, to_host(first), R, 0)]
+    todo = [(s0_host, prog.to_host(first), R, 0)]
     for p, (inp, out) in sorted(kept.pairs.items()):
         k = plan[p]
         pre = prog.advance(inp, k - R) if k > R else inp
-        pre_host = to_host(pre)
+        pre_host = prog.to_host(pre)
         last = prog.advance(pre, R)
-        same = all(torch.equal(getattr(last, f), getattr(out, f)) for f in REPLAYED)
-        todo.append((pre_host, to_host(out), R, int(not same)))
+        todo.append((pre_host, prog.to_host(out), R, int(not prog.same(last, out))))
     return todo
 
 

@@ -37,6 +37,9 @@ class Physics:
     radius: float
     domain_start: tuple[float, ...]
     domain_end: tuple[float, ...]
+    # the indices in the scene's ``rigidBodies`` of its dynamic bodies, the
+    # tags of their rows
+    bodies: tuple[int, ...] = ()
 
     @property
     def h(self) -> float:
@@ -64,7 +67,9 @@ def physics(scene: dict, compat: str) -> Physics:
         gravity=tuple(float(g) for g in cfg.get("gravitation", [0.0, -9.81, 0.0])[:dim]),
         radius=float(cfg["particleRadius"]),
         domain_start=tuple(float(s) for s in start[:dim]),
-        domain_end=tuple(float(e) for e in cfg["domainEnd"][:dim]))
+        domain_end=tuple(float(e) for e in cfg["domainEnd"][:dim]),
+        bodies=tuple(k for k, b in enumerate(scene.get("rigidBodies") or [])
+                     if b.get("isDynamic")))
 
 
 def sigma(dim: int, h: float) -> float:
@@ -103,13 +108,25 @@ def pairs_inside(cl: CellList, x: torch.Tensor, fluid: torch.Tensor, h: float):
         yield i[keep], j[keep], r[keep], r2[keep]
 
 
+# the dynamic bodies' state, where a state holds it: the program's
+# ``RigidState`` fields, one row a body
+BODY_FIELDS = ("rigid_com", "rigid_v_com", "rigid_omega")
+
+
 def to_device(state: dict, device, dtype) -> dict:
     """The live rows of a host or device state (the program's field
     names), fluid and boundary, as tensors of ``dtype`` (integer fields
-    int64) on ``device``."""
+    int64) on ``device``, and the bodies' state (:data:`BODY_FIELDS`,
+    and ``rigid_object_ids``) where it has it."""
     n = int(state["num_active"])
     out = {k: torch.as_tensor(state[k][:n]).to(device=device, dtype=dtype)
            for k in ("x", "v", "density", "pressure", "mass", "volume")}
     for k in ("material", "object_id"):
         out[k] = torch.as_tensor(state[k][:n]).to(device=device, dtype=torch.int64)
+    for k in BODY_FIELDS:
+        if k in state:
+            out[k] = torch.as_tensor(state[k]).to(device=device, dtype=dtype)
+    if "rigid_object_ids" in state:
+        out["rigid_object_ids"] = torch.as_tensor(state["rigid_object_ids"]).to(
+            device=device, dtype=torch.int64)
     return out

@@ -8,8 +8,9 @@ Prints, as the last line of standard output, one JSON object: ``correct``,
 ``attempted`` (answers in the window), ``failed`` (answers found wrong),
 ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1`` its
 per-layer ones), ``device``, with ``--trace 1`` ``breakdown``, and last
-``checked``: each number of the check with its limit, which also end
-standard error.  Needs as many CUDA devices as the cell asks for: it
+``checked``: each number of the check that the cell's limits hold,
+with its limit, which also end standard error (the log holds every
+number of each answer).  Needs as many CUDA devices as the cell asks for: it
 exits 3 without them and never measures the CPU.
 """
 
@@ -53,7 +54,8 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, t_start: flo
     from benchmark import harness, inputs
     from benchmark.program import Program
 
-    s0_host = inputs.start_state(cell.scene, float(cell.config["jitter"]), seed)
+    s0_host = inputs.start_state(cell.scene, float(cell.config["jitter"]), seed,
+                                 cell.scene_path.parent)
     prog, s0_dev, episode_s = harness.setup(Program, cell, s0_host, device)
     setup_s = time.perf_counter() - t_start
     # the whole episodes that take about ``seconds``, timed by the warm-up's
@@ -65,7 +67,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, t_start: flo
         + (f", {len(rec.frame_ms)} frames" if rec.frame_ms else "") + f" in {rec.wall_s:.6f} s; "
         f"episodes' seconds {[round(e, 6) for e in rec.episode_s]}")
     if traced:
-        rec.bound_ms_per_step = harness.step_bound(cell, kept.spread)
+        rec.bound_ms_per_step = harness.step_bound(cell, [prog.rows(s) for s in kept.spread])
         busy_ms = rec.device.busy_s * 1e3
         log(f"traced episode: {rec.steps} steps, unprofiled wall {rec.wall_s * 1e3:.6f} ms, "
             f"profiled window {rec.device.window_s * 1e3:.6f} ms, "
@@ -79,7 +81,7 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, t_start: flo
     readings, _ = harness.judge(cell, todo, device)
     for n, r in enumerate(readings):
         log(f"check: answer {n} of {len(todo)} ({todo[n][2]} steps): "
-            + ", ".join(f"{k} {r[k]!r}" for k in harness.check.NUMBERS))
+            + ", ".join(f"{k} {v!r}" for k, v in r.items()))
     limits = cell.limits["limits"]
     numbers = harness.check.worst(readings)
     wrong = bad + sum(not harness.check.verdict(r, limits) for r in readings)
@@ -102,7 +104,8 @@ def run_cell(cell, seed: int, seconds: float, traced: bool, device, t_start: flo
         dev["window_s"] = rec.device.window_s
         line["breakdown"] = {"device_ops": harness.trace.top(rec.device.by_name),
                              "idle_gaps": harness.trace.top(rec.device.idle_by_span)}
-    line["checked"] = {k: {"value": numbers[k], "limit": limits[k]} for k in numbers}
+    line["checked"] = {k: {"value": numbers.get(k, float("nan")), "limit": limits[k]}
+                       for k in limits}
     line["checked"]["nan_answers"] = {"value": bad, "limit": 0}
     return line
 

@@ -18,4 +18,4 @@ def test_a_short_run_on_the_card():
     line = run_cell(load_cell("demo_2d_v1.frames"), 4242, 1.0, False, torch.device("cuda", 0),
                     time.perf_counter(), log=lambda s: None)
     assert line["correct"], line["checked"]
-    assert line["device"]["platform"] == "gpu" and line["metrics"]["particle_steps_per_s"]
+    assert line["device"]["platform"] == "gpu" and line["metrics"]["peak_mem_mib"]

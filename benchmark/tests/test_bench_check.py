@@ -17,6 +17,7 @@ from benchmark.tests import tiny
 
 TINY = [f"{c}.{m}" for c in tiny.TINY_SCENES for m in tiny.MIXES]
 WALLS = [f"{c}.{m}" for c in tiny.WALLS for m in tiny.MIXES]
+BODIES = [f"{c}.{m}" for c in tiny.BODIES for m in tiny.MIXES]
 
 
 @pytest.fixture(scope="module")
@@ -39,7 +40,7 @@ def test_control_fails(bench_json, cell):
     dev = torch.device("cpu")
     prog = None
     for seed in (3, 2 ** 31 + 11, 2 ** 40 + 5):
-        s0 = inputs.start_state(c.scene, float(c.config["jitter"]), seed)
+        s0 = inputs.start_state(c.scene, float(c.config["jitter"]), seed, c.scene_path.parent)
         if prog is None:
             prog, s0_dev, _ = harness.setup(Program, c, s0, dev)
         else:
@@ -53,12 +54,14 @@ def test_control_fails(bench_json, cell):
 
 
 def _unchanged(monkeypatch):
-    """A step that returns its state unchanged."""
+    """A step that returns its state unchanged (the bodies' too)."""
     import tisph_tpu_torch.models.wcsph as w
     import tisph_tpu_torch.models.wcsph_legacy as wl
+    import tisph_tpu_torch.models.wcsph_rigid as wr
 
     for cls in (w.WCSPH, wl.WCSPHLegacy):
         monkeypatch.setattr(cls, "_apply", lambda self, state, cache, **kw: state)
+    monkeypatch.setattr(wr.WCSPHRigid, "_coupled_substep", lambda self, carry, cache: carry)
 
 
 def _half_left_out(monkeypatch):
@@ -72,12 +75,14 @@ def _half_left_out(monkeypatch):
 
         def half(self, state, cache, _step=step, **kw):
             new = _step(self, state, cache, **kw)
+            new, *reactions = new if isinstance(new, tuple) else (new,)
             keep = torch.zeros(state.capacity, dtype=torch.bool)
             keep[::2] = True
-            return dataclasses.replace(new, **{
+            new = dataclasses.replace(new, **{
                 k: torch.where(keep.view(-1, *[1] * (getattr(new, k).dim() - 1)),
                                getattr(state, k), getattr(new, k))
                 for k in ("x", "v", "density", "pressure")})
+            return (new, *reactions) if reactions else new
 
         monkeypatch.setattr(cls, "_apply", half)
 
@@ -107,7 +112,8 @@ def _physics(name):
 
         make = config.SolverParams.from_scene.__func__
         monkeypatch.setattr(config.SolverParams, "from_scene", classmethod(
-            lambda cls, scene, compat="reference": FAULTS[name](make(cls, scene, compat))))
+            lambda cls, scene, compat="reference": FAULTS[name](make(cls, scene, compat),
+                                                                None)[0]))
     plant.__name__ = f"_{name}"
     return plant
 
@@ -122,6 +128,23 @@ def test_faults_fail(bench_json, cell, fault, monkeypatch):
     fault(monkeypatch)
     line = tiny.run(bench_json, cell)
     assert not line["correct"], line["checked"]
+
+
+@pytest.mark.parametrize("cell", BODIES)
+def test_body_fault_fails(bench_json, cell, monkeypatch):
+    """The fluid's reactions on the bodies scaled by 0.9 before the bodies'
+    sums (``reactions_scaled``, the fluid's own step untouched) reads
+    ``correct`` false in a cell with a dynamic body."""
+    import tisph_tpu_torch as tt
+    import tisph_tpu_torch.models.wcsph_rigid as wr
+
+    from benchmark.program import FAULTS
+
+    faulty = FAULTS["reactions_scaled"](None, wr.WCSPHRigid)[1]
+    monkeypatch.setattr(tt, "WCSPHRigid", faulty)
+    line = tiny.run(bench_json, cell)
+    assert not line["correct"], line["checked"]
+    assert line["checked"]["body_dv_gap"]["value"] > tiny.BODY_LIMITS["body_dv_gap"]
 
 
 @pytest.mark.parametrize("cell", WALLS)
@@ -148,7 +171,7 @@ def test_reference_matches_the_program_per_step(bench_json):
         wall = s0["material"] == 0  # by tag: a tag is a row of S0
         for _ in range(3):
             out = prog.advance(st, harness.resort_every(c))
-            out_host = harness.to_host(out)
+            out_host = prog.to_host(out)
             ref = check.reference_steps(c, host, harness.resort_every(c),
                                         harness.resort_every(c), torch.device("cpu"))
             nums = check.compare(c, host, out_host, ref)
@@ -172,7 +195,7 @@ def test_moved_or_resized_boundary_rows_are_lost(bench_json):
     c = load_cell("tiny_3d_walls.tiny_run", bench_json)
     s0 = inputs.start_state(c.scene, float(c.config["jitter"]), 5)
     prog = Program(c, torch.device("cpu"), harness.resort_every(c))
-    out = harness.to_host(prog.advance(prog.start(s0), 2))
+    out = prog.to_host(prog.advance(prog.start(s0), 2))
     ref = check.reference_steps(c, s0, 2, 2, torch.device("cpu"))
     good = check.compare(c, s0, out, ref)
     assert good["lost"] == 0

@@ -52,7 +52,9 @@ def test_cell_pieces_parse(cell):
     for key in ("episode_steps", "chunk_steps", "dump", "health_read", "check_random"):
         assert key in c.traffic
     names = {m.name for m in c.metrics}
-    assert {"particle_steps_per_s", "setup_s", "peak_mem_mib"} <= names
+    assert {"setup_s", "peak_mem_mib"} <= {m.name for m in c.metrics if m.end_to_end}
+    # the rate end to end, or per layer where the host's noise swamps it
+    assert "particle_steps_per_s" in names or "particle_steps_per_s.frames" in names
     assert any(not m.end_to_end for m in c.metrics)
 
 

@@ -35,5 +35,5 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
 
 def test_the_reference_loads_nothing_of_the_program():
     top = _loaded("import benchmark.check, benchmark.work, benchmark.reference.v1, "
-                  "benchmark.reference.v2")
+                  "benchmark.reference.v2, benchmark.reference.v2_rigid, benchmark.voxels")
     assert not top & {"tisph_tpu_torch", *run.FORBIDDEN}

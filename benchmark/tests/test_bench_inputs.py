@@ -1,6 +1,6 @@
 """S0 from a scene and a seed: bitwise what it was for the committed
-pure-fluid configurations, boundary blocks as the program samples them,
-and what the benchmark cannot make yet refused."""
+configurations, boundary blocks as the program samples them, and what
+the benchmark cannot make yet refused (rigid bodies: test_bench_rigid)."""
 
 from __future__ import annotations
 
@@ -41,6 +41,23 @@ def test_start_states_match_their_frozen_digests(config, seed):
     c = _config_cell(config)
     assert _digest(inputs.start_state(c.scene, float(c.config["jitter"]), seed)) == \
         FROZEN[config, seed]
+
+
+# seed 0's S0 of each configuration, as the benchmark made it before it
+# took rigid bodies (and with them tags other than the start rows)
+SEED_0 = {
+    "demo_3d": "a9457c0244cf19269c86eb8e28c8cada183a72d888d21c12bab4f9e94f77d5e0",
+    "demo_2d_v1": "227068f09358e523fead4858a77683302a4aafe053a30221bd5273147cd374cb",
+    "dam_1m": "9824bfa872eda4706fbbc7748bd100342591a5fa5080d7e171c2de0adaa1e1e6",
+    "spheric2": "b0ddfe2bf8001369f421bc35c9fa29e509a7922c05de05cc9d697f03c51ce9cb",
+}
+
+
+@pytest.mark.parametrize("config", sorted(SEED_0))
+def test_seed_0_start_states_are_pinned(config):
+    c = _config_cell(config)
+    s0 = inputs.start_state(c.scene, float(c.config["jitter"]), 0, c.scene_path.parent)
+    assert _digest(s0) == SEED_0[config]
 
 
 def test_every_frozen_start_names_a_configuration():

@@ -44,6 +44,33 @@ def test_step_bound_phases():
     assert b["force"] == pytest.approx(5.0e7 * 60 / 67e12 * 1e3)  # bound by operations
 
 
+# the bounds of the pure-fluid and legacy kinds, as the benchmark gave them
+# before it knew the coupled kind: (arguments, phases)
+PINNED = [
+    (("wcsph", 3, 195304, 195300, 468750, 2, {"with_self": 5.2e7}),
+     {"density": 0.019402985074626865, "force": 0.046567164179104475,
+      "rebuild": 0.003544634626865672, "eos": 0.0037894805970149254,
+      "advance": 0.003731166567164179}),
+    (("wcsph", 3, 739024, 676500, 93310, 2, {"with_self": 1.9e8}),
+     {"density": 0.07089552238805971, "force": 0.1701492537313433,
+      "rebuild": 0.012409542089552238, "eos": 0.014339271641791045,
+      "advance": 0.013894700895522388}),
+    (("legacy", 2, 6304, 6300, 12544, 1, {"fluid": 1.5e5, "live": 1.6e5}),
+     {"density": 6.766925373134329e-05, "force": 0.0001354137313432836,
+      "rebuild": 0.00019563104477611943, "eos": 0.00011478925373134328,
+      "advance": 8.278925373134329e-05}),
+    (("legacy", 3, 195304, 195300, 468750, 1, {"fluid": 4.1e7, "live": 4.2e7}),
+     {"density": 0.014686567164179104, "force": 0.03322388059701493,
+      "rebuild": 0.007089269253731344, "eos": 0.0037894805970149254,
+      "advance": 0.003731166567164179}),
+]
+
+
+@pytest.mark.parametrize("args,phases", PINNED)
+def test_step_bound_is_pinned(args, phases):
+    assert work.step_bound_ms(*args) == phases
+
+
 def test_pair_count_with_boundary_rows_on_the_grid():
     """The tank of boundary rows, whose lattice lies on the faces of the
     cells: every fluid row's pairs with fluid and boundary rows counted."""
@@ -71,15 +98,15 @@ def test_step_bound_takes_every_row(monkeypatch):
                                  traffic={"resort_every": None})
     seen = {}
 
-    def bound(*args):
-        seen["args"] = args
+    def bound(*args, **kw):
+        seen["args"], seen["kw"] = args, kw
         return {"all": 1.0}
 
     monkeypatch.setattr(work, "step_bound_ms", bound)
     assert harness.step_bound(cell, states) == 1.0
     solver, dim, rows, fluid, cells, resort, pairs = seen["args"]
     n = int(states[0]["num_active"])
-    assert (solver, dim, rows, resort) == ("wcsph", 3, n, 2)
+    assert (solver, dim, rows, resort) == ("wcsph", 3, n, 2) and seen["kw"] == {"bodies": 0}
     assert fluid == int((states[0]["material"] == 1).sum()) < n
     assert cells == work.grid_cells([0.0] * 3, [0.5] * 3, 0.04)
     mean = {k: sum(_brute(s["x"], s["material"], 0.04)[k] for s in states) / 2 for k in pairs}

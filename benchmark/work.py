@@ -17,6 +17,24 @@ Copied from ``chip_smoke.py`` (lines 432-458) of the program's tree:
 - ``ADVANCE_FLOPS_PER_FLUID_ROW`` (``:458``): symplectic Euler and the
   domain clamp, a fluid row, by dim.
 
+The coupled step's (kind ``rigid``, ``tt.WCSPHRigid``), counted from
+``csrc/sweeps.cu`` and ``csrc/sweep_common.cuh`` for this file:
+
+- ``bvol``, every step (the bodies move): kernel A's mode 2 on each
+  boundary row over its live j, the density's arithmetic
+  (``FLOPS_PER_PAIR["density"]``, the pack's w the boundary flag);
+- ``force_react`` (mode 3) in place of ``force``: on a fluid row the
+  force's 60 operations a pair; on a boundary row
+  ``REACTION_FLOPS_PER_PAIR``, 23 to the spline value, then the gradient
+  magnitude 4, ``dot_neg`` 11 (three differences, three products, two
+  sums, the min, r^2 + eps, the divide), nu_b,j 3 (max, reciprocal,
+  product), the coefficient 5 and the three accumulations 6;
+- the bodies' passes of ``models/rigid.py`` (``body_sums`` and
+  ``move_body_rows``, a pass over all N rows a body): the bytes of the
+  fields each reads and writes once, ``BODY_BYTES_PER_ROW`` by dim (x,
+  mass, tag, the boundary flag and the reaction read to sum; tag, flag,
+  x and v read and x and v written to move).
+
 The pairs are counted by this file's own cell list on the benchmark's
 states, never by the program.
 """
@@ -35,14 +53,19 @@ FLOPS_PER_PAIR = {"density": 25, "force": 60}
 LEGACY_FLOPS_PER_PAIR = {"density": {2: 21, 3: 24}, "force": {2: 43, 3: 53}}
 EOS_FLOPS_PER_ROW = 12
 ADVANCE_FLOPS_PER_FLUID_ROW = {2: 38, 3: 56}
+REACTION_FLOPS_PER_PAIR = 52
+BODY_BYTES_PER_ROW = {d: (4 * d + 4 + 4 + 1 + 4 * d) + (4 + 1 + 2 * 4 * d + 2 * 4 * d)
+                      for d in (2, 3)}
 
 
 def count_pairs(x: torch.Tensor, material: torch.Tensor, h: float,
-                domain_start, domain_end) -> dict[str, int]:
+                domain_start, domain_end, boundary: bool = False) -> dict[str, int]:
     """Pairs inside h (r < h) of the fluid rows i of a state:
     ``with_self`` over every live j, the self pair included (the V2
     sums); ``fluid`` over fluid j != i (the V1 density); ``live`` over
-    live j != i (the V1 force)."""
+    live j != i (the V1 force); with ``boundary`` also
+    ``boundary_with_self``, of the boundary rows i over every live j, the
+    self pair included (the coupled step's bvol and reactions)."""
     live = torch.nonzero(material >= 0).squeeze(1)
     fluid = material[live] == 1
     cl = CellList(x, live, domain_start, domain_end, h)
@@ -53,7 +76,14 @@ def count_pairs(x: torch.Tensor, material: torch.Tensor, h: float,
         other = near & (i != j)
         counts += torch.stack([near.sum(), (other & (material[j] == 1)).sum(), other.sum()])
     with_self, fl, lv = counts.tolist()
-    return {"with_self": with_self, "fluid": fl, "live": lv}
+    out = {"with_self": with_self, "fluid": fl, "live": lv}
+    if boundary:
+        near = 0
+        for i, j in cl.candidates(material[live] == 0):
+            d = x[i].to(torch.float64) - x[j].to(torch.float64)
+            near += int(((d * d).sum(-1) < h * h).sum())
+        out["boundary_with_self"] = near
+    return out
 
 
 def _phase_ms(nbytes: float, flops: float) -> float:
@@ -61,18 +91,20 @@ def _phase_ms(nbytes: float, flops: float) -> float:
 
 
 def step_bound_ms(solver: str, dim: int, rows: int, fluid: int, cells: int, resort: int,
-                  pairs: dict[str, float]) -> dict[str, float]:
+                  pairs: dict[str, float], bodies: int = 0) -> dict[str, float]:
     """The least ms of one step's phases on the card, each the larger of
     its bytes (each input read once, each output written once) over the
     HBM rate and its operations over the float32 rate: the density and
-    force sums, the rebuild (every ``resort`` steps) and the two row ops.
-    ``rows`` are the state's rows, ``cells`` the grid's, ``pairs`` from
-    :func:`count_pairs` (a mean over states)."""
+    force sums, the rebuild (every ``resort`` steps) and the two row ops;
+    for ``rigid`` also ``bvol`` and the ``bodies`` dynamic bodies' passes,
+    and ``force_react`` in place of the force.  ``rows`` are the state's
+    rows, ``cells`` the grid's, ``pairs`` from :func:`count_pairs` (a mean
+    over states; for ``rigid``, with ``boundary``)."""
     words = 2 * dim + 8  # 4-byte words of a row: x, v, density, pressure, mass, volume,
     #                      material, color (3), object_id
     pack = rows * 16  # one float4 pack a row
     index = rows * 4 + (cells + 1) * 4  # sort-time ids and the CSR bounds
-    if solver == "wcsph":
+    if solver in ("wcsph", "rigid"):
         density_ops = pairs["with_self"] * FLOPS_PER_PAIR["density"]
         force_ops = pairs["with_self"] * FLOPS_PER_PAIR["force"]
     elif solver == "legacy":
@@ -80,7 +112,7 @@ def step_bound_ms(solver: str, dim: int, rows: int, fluid: int, cells: int, reso
         force_ops = pairs["live"] * LEGACY_FLOPS_PER_PAIR["force"][dim]
     else:
         raise ValueError(f"unknown solver {solver!r}")
-    return {
+    phases = {
         "density": _phase_ms(pack + index + rows * 4 + rows * 4, density_ops),
         "force": _phase_ms(3 * pack + index + rows * 4 + rows * dim * 4, force_ops),
         "rebuild": _phase_ms(2 * rows * 4 * words + (cells + 1) * 4, 0) / resort,
@@ -89,6 +121,15 @@ def step_bound_ms(solver: str, dim: int, rows: int, fluid: int, cells: int, reso
         "advance": _phase_ms(rows * (2 * 4 * dim + 4) + fluid * 4 * dim + rows * 2 * 4 * dim,
                              fluid * ADVANCE_FLOPS_PER_FLUID_ROW[dim]),
     }
+    if solver == "rigid":
+        boundary_pairs = pairs["boundary_with_self"]
+        phases["bvol"] = _phase_ms(pack + index + rows * 4 + rows * 4,
+                                   boundary_pairs * FLOPS_PER_PAIR["density"])
+        del phases["force"]
+        phases["force_react"] = _phase_ms(3 * pack + index + rows * 4 + rows * dim * 4,
+                                          force_ops + boundary_pairs * REACTION_FLOPS_PER_PAIR)
+        phases["bodies"] = _phase_ms(bodies * rows * BODY_BYTES_PER_ROW[dim], 0)
+    return phases
 
 
 def grid_cells(domain_start, domain_end, h: float) -> int:
